@@ -1,0 +1,26 @@
+"""Carry a built index across from the JAX package as plain arrays.
+
+The reference's ``RangeSearchEngine`` holds ``points``, ``graph.neighbors``
+and ``start_ids``; given those as numpy arrays, ``engine_from_arrays``
+builds this package's engine over the identical index, so both packages
+can be run on the same graph.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.engine import RangeSearchEngine
+from .core.graph import Graph
+from .utils import resolve_device
+
+
+def engine_from_arrays(points, neighbors, start_ids, metric: str = "l2",
+                       device="cuda") -> RangeSearchEngine:
+    dev = resolve_device(device)
+    pts = torch.as_tensor(np.array(points, np.float32), device=dev)
+    nbrs = torch.as_tensor(np.array(neighbors, np.int32), device=dev)
+    starts = torch.as_tensor(np.array(start_ids, np.int32), device=dev)
+    return RangeSearchEngine(points=pts.contiguous(),
+                             graph=Graph(neighbors=nbrs.contiguous()),
+                             start_ids=starts.reshape(-1), metric=metric)

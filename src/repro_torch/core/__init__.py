@@ -1,0 +1,33 @@
+"""The paper's contribution: range retrieval on graph-based indices."""
+from .beam_search import (
+    ES_D_TOP1,
+    ES_D_TOP10,
+    ES_D_VISITED,
+    ES_NONE,
+    ES_RATIO_TOP10,
+    BeamState,
+    SearchConfig,
+    beam_search_batch,
+    broadcast_radius,
+    topk_from_state,
+)
+from .build import build_knn_graph
+from .distances import gather_dist, pairwise_dist, point_dist
+from .engine import RangeSearchEngine
+from .graph import Graph, medoid, start_points
+from .ground_truth import exact_range_search, exact_topk, range_counts_at
+from .metrics import average_precision, recall_at_k, zero_result_accuracy
+from .radius import RadiusProfile, default_grid, match_histogram, select_radius, sweep
+from .range_search import (
+    GreedyState,
+    RangeConfig,
+    RangeResult,
+    filter_tombstoned,
+    finalize_results,
+    greedy_search,
+    range_phase1,
+    range_search_compacted,
+    range_search_fused,
+)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,0 +1,104 @@
+"""RangeSearchEngine — one graph index answering top-k and range queries."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..utils import resolve_device
+from .beam_search import SearchConfig, beam_search_batch, broadcast_radius, topk_from_state
+from .graph import Graph, start_points
+from .range_search import (
+    RangeConfig,
+    RangeResult,
+    range_search_compacted,
+    range_search_fused,
+)
+
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class RangeSearchEngine:
+    """An in-memory graph index over an (N, d) f32 or bf16 corpus, on one
+    device. Every query runs on the engine's device."""
+
+    points: torch.Tensor    # (N, d) float32 / bfloat16
+    graph: Graph
+    start_ids: torch.Tensor # (S,) int32 search entry points
+    metric: str = "l2"
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+    # -- construction -------------------------------------------------------
+    @staticmethod
+    def from_graph(points, graph: Graph, metric: str = "l2",
+                   n_starts: int = 4, corpus_dtype: Optional[str] = None,
+                   device="cuda") -> "RangeSearchEngine":
+        """Engine over ``points`` (numpy or tensor) and a built ``graph``.
+        Entry points are chosen on the f32 vectors; ``corpus_dtype``
+        ("float32" | "bfloat16") sets what the search stores and gathers."""
+        dev = resolve_device(device)
+        pts = torch.as_tensor(points, device=dev).float().contiguous()
+        starts = start_points(pts, metric, n_starts)
+        if corpus_dtype is not None:
+            if corpus_dtype not in _STORAGE:
+                raise NotImplementedError(
+                    f"corpus_dtype={corpus_dtype!r} is not ported yet: the int8 "
+                    "corpus is a later slice of the port (ROADMAP.md §1)")
+            pts = pts.to(_STORAGE[corpus_dtype])
+        nbrs = graph.neighbors.to(device=dev, dtype=torch.int32).contiguous()
+        return RangeSearchEngine(points=pts, graph=Graph(neighbors=nbrs),
+                                 start_ids=starts, metric=metric)
+
+    # -- queries -------------------------------------------------------------
+    def _queries(self, queries) -> torch.Tensor:
+        return torch.as_tensor(queries).to(device=self.device,
+                                           dtype=torch.float32).contiguous()
+
+    def topk(self, queries, k: int = 10, cfg: Optional[SearchConfig] = None):
+        cfg = cfg or SearchConfig(beam=max(2 * k, 32), max_beam=max(2 * k, 32),
+                                  visit_cap=max(4 * k, 128), metric=self.metric)
+        st = beam_search_batch(self.points, self.graph, self._queries(queries),
+                               self.start_ids, float("inf"), cfg)
+        return topk_from_state(st, k)
+
+    def range(self, queries, r, *, cfg: Optional[RangeConfig] = None,
+              es_radius=None, compacted: bool = True, tombstones=None,
+              filter=None) -> RangeResult:
+        """Range search. ``r`` (and ``es_radius``) is a scalar applied to
+        every query or a ``(Q,)`` vector of per-query radii. ``tombstones``
+        is a packed dead-slot bitset: deleted slots still route the
+        traversal but never appear in results. ``filter`` (label predicates)
+        is a later slice and raises."""
+        cfg = cfg or RangeConfig(search=SearchConfig(metric=self.metric))
+        if cfg.search.metric != self.metric:
+            cfg = dataclasses.replace(cfg, search=dataclasses.replace(
+                cfg.search, metric=self.metric))
+        q = self._queries(queries)
+        n = q.shape[0]
+        r = broadcast_radius(r, n, device=self.device)
+        if es_radius is not None:
+            es_radius = broadcast_radius(es_radius, n, device=self.device)
+        fn = range_search_compacted if compacted else range_search_fused
+        return fn(corpus=self.points, graph=self.graph, queries=q,
+                  start_ids=self.start_ids, r=r, cfg=cfg,
+                  es_radius=es_radius, tombstones=tombstones,
+                  label_filter=filter)
+
+    # -- introspection -------------------------------------------------------
+    def stats(self) -> dict:
+        deg = self.graph.degrees().float()
+        return dict(
+            num_points=self.points.shape[0],
+            dim=self.points.shape[1],
+            max_degree=int(self.graph.max_degree),
+            mean_degree=float(deg.mean()),
+            min_degree=int(deg.min()),
+            metric=self.metric,
+            corpus_dtype=str(self.points.dtype).removeprefix("torch."),
+            hot_bytes_per_vector=self.points.shape[1] * self.points.element_size(),
+        )

@@ -1,0 +1,62 @@
+"""Proximity-graph container: a dense padded adjacency matrix.
+
+    neighbors : (N, R) int32, row i = out-neighbors of node i,
+                padded with INVALID_ID.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..utils import INVALID_ID
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Padded fixed-degree adjacency."""
+
+    neighbors: torch.Tensor  # (N, R) int32, INVALID_ID padded
+
+    @property
+    def num_nodes(self) -> int:
+        return self.neighbors.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.neighbors.shape[1]
+
+    def degrees(self) -> torch.Tensor:
+        return torch.sum(self.neighbors != INVALID_ID, dim=1)
+
+    def out_neighbors(self, ids: torch.Tensor) -> torch.Tensor:
+        """Gather adjacency rows; invalid ids yield all-INVALID rows."""
+        valid = (ids >= 0) & (ids < self.num_nodes)
+        rows = self.neighbors[torch.where(valid, ids, 0).long()]
+        return torch.where(valid[..., None], rows, INVALID_ID)
+
+
+def medoid(points: torch.Tensor) -> torch.Tensor:
+    """Index of the point closest to the dataset centroid (search entry)."""
+    c = torch.mean(points, dim=0, keepdim=True)
+    d = torch.sum((points - c) ** 2, dim=-1)
+    return torch.argmin(d).to(torch.int32)
+
+
+def start_points(points: torch.Tensor, metric: str = "l2", k: int = 1) -> torch.Tensor:
+    """Search entry points.
+
+    L2: the medoid plus k-1 spread points (farthest-point selection).
+    MIPS: the top-norm points, ties to the lower index (as ``lax.top_k``).
+    """
+    if metric == "ip":
+        norms = torch.sum(points * points, dim=-1)
+        order = torch.sort(norms, descending=True, stable=True).indices
+        return order[:k].to(torch.int32)
+    starts = [medoid(points)]
+    mind = None
+    for _ in range(k - 1):
+        ds = torch.sum((points - points[starts[-1].long()]) ** 2, dim=-1)
+        mind = ds if mind is None else torch.minimum(mind, ds)
+        starts.append(torch.argmax(mind).to(torch.int32))
+    return torch.stack(starts).to(torch.int32)

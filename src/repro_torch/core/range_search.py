@@ -1,0 +1,473 @@
+"""Range-retrieval algorithms on top of the beam search (paper Algs. 2/5/6).
+
+Three modes, matching the paper:
+
+* ``"beam"``     — the naive baseline: one beam search, filter the beam by r.
+* ``"doubling"`` — Alg. 5: survivors restart with in-place beam widening.
+* ``"greedy"``   — Alg. 6: lanes whose beam is saturated with in-range
+  results continue with Alg. 2 (expand only in-range nodes, into a
+  fixed-capacity result buffer with an overflow flag).
+
+``range_search_compacted`` is the two-phase path: phase 1 over the whole
+batch, phase 2 only over the lanes that need it. ``range_search_fused``
+runs phase 2 masked over every lane instead. Both are the f32/bf16 corpus
+path; labels, the int8 corpus and its guard-band rerank, and the resumable
+``greedy_*_batch`` API are later slices (ROADMAP.md §1, items 4 and 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels.expand import expand_frontier
+from ..utils import INVALID_ID
+from .beam_search import (
+    BeamState,
+    SearchConfig,
+    _f32_ascending_key,
+    _f32_from_key,
+    _sort_by_dist,
+    beam_search_batch,
+    broadcast_radius,
+    in_range_count,
+)
+from .bitset import (
+    bitset_add,
+    bitset_contains,
+    bitset_exact,
+    bitset_init,
+    bitset_num_words,
+    first_slot_occurrence,
+)
+from .distances import gather_dist
+from .graph import Graph
+
+_LATER = ("is not ported yet: labels, the int8 corpus and the resumable "
+          "greedy API are later slices of the port (ROADMAP.md §1)")
+
+
+@dataclasses.dataclass(frozen=True)
+class RangeConfig:
+    """Configuration for a range query batch."""
+
+    search: SearchConfig = dataclasses.field(default_factory=SearchConfig)
+    mode: str = "greedy"          # beam | doubling | greedy
+    result_cap: int = 1024        # K_cap: per-query result buffer
+    frontier_rounds: int = 4096   # greedy expansion budget (expansions/query)
+    lam: float = 1.0              # λ threshold for entering phase 2
+
+    def __post_init__(self):
+        if self.mode not in ("beam", "doubling", "greedy"):
+            raise ValueError(f"bad mode {self.mode!r}")
+        if self.mode == "doubling" and self.search.max_beam <= self.search.beam:
+            raise ValueError("doubling mode needs search.max_beam > search.beam")
+
+
+@dataclasses.dataclass
+class RangeResult:
+    """Batched range-query output (INVALID / +inf padded)."""
+
+    ids: torch.Tensor       # (Q, K) int32
+    dists: torch.Tensor     # (Q, K) float32
+    count: torch.Tensor     # (Q,) int32 — number of valid entries
+    overflow: torch.Tensor  # (Q,) bool — K_cap or budget exceeded
+    n_visited: torch.Tensor # (Q,) int32 — phase-1 expansions
+    n_dist: torch.Tensor    # (Q,) int32 — total distance computations
+    es_stopped: torch.Tensor  # (Q,) bool
+    phase2: torch.Tensor    # (Q,) bool — query took the second phase
+    n_rerank: torch.Tensor  # (Q,) int32 — always 0 on the f32 path
+
+
+# ---------------------------------------------------------------------------
+# Greedy continuation (paper Alg. 2)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GreedyState:
+    res_ids: torch.Tensor    # (Q, K) int32 — every id here is in range
+    res_dists: torch.Tensor  # (Q, K) float32
+    res_count: torch.Tensor  # (Q,) int32
+    expand_ptr: torch.Tensor # (Q,) int32
+    rounds: torch.Tensor     # (Q,) int32
+    overflow: torch.Tensor   # (Q,) bool
+    n_dist: torch.Tensor     # (Q,) int32
+    seen_bits: torch.Tensor  # (Q, W) int32 — result-membership bitset
+
+
+def _greedy_init(st: BeamState, r, cap: int, num_words: int,
+                 exact_bits: bool) -> GreedyState:
+    """Seed the result buffer with every in-range node whose exact distance
+    is already known: the visited log plus the unexpanded in-range beam
+    entries (disjoint by construction), closest first, mirrored into a
+    membership bitset."""
+    rq = r[:, None]
+    v_ok = st.visited_dists <= rq
+    b_ok = (st.dists <= rq) & ~st.expanded & (st.ids != INVALID_ID)
+    ids = torch.cat([torch.where(v_ok, st.visited_ids, INVALID_ID),
+                     torch.where(b_ok, st.ids, INVALID_ID)], 1)
+    dists = torch.cat([torch.where(v_ok, st.visited_dists, torch.inf),
+                       torch.where(b_ok, st.dists, torch.inf)], 1)
+    dists, ids = _sort_by_dist(dists, ids)
+    qn, dev = ids.shape[0], ids.device
+    k = min(cap, ids.shape[1])
+    res_ids = torch.full((qn, cap), INVALID_ID, dtype=torch.int32, device=dev)
+    res_ids[:, :k] = ids[:, :k]
+    res_dists = torch.full((qn, cap), torch.inf, device=dev)
+    res_dists[:, :k] = dists[:, :k]
+    total = torch.sum(torch.isfinite(dists), dim=1, dtype=torch.int32)
+    bits = bitset_init(num_words, qn, dev)
+    seed_ok = res_ids != INVALID_ID  # unique ids by construction
+    if not exact_bits:  # hashed regime: collapse colliding buckets first
+        seed_ok = first_slot_occurrence(bits, res_ids, seed_ok)
+    bitset_add(bits, res_ids, seed_ok)
+    zi = torch.zeros(qn, dtype=torch.int32, device=dev)
+    return GreedyState(res_ids=res_ids, res_dists=res_dists,
+                       res_count=torch.clamp(total, max=cap), expand_ptr=zi,
+                       rounds=zi, overflow=total > cap, n_dist=zi,
+                       seen_bits=bits)
+
+
+def _append(buf: torch.Tensor, write_pos: torch.Tensor, rows: torch.Tensor):
+    """Scatter ``rows`` (Q, T, ...) into ``buf`` (Q, K, ...) at ``write_pos``
+    (Q, T); position K drops the row (a scratch slot, sliced off)."""
+    pad = torch.zeros_like(buf[:, :1])
+    idx = write_pos.long().view(*write_pos.shape, *([1] * (rows.dim() - 2)))
+    out = torch.cat([buf, pad], 1).scatter(1, idx.expand_as(rows), rows)
+    return out[:, :-1]
+
+
+def _greedy_step_reference(points, graph: Graph, q, r, cap: int,
+                           scfg: SearchConfig, gs: GreedyState,
+                           exact_bits: bool, live) -> GreedyState:
+    """Single-node greedy step (``expand_width=1``), the pre-fusion
+    dataflow. With an exact bitset the membership probe is the bitset
+    (identical to the result-buffer broadcast, since the bitset mirrors the
+    buffer); in the hashed regime it is the paper-faithful broadcast."""
+    node = torch.gather(gs.res_ids, 1,
+                        torch.clamp(gs.expand_ptr, max=cap - 1).long()[:, None])[:, 0]
+    nbrs = graph.out_neighbors(torch.where(live, node, INVALID_ID))    # (Q, R)
+    nd = gather_dist(points, nbrs, q, scfg.metric, scfg.use_kernels)
+    rr = torch.arange(nbrs.shape[1], device=q.device)
+    ok = nbrs != INVALID_ID
+    dup_in_row = torch.any((nbrs[:, :, None] == nbrs[:, None, :])
+                           & (rr[None, None, :] < rr[None, :, None])
+                           & ok[:, :, None], dim=2)
+    if exact_bits:
+        seen = bitset_contains(gs.seen_bits, torch.where(ok, nbrs, 0))
+    else:
+        seen = torch.any((nbrs[:, :, None] == gs.res_ids[:, None, :])
+                         & ok[:, :, None], dim=2)
+    new = (nd <= r[:, None]) & ~dup_in_row & ~seen & ok
+    pos = gs.res_count[:, None] + torch.cumsum(new, dim=1, dtype=torch.int32) - 1
+    write_pos = torch.where(new & (pos < cap), pos, cap)
+    n_new = torch.sum(new, dim=1, dtype=torch.int32)
+    if exact_bits:
+        bitset_add(gs.seen_bits, nbrs, new)
+    step = live.to(torch.int32)
+    return GreedyState(
+        res_ids=_append(gs.res_ids, write_pos, nbrs),
+        res_dists=_append(gs.res_dists, write_pos, nd),
+        res_count=torch.clamp(gs.res_count + n_new, max=cap),
+        expand_ptr=gs.expand_ptr + step,
+        rounds=gs.rounds + step,
+        overflow=gs.overflow | (gs.res_count + n_new > cap),
+        n_dist=gs.n_dist + torch.sum(ok, dim=1, dtype=torch.int32),
+        seen_bits=gs.seen_bits)
+
+
+def _pack(ids: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
+    """[id, distance key] rows, (Q, K, 2) int32 (the key wraps to int32)."""
+    return torch.stack([ids, _f32_ascending_key(dists).to(torch.int32)], -1)
+
+
+def _unpack(res: torch.Tensor):
+    return res[..., 0], _f32_from_key(res[..., 1].to(torch.int64) & 0xFFFFFFFF)
+
+
+def _greedy_step(points, graph: Graph, q, r, cap: int, scfg: SearchConfig,
+                 gs: GreedyState, res: torch.Tensor, live) -> tuple:
+    """Expand the next E result-buffer entries of every live lane through
+    the fused expand kernel, appending fresh in-range neighbors to the
+    packed [id, key] buffer ``res`` in one scatter. Returns (state, res)."""
+    E = scfg.eff_expand_width
+    lane = torch.arange(E, device=q.device)
+    e_cnt = torch.clamp(gs.res_count - gs.expand_ptr, max=E)
+    lane_ok = (lane[None] < e_cnt[:, None]) & live[:, None]
+    ridx = torch.clamp(gs.expand_ptr[:, None] + lane, max=cap - 1).long()
+    nodes = torch.where(lane_ok, torch.gather(res[..., 0], 1, ridx), INVALID_ID)
+
+    nbr_ids, nd, nd_inc = expand_frontier(points, graph.neighbors,
+                                          nodes.contiguous(), q,
+                                          metric=scfg.metric,
+                                          use_kernel=scfg.use_kernels)
+    valid = nbr_ids != INVALID_ID
+    seen = bitset_contains(gs.seen_bits, torch.where(valid, nbr_ids, 0)) & valid
+    new = valid & ~seen & (nd <= r[:, None])
+    if not bitset_exact(points.shape[0], gs.seen_bits.shape[1]):
+        new = first_slot_occurrence(gs.seen_bits, nbr_ids, new)
+
+    pos = gs.res_count[:, None] + torch.cumsum(new, dim=1, dtype=torch.int32) - 1
+    write_pos = torch.where(new & (pos < cap), pos, cap)
+    res = _append(res, write_pos, _pack(nbr_ids, nd))
+    n_new = torch.sum(new, dim=1, dtype=torch.int32)
+    # mark every fresh in-range neighbor, cap-dropped ones included (the
+    # buffer only grows, so a dropped node could never land later)
+    bitset_add(gs.seen_bits, nbr_ids, new)
+    e_cnt = torch.where(live, e_cnt, 0)
+    gs = dataclasses.replace(
+        gs, res_count=torch.clamp(gs.res_count + n_new, max=cap),
+        expand_ptr=gs.expand_ptr + e_cnt, rounds=gs.rounds + e_cnt,
+        overflow=gs.overflow | (gs.res_count + n_new > cap),
+        n_dist=gs.n_dist + nd_inc)
+    return gs, res
+
+
+def _greedy_run(points, graph: Graph, q, r, gs: GreedyState, cap: int,
+                stop_at: int, scfg: SearchConfig, active) -> GreedyState:
+    """Advance every lane's greedy continuation until its frontier is empty
+    or ``gs.rounds`` reaches ``stop_at``; inactive lanes stay as they are."""
+    exact_bits = bitset_exact(points.shape[0], gs.seen_bits.shape[1])
+    E1 = scfg.eff_expand_width == 1
+    # E >= 2: the packed buffer holds the results while the loop runs
+    res = None if E1 else _pack(gs.res_ids, gs.res_dists)
+    while True:
+        live = active & (gs.expand_ptr < gs.res_count) & (gs.rounds < stop_at)
+        if not bool(live.any()):
+            break
+        if E1:
+            gs = _greedy_step_reference(points, graph, q, r, cap, scfg, gs,
+                                        exact_bits, live)
+        else:
+            gs, res = _greedy_step(points, graph, q, r, cap, scfg, gs, res, live)
+    if res is not None:
+        ids, dists = _unpack(res)
+        gs = dataclasses.replace(gs, res_ids=ids, res_dists=dists)
+    return gs
+
+
+def greedy_search(points, graph: Graph, q, r, st: BeamState, cap: int,
+                  rounds: int, scfg: SearchConfig, active=None) -> GreedyState:
+    """Paper Alg. 2 from finished beam states, every lane at its own radius
+    ``r`` (Q,). ``active=False`` lanes do not expand. ``rounds`` is an
+    expansion budget; the last iteration may overshoot it by up to E - 1."""
+    n_corpus = points.shape[0]
+    num_words = bitset_num_words(n_corpus, scfg.bitset_cap_bits)
+    exact_bits = bitset_exact(n_corpus, num_words)
+    if active is None:
+        active = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    gs = _greedy_init(st, r, cap, num_words, exact_bits)
+    gs = _greedy_run(points, graph, q, r, gs, cap, rounds, scfg, active)
+    return dataclasses.replace(gs, overflow=gs.overflow | (gs.expand_ptr < gs.res_count))
+
+
+def greedy_seed_batch(*args, **kwargs):
+    raise NotImplementedError("greedy_seed_batch " + _LATER)
+
+
+def greedy_resume_batch(*args, **kwargs):
+    raise NotImplementedError("greedy_resume_batch " + _LATER)
+
+
+# ---------------------------------------------------------------------------
+# Result extraction
+# ---------------------------------------------------------------------------
+
+def _beam_results(st: BeamState, r, cap: int):
+    """Paper baseline/doubling answer: in-range entries of the active beam."""
+    pos = torch.arange(st.ids.shape[1], device=r.device)
+    ok = ((st.dists <= r[:, None]) & (st.ids != INVALID_ID)
+          & (pos[None] < st.active_width[:, None]))
+    dists, ids = _sort_by_dist(torch.where(ok, st.dists, torch.inf),
+                               torch.where(ok, st.ids, INVALID_ID))
+    qn, dev = ids.shape[0], ids.device
+    k = min(cap, ids.shape[1])
+    out_ids = torch.full((qn, cap), INVALID_ID, dtype=torch.int32, device=dev)
+    out_ids[:, :k] = ids[:, :k]
+    out_dists = torch.full((qn, cap), torch.inf, device=dev)
+    out_dists[:, :k] = dists[:, :k]
+    n_ok = torch.sum(ok, dim=1, dtype=torch.int32)
+    return out_ids, out_dists, torch.clamp(n_ok, max=cap), n_ok > cap
+
+
+def _needs_phase2(st: BeamState, r, lam: float) -> torch.Tensor:
+    """Paper Alg. 6 trigger: the size-b beam is λ-saturated with results."""
+    thresh = torch.ceil(lam * st.active_width.float()).to(torch.int32)
+    return in_range_count(st, r) >= torch.clamp(thresh, min=1)
+
+
+def _result(st: BeamState, r, cap: int, phase2=None) -> RangeResult:
+    ids, dists, count, over = _beam_results(st, r, cap)
+    return RangeResult(ids=ids, dists=dists, count=count, overflow=over,
+                       n_visited=st.n_visited, n_dist=st.n_dist,
+                       es_stopped=st.es_stopped,
+                       phase2=torch.zeros_like(st.done) if phase2 is None else phase2,
+                       n_rerank=torch.zeros_like(st.n_visited))
+
+
+def range_phase1(corpus, graph: Graph, queries, start_ids, r, cfg: RangeConfig,
+                 es_radius=None):
+    """Phase 1 for a batch: ``(beam_state, beam_result, needs_phase2)``."""
+    rj = broadcast_radius(r, queries.shape[0], device=corpus.device)
+    st = beam_search_batch(corpus, graph, queries, start_ids, rj, cfg.search,
+                           es_radius)
+    need = (_needs_phase2(st, rj, cfg.lam) if cfg.mode == "greedy"
+            else torch.zeros_like(st.done))
+    return st, _result(st, rj, cfg.result_cap), need
+
+
+# ---------------------------------------------------------------------------
+# Tombstone filtering (live indices) and the result stage
+# ---------------------------------------------------------------------------
+
+def _drop_dead_lane(tombstones: torch.Tensor, ids: torch.Tensor,
+                    dists: torch.Tensor):
+    """Drop tombstoned ids from each lane's result buffer (stable
+    left-compaction). ``tombstones`` is a shared (W,) int32 bitset."""
+    k = ids.shape[1]
+    valid = ids != INVALID_ID
+    dead = bitset_contains(tombstones, torch.where(valid, ids, 0)) & valid
+    keep = valid & ~dead
+    pos = torch.cumsum(keep, dim=1, dtype=torch.int32) - 1
+    wp = torch.where(keep, pos, k)
+    out_ids = _append(torch.full_like(ids, INVALID_ID), wp, ids)
+    out_d = _append(torch.full_like(dists, torch.inf), wp, dists)
+    return out_ids, out_d, torch.sum(keep, dim=1, dtype=torch.int32)
+
+
+def filter_tombstoned(tombstones: torch.Tensor, res: RangeResult) -> RangeResult:
+    """Remove tombstoned ids from a batched ``RangeResult`` and recount.
+    ``tombstones`` must be an exact bitset over corpus slots; ``overflow``
+    is left as-is."""
+    if not isinstance(tombstones, torch.Tensor):  # uint32 words from numpy
+        tombstones = torch.from_numpy(
+            np.ascontiguousarray(tombstones).view(np.int32))
+    tomb = tombstones.to(device=res.ids.device, dtype=torch.int32)
+    ids, dists, count = _drop_dead_lane(tomb, res.ids, res.dists)
+    return dataclasses.replace(res, ids=ids, dists=dists, count=count)
+
+
+def finalize_results(corpus, queries, r, res: RangeResult, cfg: RangeConfig,
+                     tombstones=None) -> RangeResult:
+    """Result-stage post-processing of the f32 path: the tombstone drop.
+    (Labels and the int8 rerank follow it in later slices.)"""
+    if tombstones is not None:
+        res = filter_tombstoned(tombstones, res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Fused batch: phase 2 masked over every lane
+# ---------------------------------------------------------------------------
+
+def _range_search_fused(corpus, graph: Graph, queries, start_ids, r,
+                        cfg: RangeConfig, es_radius=None,
+                        tombstones=None) -> RangeResult:
+    r = broadcast_radius(r, queries.shape[0], device=corpus.device)
+    queries = queries.to(device=corpus.device, dtype=torch.float32).contiguous()
+    st = beam_search_batch(corpus, graph, queries, start_ids, r, cfg.search,
+                           es_radius)
+    if cfg.mode in ("beam", "doubling"):
+        phase2 = (st.active_width > cfg.search.beam if cfg.mode == "doubling"
+                  else None)
+        res = _result(st, r, cfg.result_cap, phase2)
+    else:
+        active = _needs_phase2(st, r, cfg.lam)
+        gs = greedy_search(corpus, graph, queries, r, st, cfg.result_cap,
+                           cfg.frontier_rounds, cfg.search, active)
+        base = _result(st, r, cfg.result_cap, active)
+        a2 = active[:, None]
+        res = dataclasses.replace(
+            base,
+            ids=torch.where(a2, gs.res_ids, base.ids),
+            dists=torch.where(a2, gs.res_dists, base.dists),
+            count=torch.where(active, gs.res_count, base.count),
+            overflow=torch.where(active, gs.overflow, base.overflow),
+            n_dist=st.n_dist + torch.where(active, gs.n_dist, 0))
+    return finalize_results(corpus, queries, r, res, cfg, tombstones)
+
+
+# ---------------------------------------------------------------------------
+# Two-phase path with host-side query compaction (the QPS path)
+# ---------------------------------------------------------------------------
+
+def _walk_compacted(corpus, graph: Graph, queries, start_ids, r,
+                    cfg: RangeConfig, es_radius=None,
+                    tombstones=None) -> RangeResult:
+    dev = corpus.device
+    queries = queries.to(device=dev, dtype=torch.float32).contiguous()
+    rj = broadcast_radius(r, queries.shape[0], device=dev)
+    esj = None if es_radius is None else broadcast_radius(
+        es_radius, queries.shape[0], device=dev)
+    # phase 1 runs at the BASE beam for every mode; doubling restarts only
+    # its survivors with widening enabled (paper Alg. 5)
+    p1_search = cfg.search if cfg.mode != "doubling" else dataclasses.replace(
+        cfg.search, max_beam=cfg.search.beam,
+        visit_cap=min(cfg.search.visit_cap, 4 * cfg.search.beam))
+    st = beam_search_batch(corpus, graph, queries, start_ids, rj, p1_search, esj)
+    base = _result(st, rj, cfg.result_cap)
+    if cfg.mode == "beam":
+        return finalize_results(corpus, queries, rj, base, cfg, tombstones)
+
+    active = _needs_phase2(st, rj, cfg.lam)
+    sel = torch.nonzero(active).flatten()
+    if sel.numel() == 0:
+        return finalize_results(corpus, queries, rj, base, cfg, tombstones)
+    # The reference pads the survivors to a power of two to bound its jit
+    # variants; eager PyTorch needs no padding and the lanes are independent.
+    sub_q, sub_r = queries[sel], rj[sel]
+    if cfg.mode == "doubling":
+        sub_starts = start_ids if start_ids.dim() == 1 else start_ids[sel]
+        st2 = beam_search_batch(corpus, graph, sub_q, sub_starts, sub_r,
+                                cfg.search, None if esj is None else esj[sel])
+        ids, dists, count, over = _beam_results(st2, sub_r, cfg.result_cap)
+        nd = st2.n_dist
+    else:
+        gs = greedy_search(corpus, graph, sub_q, sub_r, st.select(sel),
+                           cfg.result_cap, cfg.frontier_rounds, cfg.search)
+        ids, dists, count, over, nd = (gs.res_ids, gs.res_dists, gs.res_count,
+                                       gs.overflow, gs.n_dist)
+    merged = dataclasses.replace(
+        base,
+        ids=base.ids.index_copy(0, sel, ids),
+        dists=base.dists.index_copy(0, sel, dists),
+        count=base.count.index_copy(0, sel, count),
+        overflow=base.overflow.index_copy(0, sel, over),
+        n_dist=base.n_dist.index_add(0, sel, nd),
+        phase2=active)
+    return finalize_results(corpus, queries, rj, merged, cfg, tombstones)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points — keyword-only, the reference's parameter order
+# ---------------------------------------------------------------------------
+
+def _check_unported(corpus, labels, label_filter):
+    if labels is not None or label_filter is not None:
+        raise NotImplementedError("filtered range search " + _LATER)
+    if not isinstance(corpus, torch.Tensor) or corpus.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise NotImplementedError("a non-f32/bf16 corpus " + _LATER)
+
+
+def range_search_fused(*, corpus, graph, queries, start_ids, r, cfg,
+                       es_radius=None, tombstones=None, labels=None,
+                       label_filter=None) -> RangeResult:
+    """Batched range search with phase 2 masked (not compacted) over every
+    lane, then the tombstone drop. ``r``/``es_radius`` are a scalar or
+    per-query ``(Q,)`` radii."""
+    _check_unported(corpus, labels, label_filter)
+    return _range_search_fused(corpus, graph, queries, start_ids, r, cfg,
+                               es_radius, tombstones)
+
+
+def range_search_compacted(*, corpus, graph, queries, start_ids, r, cfg,
+                           es_radius=None, tombstones=None, labels=None,
+                           label_filter=None) -> RangeResult:
+    """Two-phase batched range search (the QPS path): phase 1 over the
+    whole batch, phase 2 over the survivor lanes only, each at its own
+    radius."""
+    _check_unported(corpus, labels, label_filter)
+    return _walk_compacted(corpus, graph, queries, start_ids, r, cfg,
+                           es_radius, tombstones)

@@ -1,0 +1,35 @@
+"""Argument checks shared by the CUDA kernel wrappers."""
+from __future__ import annotations
+
+import torch
+
+ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_tensor(name: str, t: torch.Tensor, dtypes, ndim: int,
+                 device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
+                         f"{tuple(dtypes)}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def vector_rows(points: torch.Tensor) -> int:
+    """1 when every row starts on a 16-byte boundary, so the kernels may
+    read rows 16 bytes a lane."""
+    row_bytes = points.shape[1] * points.element_size()
+    return int(row_bytes % 16 == 0 and points.data_ptr() % 16 == 0)
+
+
+def check_metric(metric: str) -> int:
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unknown metric {metric!r}")
+    return int(metric == "l2")

@@ -1,0 +1,149 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA card and skips without one; the module imports
+no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest -q tests/test_torch_cuda.py
+
+Tolerance: ids and counts equal; distances ``allclose(rtol=1e-5,
+atol=1e-5)`` for l2, and for ip ``atol = 1e-6 * max|x| * max|q|`` — the
+kernel sums the d terms in another order than PyTorch, and a reordered dot
+product errs in proportion to its terms, not to its value.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (
+    RangeConfig, RangeSearchEngine, SearchConfig, build_knn_graph)
+from repro_torch.kernels.expand import expand_cuda, expand_frontier, expand_frontier_ref
+from repro_torch.kernels.gatherdist import gatherdist, gatherdist_cuda, gatherdist_ref
+from repro_torch.utils import INVALID_ID
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _tol(metric, pts, qs):
+    if metric == "l2":
+        return dict(rtol=1e-5, atol=1e-5)
+    scale = float(pts.float().norm(dim=1).max() * qs.norm(dim=1).max())
+    return dict(rtol=1e-5, atol=1e-6 * max(1.0, scale))
+
+
+def _assert_dists(got, want, tol):
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    torch.testing.assert_close(got[fin], want[fin], **tol)
+
+
+def _expand_inputs(n, r, d, q, e, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.randn(n, d, generator=g)
+    adj = torch.randint(0, n, (n, r), generator=g, dtype=torch.int32)
+    adj[:, -max(1, r // 4):] = INVALID_ID
+    adj[0, 1] = adj[0, 0]
+    adj[1, :2] = adj[0, :2]
+    fr = torch.randint(0, n, (q, e), generator=g, dtype=torch.int32)
+    fr[0, 1] = fr[0, 0]
+    fr[-1, -1] = INVALID_ID
+    if e >= 3:
+        fr[0, 2] = n + 3
+    qs = torch.randn(q, d, generator=g)
+    return [x.to(dev) for x in (pts, adj, fr, qs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("n,r,d,q,e", [
+    (150, 8, 32, 6, 4),
+    (64, 5, 17, 3, 2),         # ragged degree and dim: the scalar path
+    (40, 4, 16, 1, 6),
+    (2000, 32, 128, 64, 4),    # the main path's R, d and E
+    (500, 100, 130, 8, 3),     # R > 32 lanes, d not a multiple of 4
+])
+def test_expand_kernel_matches_ref(cuda_device, dtype, metric, n, r, d, q, e):
+    pts, adj, fr, qs = _expand_inputs(n, r, d, q, e, cuda_device)
+    pts = pts.to(DTYPES[dtype])
+    before = expand_cuda.launches
+    ids, dd, nd = expand_frontier(pts, adj, fr, qs, metric=metric)
+    assert expand_cuda.launches == before + 1
+    rids, rd, rnd = expand_frontier_ref(pts, adj, fr, qs, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, rids) and torch.equal(nd, rnd)
+    _assert_dists(dd, rd, _tol(metric, pts, qs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("n,d,q,s", [(100, 32, 8, 16), (57, 19, 5, 7),
+                                     (4000, 128, 64, 4)])
+def test_gatherdist_kernel_matches_ref(cuda_device, dtype, metric, n, d, q, s):
+    g = torch.Generator().manual_seed(1)
+    pts = torch.randn(n, d, generator=g).to(cuda_device, DTYPES[dtype])
+    qs = torch.randn(q, d, generator=g).to(cuda_device)
+    ids = torch.randint(0, n, (q, s), generator=g, dtype=torch.int32)
+    ids[0, -1] = INVALID_ID
+    ids[-1, 0] = n + 5
+    ids = ids.to(cuda_device)
+    before = gatherdist_cuda.launches
+    got = gatherdist(pts, ids, qs, metric=metric)
+    assert gatherdist_cuda.launches == before + 1
+    want = gatherdist_ref(pts, ids, qs, metric=metric)
+    torch.cuda.synchronize()
+    _assert_dists(got, want, _tol(metric, pts, qs))
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    pts, adj, fr, qs = _expand_inputs(64, 8, 16, 4, 2, cuda_device)
+    with pytest.raises(ValueError):
+        expand_cuda(pts.double(), adj, fr, qs)           # dtype
+    with pytest.raises(ValueError):
+        expand_cuda(pts, adj.long(), fr, qs)             # index dtype
+    with pytest.raises(ValueError):
+        expand_cuda(pts.t().contiguous().t(), adj, fr, qs)  # not contiguous
+    with pytest.raises(ValueError):
+        expand_cuda(pts, adj, fr, qs[:, :8].contiguous())   # shape
+    with pytest.raises(ValueError):
+        gatherdist_cuda(pts, adj[:4], qs.cpu())          # device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["beam", "doubling", "greedy"])
+def test_engine_kernel_path_matches_plain_path(cuda_device, mode):
+    """The engine through the kernels and through their plain versions on
+    the same card: both kernels launch, and the answers agree."""
+    g = torch.Generator().manual_seed(2)
+    centers = torch.randn(16, 32, generator=g) * 3
+    pts = centers[torch.randint(0, 16, (6000,), generator=g)] + 0.4 * torch.randn(
+        6000, 32, generator=g)
+    qs = (pts[:128] + 0.01).to(cuda_device)
+    graph = build_knn_graph(pts, k=16, device=cuda_device)
+    eng = RangeSearchEngine.from_graph(pts, graph, device=cuda_device)
+    r = float(torch.quantile(((pts[:128, None] - pts[None, :2000]) ** 2).sum(-1), 0.01))
+    cfg = RangeConfig(search=SearchConfig(
+        beam=16, max_beam=64 if mode == "doubling" else 16, visit_cap=128),
+        mode=mode, result_cap=256)
+    plain = dataclasses.replace(cfg, search=dataclasses.replace(
+        cfg.search, use_kernels=False))
+    expand_cuda.launches = gatherdist_cuda.launches = 0
+    a = eng.range(qs, r, cfg=cfg)
+    assert expand_cuda.launches > 0 and gatherdist_cuda.launches > 0
+    launched = (expand_cuda.launches, gatherdist_cuda.launches)
+    b = eng.range(qs, r, cfg=plain)
+    assert (expand_cuda.launches, gatherdist_cuda.launches) == launched
+    # sums run in another order, so a near-tie may flip a few lanes
+    same = ((a.ids == b.ids).all(dim=1) & (a.count == b.count)).float().mean()
+    assert same.item() >= 0.95, same
+    assert np.isfinite(a.dists[a.ids != INVALID_ID].cpu().numpy()).all()

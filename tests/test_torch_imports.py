@@ -1,0 +1,69 @@
+"""Import hygiene and device rules of the PyTorch port.
+
+* ``repro_torch`` imports torch, numpy and the standard library only: not
+  JAX, and no module of the JAX package ``repro``.
+* Its entry points run on the card by default and raise where there is
+  none, rather than running on the CPU unasked.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 20
+    assert bad.strip() == "[]"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A host without a card, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.convert import engine_from_arrays
+    from repro_torch.core import (
+        Graph, RangeSearchEngine, build_knn_graph, exact_range_search,
+        exact_topk, range_counts_at, sweep)
+
+    pts = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    nbrs = np.zeros((64, 4), np.int32)
+    calls = [
+        lambda: RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs))),
+        lambda: build_knn_graph(pts, k=4),
+        lambda: exact_range_search(pts, pts[:4], 1.0),
+        lambda: exact_topk(pts, pts[:4], k=4),
+        lambda: range_counts_at(pts, pts[:4], np.ones(2, np.float32)),
+        lambda: sweep(pts, pts[:4], np.ones(2, np.float32)),
+        lambda: engine_from_arrays(pts, nbrs, np.zeros(1, np.int32)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asked for explicitly, the CPU works
+    eng = RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
+                                       device="cpu")
+    assert eng.device.type == "cpu"
