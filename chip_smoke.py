@@ -3,26 +3,40 @@
 
     python3 chip_smoke.py                 # full size: N=1M, d=128, Q=4096
     python3 chip_smoke.py --n 100000      # a shorter rehearsal
+    python3 chip_smoke.py --result-cap 4096   # a larger result buffer
 
 Phases, each printed as it ends:
-  1. build the CUDA kernels from the sources in the checkout (nvcc, sm_90a);
-     print the build time and the card's name and power limit;
-  2. a bigann-like corpus from a seed and its exact k-NN graph (R=32);
+  1. build the CUDA kernels from the sources in the checkout (nvcc, sm_90a,
+     one process per source, all started together); print the build time
+     and the card's name and power limit;
+  2. a bigann-like corpus from a seed and its exact k-NN graph (R=32), and
+     its int8 quantization (one pass on the card);
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path (time, bound, plain version's time);
+     shapes of the main path (time, bound, plain version's time): expand
+     and gatherdist (f32/bf16), expand-int8 and gatherdist-int8 in both
+     arithmetic forms (int32 dots equal; the two kernels bit for bit on
+     shared candidates), rerank_fetch at P in {1, 17, 4096, 65536};
   4. the radius, chosen the paper's way (sweep + select_radius) on a
      256-query sample, for half the queries to answer empty;
-  5. the main path: ``RangeSearchEngine.range(compacted=True)`` on all
+  5. the f32 main path: ``RangeSearchEngine.range(compacted=True)`` on all
      queries in greedy, beam and doubling modes (QPS, AP against
      ``exact_range_search``, match histogram, launches of each kernel);
-  6. the kernel path against the plain path through the same engine on a
-     256-query subset (AP within 0.01).
+  6. the int8 main path: ``from_graph(corpus_dtype="int8")`` on the same
+     graph and radius, greedy/beam/doubling in the f32-query form and
+     greedy in the int8-query form (QPS, AP, AP against f32, mean n_rerank,
+     band size P, launches; no false positive); rerank_fetch at the band
+     the greedy run produced;
+  7. the guard-band contract on 256 queries: the post-rerank set equals the
+     rerank-disabled set filtered by the exact distances;
+  8. the kernel path against the plain path through the same engines on a
+     256-query subset (AP within 0.01), f32 and int8.
 
 The search configuration is the repo's single-shard deployment,
 ``EngineDeployConfig`` in src/repro/configs/range_engine.py: 1M points per
-shard, d=128, R=32, l2, f32 corpus, beam=64, visit_cap=256, E=4, greedy,
-result_cap=1024, frontier_rounds=2048, 4096-query batches. Any failure
-exits non-zero. The last line is the device JSON.
+shard, d=128, R=32, l2, beam=64, visit_cap=256, E=4, greedy,
+result_cap=1024, frontier_rounds=2048, 4096-query batches; f32 and its
+production int8 setting. Any failure exits non-zero. The last line is the
+device JSON.
 """
 from __future__ import annotations
 
@@ -43,8 +57,11 @@ N_QUERIES = 4096            # the deployment's search_4k batch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+INT8_OPS = 1979e12          # H100 SXM int8 (the table's rate for the type)
 DIST_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),  # sum order differs
             "bfloat16": dict(rtol=1e-2, atol=1e-5)}
+ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def log(msg: str) -> None:
@@ -86,8 +103,8 @@ def time_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(n_bytes: float, ops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, ops / rate
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
@@ -101,10 +118,34 @@ def check_close(name, got, want, tol) -> float:
     return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
 
 
+def make_frontier(n, qn, e, gen, dev):
+    import torch
+    from repro_torch.utils import INVALID_ID
+    frontier = torch.randint(0, n, (qn, e), generator=gen, device=dev,
+                             dtype=torch.int32)
+    frontier[::8, 3] = INVALID_ID            # exhausted frontier slots
+    frontier[::16, 1] = frontier[::16, 0]    # duplicate frontier nodes
+    return frontier
+
+
+def expand_bytes(ids, frontier, nbrs, queries, row_bytes: int) -> int:
+    """Bytes an expansion must move: each distinct surviving row once, each
+    distinct frontier node's adjacency row once, the frontier, the queries
+    and the outputs (ids, distances, n_dist)."""
+    import torch
+    from repro_torch.utils import INVALID_ID
+    n, r = nbrs.shape
+    kept = ids[ids != INVALID_ID]
+    f_ok = frontier[(frontier >= 0) & (frontier < n)]
+    return (torch.unique(kept).numel() * row_bytes
+            + torch.unique(f_ok).numel() * r * 4 + frontier.numel() * 4
+            + queries.numel() * 4 + ids.numel() * 8 + frontier.shape[0] * 4)
+
+
 def kernel_checks(points, nbrs, queries, gen):
-    """Each kernel against its plain version at the main path's shapes.
-    Returns the JSON entries of the f32 l2 configuration the main path
-    runs."""
+    """Each f32/bf16 kernel against its plain version at the main path's
+    shapes. Returns the JSON entries of the f32 l2 configuration the main
+    path runs."""
     import torch
     from repro_torch.kernels.expand import expand_cuda, expand_frontier_ref
     from repro_torch.kernels.gatherdist import gatherdist_cuda, gatherdist_ref
@@ -113,10 +154,7 @@ def kernel_checks(points, nbrs, queries, gen):
     r = nbrs.shape[1]
     qn, e = queries.shape[0], 4
     dev = points.device
-    frontier = torch.randint(0, n, (qn, e), generator=gen, device=dev,
-                             dtype=torch.int32)
-    frontier[::8, 3] = INVALID_ID            # exhausted frontier slots
-    frontier[::16, 1] = frontier[::16, 0]    # duplicate frontier nodes
+    frontier = make_frontier(n, qn, e, gen, dev)
     entries = {}
     for dtype in ("float32", "bfloat16"):
         pts = points.to(getattr(torch, dtype)).contiguous()
@@ -131,11 +169,8 @@ def kernel_checks(points, nbrs, queries, gen):
             ms = time_ms(lambda: expand_cuda(*args, metric=metric))
             plain = time_ms(lambda: expand_frontier_ref(*args, metric=metric))
             kept = ids[ids != INVALID_ID]
-            f_ok = frontier[(frontier >= 0) & (frontier < n)]
-            n_bytes = (torch.unique(kept).numel() * d * pts.element_size()
-                       + torch.unique(f_ok).numel() * r * 4
-                       + frontier.numel() * 4 + queries.numel() * 4
-                       + ids.numel() * 8 + nd.numel() * 4)
+            n_bytes = expand_bytes(ids, frontier, nbrs, queries,
+                                   d * pts.element_size())
             flops = kept.numel() * (3 if metric == "l2" else 2) * d
             b_ms, b_by = bound_ms(n_bytes, flops)
             log(f"[kernel] expand {dtype} {metric} Q={qn} E={e} R={r} d={d}: "
@@ -180,6 +215,163 @@ def kernel_checks(points, nbrs, queries, gen):
     return entries
 
 
+def int8_kernel_checks(qc, nbrs, queries, gen):
+    """expand-int8 and gatherdist-int8 in both forms against their plain
+    versions at the main path's shapes (int32 dots equal in the int8-query
+    form), and against each other bit for bit on the candidates they share;
+    rerank_fetch at P in {1, 17, 4096, 65536}. Returns the JSON entries of
+    the form the main path runs by default (f32-query, l2; ``form`` says
+    so), each with the int8-query form's time beside it."""
+    import torch
+    from repro_torch.kernels.expand import expand_frontier_int8_ref, expand_int8_cuda
+    from repro_torch.kernels.gatherdist import gatherdist_int8_cuda, gatherdist_int8_ref
+    from repro_torch.kernels.rerank_fetch import fetch_rerank_pairs_ref, rerank_fetch_cuda
+    from repro_torch.utils import INVALID_ID
+    n, d = qc.shape
+    r = nbrs.shape[1]
+    qn, e = queries.shape[0], 4
+    dev = qc.device
+    frontier = make_frontier(n, qn, e, gen, dev)
+    starts = torch.randint(0, n, (qn, 4), generator=gen, device=dev,
+                           dtype=torch.int32)
+    starts[::5, -1] = INVALID_ID
+    tol = DIST_TOL["float32"]
+    entries = {}
+    for quant in (False, True):
+        form = "int8-query" if quant else "f32-query"
+        for metric in ("l2", "ip"):
+            kw = dict(metric=metric, quantize_query=quant)
+            args = (qc.codes, qc.meta, nbrs, frontier, queries)
+            got = expand_int8_cuda(*args, **kw, return_dots=quant)
+            want = expand_frontier_int8_ref(qc, nbrs, frontier, queries, **kw,
+                                            return_dots=quant)
+            torch.cuda.synchronize()
+            ids, dd, nd = got[:3]
+            if not (torch.equal(ids, want[0]) and torch.equal(nd, want[2])):
+                raise AssertionError(f"expand-int8 {form} {metric}: ids/n_dist differ")
+            if quant and not torch.equal(got[3], want[3]):
+                raise AssertionError(f"expand-int8 {form} {metric}: int32 dots differ")
+            err = check_close(f"expand-int8 {form} {metric}", dd, want[1], tol)
+            # the two int8 kernels on the candidates they share: same bits
+            g = gatherdist_int8_cuda(qc.codes, qc.meta, ids, queries, **kw,
+                                     return_dots=quant)
+            torch.cuda.synchronize()
+            gd = g[0] if quant else g
+            keep = ids != INVALID_ID
+            if not torch.equal(gd[keep].view(torch.int32), dd[keep].view(torch.int32)):
+                raise AssertionError(f"{form} {metric}: gatherdist-int8 and "
+                                     "expand-int8 differ on shared candidates")
+            if quant and not torch.equal(g[1][keep], got[3][keep]):
+                raise AssertionError(f"{form} {metric}: the two kernels' dots differ")
+            ms = time_ms(lambda: expand_int8_cuda(*args, **kw))
+            plain = time_ms(lambda: expand_frontier_int8_ref(
+                qc, nbrs, frontier, queries, **kw))
+            n_kept = int(keep.sum())
+            n_bytes = expand_bytes(ids, frontier, nbrs, queries, d + 12)
+            ops = n_kept * d * (2 if quant else (4 if metric == "l2" else 3))
+            b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS if quant else F32_FLOPS)
+            log(f"[kernel] expand-int8 {form} {metric} Q={qn} E={e} R={r} d={d}: "
+                f"ids/n_dist equal{', dots equal' if quant else ''}, "
+                f"max_abs_err={err:.3g}, ms={ms:.4f}, plain_ms={plain:.4f}, "
+                f"bound_ms={b_ms:.4f} ({b_by}, {n_bytes / 1e6:.1f} MB), "
+                f"gathered rows={n_kept}; gatherdist-int8 on the same "
+                f"{n_kept} candidates: bitwise equal")
+            if (quant, metric) == (False, "l2"):
+                entries["expand_int8"] = dict(
+                    name="expand_int8", route="cuda",
+                    source="src/repro_torch/kernels/expand/csrc/expand_int8.cu",
+                    replaces="src/repro/kernels/expand/kernel.py:118",
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None, form=form)
+            elif metric == "l2":
+                entries["expand_int8"]["int8_query_ms"] = ms
+            # gatherdist-int8 at the start points' shape (S=4)
+            got = gatherdist_int8_cuda(qc.codes, qc.meta, starts, queries, **kw,
+                                       return_dots=quant)
+            want = gatherdist_int8_ref(qc, starts, queries, **kw, return_dots=quant)
+            torch.cuda.synchronize()
+            if quant and not torch.equal(got[1], want[1]):
+                raise AssertionError(f"gatherdist-int8 {form} {metric}: dots differ")
+            err = check_close(f"gatherdist-int8 {form} {metric}",
+                              got[0] if quant else got, want[0] if quant else want,
+                              tol)
+            sargs = (qc.codes, qc.meta, starts, queries)
+            ms = time_ms(lambda: gatherdist_int8_cuda(*sargs, **kw))
+            plain = time_ms(lambda: gatherdist_int8_ref(qc, starts, queries, **kw))
+            ok = starts[(starts >= 0) & (starts < n)]
+            n_bytes = (torch.unique(ok).numel() * (d + 12) + starts.numel() * 8
+                       + queries.numel() * 4)
+            ops = ok.numel() * d * (2 if quant else (4 if metric == "l2" else 3))
+            b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS if quant else F32_FLOPS)
+            log(f"[kernel] gatherdist-int8 {form} {metric} Q={qn} S=4 d={d}: "
+                f"{'dots equal, ' if quant else ''}max_abs_err={err:.3g}, "
+                f"ms={ms:.4f}, plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by})")
+            if (quant, metric) == (False, "l2"):
+                entries["gatherdist_int8"] = dict(
+                    name="gatherdist_int8", route="cuda",
+                    source="src/repro_torch/kernels/gatherdist/csrc/gatherdist_int8.cu",
+                    replaces="src/repro/kernels/gatherdist/kernel.py:50",
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None, form=form)
+            elif metric == "l2":
+                entries["gatherdist_int8"]["int8_query_ms"] = ms
+    raw = qc.raw
+    for p in (1, 17, 4096, 65536):
+        ids = torch.randint(0, n, (p,), generator=gen, device=dev, dtype=torch.int32)
+        lanes = torch.randint(0, qn, (p,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        for metric in ("l2", "ip"):
+            got = rerank_fetch_cuda(raw, queries, ids, lanes, metric=metric)
+            want = fetch_rerank_pairs_ref(raw, queries, ids, lanes, metric)
+            torch.cuda.synchronize()
+            err = check_close(f"rerank_fetch P={p} {metric}", got, want, tol)
+            ms = time_ms(lambda: rerank_fetch_cuda(raw, queries, ids, lanes,
+                                                   metric=metric))
+            log(f"[kernel] rerank_fetch {metric} P={p} d={d}: "
+                f"max_abs_err={err:.3g}, ms={ms:.4f}")
+    return entries
+
+
+def rerank_at_band(eng_q, queries, r, cfg, launches: int):
+    """rerank_fetch against its plain version on the very pairs one int8
+    main-path batch sends it: the band, taken from the rerank-disabled
+    result as the result stage takes it. Returns its JSON entry."""
+    import torch
+    from repro_torch.core import upper_bound_dists
+    from repro_torch.kernels.rerank_fetch import fetch_rerank_pairs_ref, rerank_fetch_cuda
+    from repro_torch.utils import INVALID_ID
+    qc = eng_q.points
+    pre = eng_q.range(queries, r, cfg=dataclasses.replace(cfg, rerank=False))
+    valid = pre.ids != INVALID_ID
+    ub = upper_bound_dists(qc, torch.where(valid, pre.ids, 0), pre.dists,
+                           queries, "l2")
+    lanes, slots = torch.nonzero(valid & (ub > r), as_tuple=True)
+    ids = pre.ids[lanes, slots].contiguous()
+    lanes = lanes.to(torch.int32).contiguous()
+    p = ids.numel()
+    if p == 0:
+        raise AssertionError("the greedy int8 batch has an empty band")
+    got = rerank_fetch_cuda(qc.raw, queries, ids, lanes)
+    want = fetch_rerank_pairs_ref(qc.raw, queries, ids, lanes)
+    torch.cuda.synchronize()
+    err = check_close("rerank_fetch at the band", got, want, DIST_TOL["float32"])
+    ms = time_ms(lambda: rerank_fetch_cuda(qc.raw, queries, ids, lanes))
+    plain = time_ms(lambda: fetch_rerank_pairs_ref(qc.raw, queries, ids, lanes))
+    d = qc.shape[1]
+    n_bytes = ((torch.unique(ids).numel() + torch.unique(lanes).numel()) * d * 4
+               + p * 12)
+    b_ms, b_by = bound_ms(n_bytes, p * d * 3)
+    log(f"[kernel] rerank_fetch l2 at the greedy band P={p} "
+        f"({torch.unique(ids).numel()} distinct rows) d={d}: "
+        f"max_abs_err={err:.3g}, ms={ms:.4f}, plain_ms={plain:.4f}, "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    return dict(name="rerank_fetch", route="cuda",
+                source="src/repro_torch/kernels/rerank_fetch/csrc/rerank_fetch.cu",
+                replaces="src/repro/kernels/rerank_fetch/kernel.py:31",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def profile_run(fn, wall_s: float, name: str) -> None:
     """Device time by kernel over one traced run of ``fn``, and the device's
     busy share of ``wall_s``, the untraced run's wall time."""
@@ -203,19 +395,23 @@ def profile_run(fn, wall_s: float, name: str) -> None:
             f"{e.count:6d}x  {e.key[:90]}")
 
 
-def check_result(res, points, queries, r, cap, name) -> None:
-    """Shapes, padding, and every returned id truly in range at its exact
-    distance (recomputed here in plain PyTorch)."""
+def _check_shapes(res, qn, cap, name):
     import torch
-    from repro_torch.core import point_dist
     from repro_torch.utils import INVALID_ID
-    qn = queries.shape[0]
     if tuple(res.ids.shape) != (qn, cap) or tuple(res.count.shape) != (qn,):
         raise AssertionError(f"{name}: result shapes {tuple(res.ids.shape)}")
     valid = res.ids != INVALID_ID
     if not torch.equal(valid.sum(1).to(torch.int32), res.count):
         raise AssertionError(f"{name}: count != valid rows")
-    lane, slot = torch.nonzero(valid, as_tuple=True)
+    return torch.nonzero(valid, as_tuple=True)
+
+
+def check_result(res, points, queries, r, cap, name) -> None:
+    """Shapes, padding, and every returned id truly in range at its exact
+    distance (recomputed here in plain PyTorch)."""
+    import torch
+    from repro_torch.core import point_dist
+    lane, slot = _check_shapes(res, queries.shape[0], cap, name)
     exact = point_dist(points[res.ids[lane, slot].long()], queries[lane], "l2")
     got = res.dists[lane, slot]
     if not torch.isfinite(got).all() or not (exact <= r + 1e-5).all():
@@ -224,12 +420,82 @@ def check_result(res, points, queries, r, cap, name) -> None:
         raise AssertionError(f"{name}: returned distances are not exact")
 
 
+def check_result_int8(res, points, queries, r, cap, name) -> None:
+    """The int8 path returns exact distances only inside the band and
+    certified lower bounds elsewhere: every returned id lies within r at
+    its exact distance, no returned distance exceeds the exact one."""
+    import torch
+    from repro_torch.core import point_dist
+    lane, slot = _check_shapes(res, queries.shape[0], cap, name)
+    exact = point_dist(points[res.ids[lane, slot].long()], queries[lane], "l2")
+    got = res.dists[lane, slot]
+    if not torch.isfinite(got).all() or not (exact <= r + 1e-5).all():
+        raise AssertionError(f"{name}: a returned id is out of range "
+                             "(a false positive)")
+    if not (got <= exact + 1e-5).all():
+        raise AssertionError(f"{name}: a returned distance exceeds the exact one")
+
+
+def check_guard_band(eng_q, points, queries, r, cfg, name, tol=1e-6):
+    """The guard-band contract (tests/test_oracle.py (c)): on every lane
+    whose buffer did not overflow, the post-rerank set equals the
+    rerank-disabled set filtered by the exact distances. The exact
+    distances here are recomputed in plain PyTorch, which sums in another
+    order than the rerank kernel, so a pair within ``tol`` of r may fall
+    either way; every other pair must be decided as the filter decides it.
+    Returns (lanes checked, pairs within tol of r)."""
+    import torch
+    from repro_torch.core import point_dist
+    from repro_torch.utils import INVALID_ID
+    res = eng_q.range(queries, r, cfg=cfg)
+    pre = eng_q.range(queries, r, cfg=dataclasses.replace(cfg, rerank=False))
+    valid = pre.ids != INVALID_ID
+    lane, slot = torch.nonzero(valid, as_tuple=True)
+    exact = torch.full(pre.dists.shape, torch.inf, device=pre.dists.device)
+    exact[lane, slot] = point_dist(points[pre.ids[lane, slot].long()],
+                                   queries[lane], "l2")
+    ids_post, ids_pre = res.ids.cpu().numpy(), pre.ids.cpu().numpy()
+    sure_in = (valid & (exact <= r - tol)).cpu().numpy()
+    maybe_in = (valid & (exact <= r + tol)).cpu().numpy()
+    over = (res.overflow | pre.overflow).cpu().numpy()
+    checked = 0
+    for i in range(ids_post.shape[0]):
+        if over[i]:
+            continue
+        got = set(ids_post[i][ids_post[i] != INVALID_ID].tolist())
+        if not (set(ids_pre[i][sure_in[i]].tolist()) <= got
+                <= set(ids_pre[i][maybe_in[i]].tolist())):
+            raise AssertionError(f"{name}: guard-band contract broken on lane {i}")
+        checked += 1
+    return checked, int((maybe_in & ~sure_in).sum())
+
+
+def run_mode(engine, queries, r, cfg, kernels, profile: bool, name):
+    """One main-path run of one mode, with every launch count set to 0 just
+    before and read just after. Returns (result, wall seconds, counts)."""
+    import torch
+    engine.range(queries, r, cfg=cfg)                      # warm-up
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = engine.range(queries, r, cfg=cfg, compacted=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in kernels.items()}
+    if profile:
+        profile_run(lambda: engine.range(queries, r, cfg=cfg), dt, name)
+    return res, dt, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
     ap.add_argument("--profile", action="store_true",
                     help="also trace each mode's main-path run with "
                          "torch.profiler and print its device-time breakdown")
+    ap.add_argument("--result-cap", type=int, default=1024,
+                    help="result buffer per query (the deployment's 1024)")
     args = ap.parse_args()
 
     import torch
@@ -239,11 +505,12 @@ def main() -> int:
     from repro_torch.core import (
         RangeConfig, RangeSearchEngine, SearchConfig, average_precision,
         build_knn_graph, default_grid, exact_range_search, match_histogram,
-        select_radius, sweep)
+        quantize_corpus, select_radius, sweep)
     from repro_torch.data import make_corpus
     from repro_torch.kernels import _build
-    from repro_torch.kernels.expand import expand_cuda
-    from repro_torch.kernels.gatherdist import gatherdist_cuda
+    from repro_torch.kernels.expand import expand_cuda, expand_int8_cuda
+    from repro_torch.kernels.gatherdist import gatherdist_cuda, gatherdist_int8_cuda
+    from repro_torch.kernels.rerank_fetch import rerank_fetch_cuda
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -276,10 +543,17 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[graph] exact k-NN graph R=32 built on the card in "
         f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    qc = quantize_corpus(points)
+    torch.cuda.synchronize()
+    log(f"[int8] corpus quantized on the card in {time.perf_counter() - t0:.3f} s "
+        f"(codes {tuple(qc.codes.shape)} int8, meta {tuple(qc.meta.shape)} f32)")
 
     # -- 3. kernels against their plain versions -----------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     entries = kernel_checks(points, graph.neighbors, queries, gen)
+    entries.update(int8_kernel_checks(qc, graph.neighbors, queries, gen))
+    del qc
 
     # -- 4. radius -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -304,69 +578,123 @@ def main() -> int:
     log(f"[oracle] exact_range_search over {N_QUERIES} queries in "
         f"{time.perf_counter() - t0:.2f} s; matches {match_histogram(gt_counts)}")
 
-    # -- 5. the main path ----------------------------------------------------
+    def ap_of(res, k=N_QUERIES):
+        return average_precision(gt_ids[:k], gt_counts[:k], res.ids.cpu().numpy(),
+                                 res.count.cpu().numpy())
+
+    # -- 5. the f32 main path ------------------------------------------------
     engine = RangeSearchEngine.from_graph(points, graph, metric="l2",
                                           n_starts=4, device=dev)
     search = SearchConfig(beam=64, max_beam=64, visit_cap=256, expand_width=4)
     cfgs = {
-        "greedy": RangeConfig(search=search, mode="greedy", result_cap=1024,
-                              frontier_rounds=2048),
-        "beam": RangeConfig(search=search, mode="beam", result_cap=1024),
+        "greedy": RangeConfig(search=search, mode="greedy",
+                              result_cap=args.result_cap, frontier_rounds=2048),
+        "beam": RangeConfig(search=search, mode="beam", result_cap=args.result_cap),
         "doubling": RangeConfig(search=SearchConfig(
             beam=64, max_beam=256, visit_cap=256, expand_width=4),
-            mode="doubling", result_cap=1024),
+            mode="doubling", result_cap=args.result_cap),
     }
+    f32_kernels = {"expand": expand_cuda, "gatherdist": gatherdist_cuda}
     launches = {}
     aps = {}
     for mode, cfg in cfgs.items():
-        engine.range(queries, r, cfg=cfg)                  # warm-up
-        torch.cuda.synchronize()
-        expand_cuda.launches = gatherdist_cuda.launches = 0
-        t0 = time.perf_counter()
-        res = engine.range(queries, r, cfg=cfg, compacted=True)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = {"expand": expand_cuda.launches,
-                  "gatherdist": gatherdist_cuda.launches}
+        res, dt, counts = run_mode(engine, queries, r, cfg, f32_kernels,
+                                   args.profile, mode)
         if min(counts.values()) == 0:
             raise AssertionError(f"{mode}: a kernel was never launched {counts}")
         launches[mode] = counts
         check_result(res, points, queries, r, cfg.result_cap, mode)
-        ap = average_precision(gt_ids, gt_counts, res.ids.cpu().numpy(),
-                               res.count.cpu().numpy())
-        aps[mode] = ap
+        aps[mode] = ap_of(res)
         log(f"[main] {mode}: QPS={N_QUERIES / dt:.1f} ({dt * 1e3:.1f} ms for "
-            f"{N_QUERIES} queries), AP={ap:.4f}, "
+            f"{N_QUERIES} queries), AP={aps[mode]:.4f}, "
             f"mean n_visited={float(res.n_visited.float().mean()):.1f}, "
             f"phase-2 share={float(res.phase2.float().mean()):.4f}, "
+            f"overflowed lanes={int(res.overflow.sum())}, "
             f"launches={counts}, results {match_histogram(res.count.cpu().numpy())}")
-        if args.profile:
-            profile_run(lambda: engine.range(queries, r, cfg=cfg), dt, mode)
 
-    # -- 6. kernel path against the plain path through the engine ------------
+    # -- 6. the int8 main path -----------------------------------------------
+    t0 = time.perf_counter()
+    engine_q = RangeSearchEngine.from_graph(points, graph, metric="l2",
+                                            n_starts=4, corpus_dtype="int8",
+                                            device=dev)
+    torch.cuda.synchronize()
+    stats = engine_q.stats()
+    log(f"[int8] from_graph(corpus_dtype='int8') in {time.perf_counter() - t0:.2f} s: "
+        f"corpus_dtype={stats['corpus_dtype']}, hot_bytes_per_vector="
+        f"{stats['hot_bytes_per_vector']} (f32: {engine.stats()['hot_bytes_per_vector']})")
+    int8_kernels = {"expand_int8": expand_int8_cuda,
+                    "gatherdist_int8": gatherdist_int8_cuda,
+                    "rerank_fetch": rerank_fetch_cuda}
+    q_cfgs = {f"{m} f32-query": c for m, c in cfgs.items()}
+    q_cfgs["greedy int8-query"] = dataclasses.replace(
+        q_cfgs["greedy f32-query"], search=dataclasses.replace(
+            q_cfgs["greedy f32-query"].search, use_expand_kernel=True))
+    q_launches = {}
+    for name, cfg in q_cfgs.items():
+        res, dt, counts = run_mode(engine_q, queries, r, cfg, int8_kernels,
+                                   args.profile, f"int8 {name}")
+        band = int(res.n_rerank.sum())
+        # expand-int8 runs every iteration and gatherdist-int8 seeds every
+        # lane; rerank_fetch launches once for a batch with a band, and a
+        # batch whose every kept candidate is a sure member launches nothing
+        if (min(counts["expand_int8"], counts["gatherdist_int8"]) == 0
+                or counts["rerank_fetch"] != int(band > 0)
+                or (name.startswith("greedy") and band == 0)):
+            raise AssertionError(f"int8 {name}: launches {counts} with a band "
+                                 f"of {band} pairs")
+        q_launches[name] = counts
+        check_result_int8(res, points, queries, r, cfg.result_cap, f"int8 {name}")
+        ap = ap_of(res)
+        f32_ap = aps[name.split()[0]]
+        log(f"[main] int8 {name}: QPS={N_QUERIES / dt:.1f} ({dt * 1e3:.1f} ms for "
+            f"{N_QUERIES} queries), AP={ap:.4f} (f32 {f32_ap:.4f}, gap "
+            f"{f32_ap - ap:+.4f}), mean n_rerank="
+            f"{float(res.n_rerank.float().mean()):.2f}, band P={band}, "
+            f"mean n_visited={float(res.n_visited.float().mean()):.1f}, "
+            f"phase-2 share={float(res.phase2.float().mean()):.4f}, "
+            f"overflowed lanes={int(res.overflow.sum())}, "
+            f"launches={counts}, no false positive, "
+            f"results {match_histogram(res.count.cpu().numpy())}")
+    entries["rerank_fetch"] = rerank_at_band(
+        engine_q, queries, r, q_cfgs["greedy f32-query"],
+        q_launches["greedy f32-query"]["rerank_fetch"])
+
+    # -- 7. the guard-band contract ------------------------------------------
     sub = queries[:256]
-    for mode, cfg in cfgs.items():
+    for name, cfg in q_cfgs.items():
+        n_ok, n_tie = check_guard_band(engine_q, points, sub, r, cfg,
+                                       f"int8 {name}")
+        log(f"[guard] int8 {name} on 256 queries: post-rerank set == "
+            f"rerank-disabled set filtered by the exact distances on {n_ok} "
+            f"lanes (the rest overflowed result_cap); {n_tie} pairs within "
+            f"1e-6 of r")
+
+    # -- 8. kernel path against the plain path through the engines -----------
+    runs = [(mode, engine, cfg) for mode, cfg in cfgs.items()]
+    runs += [(f"int8 {name}", engine_q, cfg) for name, cfg in q_cfgs.items()]
+    for name, eng, cfg in runs:
         plain_cfg = dataclasses.replace(cfg, search=dataclasses.replace(
             cfg.search, use_kernels=False))
-        res_k = engine.range(sub, r, cfg=cfg)
-        res_p = engine.range(sub, r, cfg=plain_cfg)
-        ap_k, ap_p = (average_precision(gt_ids[:256], gt_counts[:256],
-                                        x.ids.cpu().numpy(), x.count.cpu().numpy())
-                      for x in (res_k, res_p))
+        res_k = eng.range(sub, r, cfg=cfg)
+        res_p = eng.range(sub, r, cfg=plain_cfg)
+        ap_k, ap_p = ap_of(res_k, 256), ap_of(res_p, 256)
         same = float((res_k.ids == res_p.ids).all(1).float().mean())
-        log(f"[plain] {mode} on 256 queries: AP kernel={ap_k:.4f} "
+        log(f"[plain] {name} on 256 queries: AP kernel={ap_k:.4f} "
             f"plain={ap_p:.4f}, lanes with identical ids={same:.4f}")
         if abs(ap_k - ap_p) > 0.01:
-            raise AssertionError(f"{mode}: kernel and plain AP differ by "
+            raise AssertionError(f"{name}: kernel and plain AP differ by "
                                  f"{abs(ap_k - ap_p):.4f}")
 
-    for name in entries:
+    for name in ("expand", "gatherdist"):
         entries[name]["launches"] = launches["greedy"][name]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for name in ("expand_int8", "gatherdist_int8"):
+        entries[name]["launches"] = q_launches["greedy f32-query"][name]
     log(card_line())
-    log(json.dumps({"kernels": [{k: entries[n][k] for k in keys}
-                                for n in ("expand", "gatherdist")]}))
+    extra = ("form", "int8_query_ms")
+    log(json.dumps({"kernels": [
+        {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
+        for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",
+                  "rerank_fetch")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

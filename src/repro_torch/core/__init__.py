@@ -12,6 +12,23 @@ from .beam_search import (
     topk_from_state,
 )
 from .build import build_knn_graph
+from .corpus import (
+    CORPUS_DTYPES,
+    META_BYTES,
+    QuantizedCorpus,
+    bytes_per_vector,
+    corpus_cast,
+    corpus_dim,
+    corpus_dtype_name,
+    corpus_raw,
+    corpus_size,
+    lower_bound_dists,
+    quantize_corpus,
+    quantize_rows,
+    quantized_gather_lb,
+    query_quant_err,
+    upper_bound_dists,
+)
 from .distances import gather_dist, pairwise_dist, point_dist
 from .engine import RangeSearchEngine
 from .graph import Graph, medoid, start_points

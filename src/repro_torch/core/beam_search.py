@@ -43,6 +43,7 @@ from .bitset import (
     bitset_num_words,
     first_slot_occurrence,
 )
+from .corpus import corpus_size
 from .distances import gather_dist
 from .graph import Graph
 
@@ -67,8 +68,16 @@ class SearchConfig:
     metric: str = "l2"
     expand_width: int = 4     # E: frontier nodes expanded per iteration
     bitset_cap_bits: int = DEFAULT_BITSET_CAP_BITS  # seen-filter memory bound
-    # CUDA kernels (expand, gatherdist) on a CUDA corpus; False runs their
-    # plain PyTorch versions on the same device, for checks and timing
+    # On an int8 corpus, the expansion's arithmetic: False is the f32-query
+    # form (the reference's XLA path and default), True the int8-query form
+    # of the reference's Pallas kernel (quantized query, exact int8 dot),
+    # which the TPU deployment runs. gather_dist always takes the f32-query
+    # form. On an f32/bf16 corpus it changes nothing: that kernel computes
+    # the diff form either way.
+    use_expand_kernel: bool = False
+    # CUDA kernels (expand, gatherdist, rerank_fetch) on a CUDA corpus;
+    # False runs their plain PyTorch versions on the same device, for checks
+    # and timing
     use_kernels: bool = True
 
     def __post_init__(self):
@@ -170,14 +179,14 @@ def _merge_sorted(b_ids, b_dists, b_exp, c_ids, c_dists, length: int):
     return out_ids, out_dists, out_exp, ~from_beam
 
 
-def init_state(points: torch.Tensor, q: torch.Tensor, start_ids: torch.Tensor,
+def init_state(points, q: torch.Tensor, start_ids: torch.Tensor,
                cfg: SearchConfig) -> BeamState:
     """Seed every lane's beam with the start points (shared (S,) or
-    per-lane (Q, S))."""
+    per-lane (Q, S)); ``points`` is a tensor or a ``QuantizedCorpus``."""
     qn = q.shape[0]
     dev = q.device
     L, V = cfg.max_beam, cfg.visit_cap
-    W = bitset_num_words(points.shape[0], cfg.bitset_cap_bits)
+    W = bitset_num_words(corpus_size(points), cfg.bitset_cap_bits)
     s = start_ids.to(device=dev, dtype=torch.int32)
     s = s.expand(qn, -1) if s.dim() == 1 else s
     if s.shape[1] > L:
@@ -314,6 +323,16 @@ def _step_reference(points, graph: Graph, q, r, es_radius, cfg: SearchConfig,
     return _where_state(do_expand, exp_state, keep_state)
 
 
+def _expand_tile(points, graph: Graph, frontier, q, cfg: SearchConfig):
+    """Fused expansion of a (Q, E) frontier: (Q, E*R) ids/dists + n_dist.
+    On an int8 corpus ``cfg.use_expand_kernel`` picks the int8-query form
+    (the reference's Pallas kernel) over the f32-query form (its XLA path);
+    ``cfg.use_kernels`` picks the CUDA kernel over its plain version."""
+    return expand_frontier(points, graph.neighbors, frontier, q,
+                           metric=cfg.metric, use_kernel=cfg.use_kernels,
+                           quantize_query=cfg.use_expand_kernel)
+
+
 def _step(points, graph: Graph, q, r, es_radius, cfg: SearchConfig,
           st: BeamState, live: torch.Tensor) -> BeamState:
     """One iteration for every lane; lanes outside ``live`` get an INVALID
@@ -347,9 +366,7 @@ def _step(points, graph: Graph, q, r, es_radius, cfg: SearchConfig,
     # -- fused expansion + bitset seen filter --------------------------------
     go = do_expand & live
     frontier = torch.where(go[:, None], cand_ids, INVALID_ID).contiguous()
-    nbr_ids, nd, nd_inc = expand_frontier(points, graph.neighbors, frontier, q,
-                                          metric=cfg.metric,
-                                          use_kernel=cfg.use_kernels)
+    nbr_ids, nd, nd_inc = _expand_tile(points, graph, frontier, q, cfg)
     valid = nbr_ids != INVALID_ID
     seen = bitset_contains(st.visited_bits, torch.where(valid, nbr_ids, 0)) & valid
     fresh = valid & ~seen
@@ -365,7 +382,7 @@ def _step(points, graph: Graph, q, r, es_radius, cfg: SearchConfig,
     # A node is "seen" once it has held a beam slot; candidates truncated
     # straight off the merge stay unmarked and may be rediscovered.
     mark = entrant & (m_ids != INVALID_ID) & go[:, None]
-    if not bitset_exact(points.shape[0], st.visited_bits.shape[1]):
+    if not bitset_exact(corpus_size(points), st.visited_bits.shape[1]):
         mark = first_slot_occurrence(st.visited_bits, m_ids, mark)
     bitset_add(st.visited_bits, m_ids, mark)
 
@@ -405,11 +422,13 @@ def broadcast_radius(r, n: int, default: float = float("inf"),
     return r
 
 
-def beam_search_batch(points: torch.Tensor, graph: Graph, queries: torch.Tensor,
+def beam_search_batch(points, graph: Graph, queries: torch.Tensor,
                       start_ids: torch.Tensor, r, cfg: SearchConfig,
                       es_radius=None) -> BeamState:
-    """Batched search; ``r`` and ``es_radius`` are scalars or per-lane (Q,)
-    radii; ``start_ids`` is shared ``(S,)`` or per-lane ``(Q, S)``."""
+    """Batched search over a tensor corpus or a ``QuantizedCorpus`` (which
+    searches on certified lower bounds); ``r`` and ``es_radius`` are
+    scalars or per-lane (Q,) radii; ``start_ids`` is shared ``(S,)`` or
+    per-lane ``(Q, S)``."""
     dev = points.device
     queries = queries.to(device=dev, dtype=torch.float32).contiguous()
     n = queries.shape[0]

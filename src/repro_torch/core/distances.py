@@ -42,11 +42,13 @@ def pairwise_dist(queries: torch.Tensor, points: torch.Tensor,
     return torch.clamp(qn + pn.T - 2.0 * dots, min=0.0)
 
 
-def gather_dist(points: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
+def gather_dist(points, ids: torch.Tensor, q: torch.Tensor,
                 metric: str = "l2", use_kernel: bool = True) -> torch.Tensor:
     """(Q, S) distances from q[i] to points[ids[i, j]]; padded/invalid ids
-    get +inf. Math in f32 whatever the storage dtype. On a CUDA corpus this
-    is the gatherdist kernel."""
+    get +inf. Math in f32 whatever the storage dtype. A ``QuantizedCorpus``
+    gives each candidate's certified lower bound in the f32-query form
+    (``core.corpus.quantized_gather_lb``), as the reference's does. On a
+    CUDA corpus this is the gatherdist (or gatherdist-int8) kernel."""
     _check(metric)
     return gatherdist(points, ids.to(torch.int32).contiguous(),
                       q.float().contiguous(), metric=metric,

@@ -8,6 +8,14 @@ import torch
 
 from ..utils import resolve_device
 from .beam_search import SearchConfig, beam_search_batch, broadcast_radius, topk_from_state
+from .corpus import (
+    Corpus,
+    bytes_per_vector,
+    corpus_cast,
+    corpus_dim,
+    corpus_dtype_name,
+    corpus_size,
+)
 from .graph import Graph, start_points
 from .range_search import (
     RangeConfig,
@@ -16,15 +24,14 @@ from .range_search import (
     range_search_fused,
 )
 
-_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
 @dataclasses.dataclass
 class RangeSearchEngine:
-    """An in-memory graph index over an (N, d) f32 or bf16 corpus, on one
-    device. Every query runs on the engine's device."""
+    """An in-memory graph index over a corpus on one device: an (N, d) f32
+    or bf16 tensor, or an int8 ``QuantizedCorpus`` (codes + metadata + the
+    raw f32 rows its rerank reads). Every query runs on the engine's
+    device."""
 
-    points: torch.Tensor    # (N, d) float32 / bfloat16
+    points: Corpus          # (N, d) float32 / bfloat16, or QuantizedCorpus
     graph: Graph
     start_ids: torch.Tensor # (S,) int32 search entry points
     metric: str = "l2"
@@ -40,16 +47,16 @@ class RangeSearchEngine:
                    device="cuda") -> "RangeSearchEngine":
         """Engine over ``points`` (numpy or tensor) and a built ``graph``.
         Entry points are chosen on the f32 vectors; ``corpus_dtype``
-        ("float32" | "bfloat16") sets what the search stores and gathers."""
+        ("float32" | "bfloat16" | "int8") sets what the search stores and
+        gathers. "int8" quantizes on the engine's device and keeps the raw
+        f32 rows for the guard-band rerank. The reference's ``labels``,
+        ``tier`` and ``resident_mb`` (filtered and tiered corpora) are later
+        slices of the port (ROADMAP.md §1)."""
         dev = resolve_device(device)
         pts = torch.as_tensor(points, device=dev).float().contiguous()
         starts = start_points(pts, metric, n_starts)
         if corpus_dtype is not None:
-            if corpus_dtype not in _STORAGE:
-                raise NotImplementedError(
-                    f"corpus_dtype={corpus_dtype!r} is not ported yet: the int8 "
-                    "corpus is a later slice of the port (ROADMAP.md §1)")
-            pts = pts.to(_STORAGE[corpus_dtype])
+            pts = corpus_cast(pts, corpus_dtype)
         nbrs = graph.neighbors.to(device=dev, dtype=torch.int32).contiguous()
         return RangeSearchEngine(points=pts, graph=Graph(neighbors=nbrs),
                                  start_ids=starts, metric=metric)
@@ -93,12 +100,12 @@ class RangeSearchEngine:
     def stats(self) -> dict:
         deg = self.graph.degrees().float()
         return dict(
-            num_points=self.points.shape[0],
-            dim=self.points.shape[1],
+            num_points=corpus_size(self.points),
+            dim=corpus_dim(self.points),
             max_degree=int(self.graph.max_degree),
             mean_degree=float(deg.mean()),
             min_degree=int(deg.min()),
             metric=self.metric,
-            corpus_dtype=str(self.points.dtype).removeprefix("torch."),
-            hot_bytes_per_vector=self.points.shape[1] * self.points.element_size(),
+            corpus_dtype=corpus_dtype_name(self.points),
+            hot_bytes_per_vector=bytes_per_vector(self.points),
         )

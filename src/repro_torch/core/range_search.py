@@ -10,9 +10,10 @@ Three modes, matching the paper:
 
 ``range_search_compacted`` is the two-phase path: phase 1 over the whole
 batch, phase 2 only over the lanes that need it. ``range_search_fused``
-runs phase 2 masked over every lane instead. Both are the f32/bf16 corpus
-path; labels, the int8 corpus and its guard-band rerank, and the resumable
-``greedy_*_batch`` API are later slices (ROADMAP.md §1, items 4 and 8).
+runs phase 2 masked over every lane instead. Both take an f32/bf16 corpus
+or an int8 ``QuantizedCorpus``; the latter searches on certified lower
+bounds and ends in the guard-band rerank. Labels and the resumable
+``greedy_*_batch`` API are later slices (ROADMAP.md §1, item 4).
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels.expand import expand_frontier
+from ..kernels.rerank_fetch import fetch_rerank_pairs
 from ..utils import INVALID_ID
 from .beam_search import (
     BeamState,
     SearchConfig,
+    _expand_tile,
     _f32_ascending_key,
     _f32_from_key,
     _sort_by_dist,
@@ -41,11 +43,12 @@ from .bitset import (
     bitset_num_words,
     first_slot_occurrence,
 )
+from .corpus import QuantizedCorpus, corpus_size, upper_bound_dists
 from .distances import gather_dist
 from .graph import Graph
 
-_LATER = ("is not ported yet: labels, the int8 corpus and the resumable "
-          "greedy API are later slices of the port (ROADMAP.md §1)")
+_LATER = ("is not ported yet: labels and the resumable greedy API are later "
+          "slices of the port (ROADMAP.md §1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +60,9 @@ class RangeConfig:
     result_cap: int = 1024        # K_cap: per-query result buffer
     frontier_rounds: int = 4096   # greedy expansion budget (expansions/query)
     lam: float = 1.0              # λ threshold for entering phase 2
+    # int8 corpus: exact-rerank the guard band after the approximate search
+    # (the corpus must carry raw rows). False keeps the certified superset.
+    rerank: bool = True
 
     def __post_init__(self):
         if self.mode not in ("beam", "doubling", "greedy"):
@@ -77,7 +83,7 @@ class RangeResult:
     n_dist: torch.Tensor    # (Q,) int32 — total distance computations
     es_stopped: torch.Tensor  # (Q,) bool
     phase2: torch.Tensor    # (Q,) bool — query took the second phase
-    n_rerank: torch.Tensor  # (Q,) int32 — always 0 on the f32 path
+    n_rerank: torch.Tensor  # (Q,) int32 — guard-band candidates exact-reranked
 
 
 # ---------------------------------------------------------------------------
@@ -198,14 +204,12 @@ def _greedy_step(points, graph: Graph, q, r, cap: int, scfg: SearchConfig,
     ridx = torch.clamp(gs.expand_ptr[:, None] + lane, max=cap - 1).long()
     nodes = torch.where(lane_ok, torch.gather(res[..., 0], 1, ridx), INVALID_ID)
 
-    nbr_ids, nd, nd_inc = expand_frontier(points, graph.neighbors,
-                                          nodes.contiguous(), q,
-                                          metric=scfg.metric,
-                                          use_kernel=scfg.use_kernels)
+    nbr_ids, nd, nd_inc = _expand_tile(points, graph, nodes.contiguous(), q,
+                                       scfg)
     valid = nbr_ids != INVALID_ID
     seen = bitset_contains(gs.seen_bits, torch.where(valid, nbr_ids, 0)) & valid
     new = valid & ~seen & (nd <= r[:, None])
-    if not bitset_exact(points.shape[0], gs.seen_bits.shape[1]):
+    if not bitset_exact(corpus_size(points), gs.seen_bits.shape[1]):
         new = first_slot_occurrence(gs.seen_bits, nbr_ids, new)
 
     pos = gs.res_count[:, None] + torch.cumsum(new, dim=1, dtype=torch.int32) - 1
@@ -228,7 +232,7 @@ def _greedy_run(points, graph: Graph, q, r, gs: GreedyState, cap: int,
                 stop_at: int, scfg: SearchConfig, active) -> GreedyState:
     """Advance every lane's greedy continuation until its frontier is empty
     or ``gs.rounds`` reaches ``stop_at``; inactive lanes stay as they are."""
-    exact_bits = bitset_exact(points.shape[0], gs.seen_bits.shape[1])
+    exact_bits = bitset_exact(corpus_size(points), gs.seen_bits.shape[1])
     E1 = scfg.eff_expand_width == 1
     # E >= 2: the packed buffer holds the results while the loop runs
     res = None if E1 else _pack(gs.res_ids, gs.res_dists)
@@ -252,7 +256,7 @@ def greedy_search(points, graph: Graph, q, r, st: BeamState, cap: int,
     """Paper Alg. 2 from finished beam states, every lane at its own radius
     ``r`` (Q,). ``active=False`` lanes do not expand. ``rounds`` is an
     expansion budget; the last iteration may overshoot it by up to E - 1."""
-    n_corpus = points.shape[0]
+    n_corpus = corpus_size(points)
     num_words = bitset_num_words(n_corpus, scfg.bitset_cap_bits)
     exact_bits = bitset_exact(n_corpus, num_words)
     if active is None:
@@ -348,13 +352,65 @@ def filter_tombstoned(tombstones: torch.Tensor, res: RangeResult) -> RangeResult
     return dataclasses.replace(res, ids=ids, dists=dists, count=count)
 
 
+# ---------------------------------------------------------------------------
+# Int8 corpus: the guard-band rerank
+# ---------------------------------------------------------------------------
+#
+# An int8 corpus searches on certified lower bounds (core.corpus), so the
+# loop's plain ``dist <= r`` tests keep a per-candidate superset at the
+# caller's radius. Here each kept candidate's upper bound is recovered:
+# ``ub <= r`` proves membership, the rest (the ambiguous band) get their
+# exact f32 distance from the raw rows and the exact test.
+
+def _rerank_band(points, queries, rj, res: RangeResult,
+                 cfg: RangeConfig) -> RangeResult:
+    """The guard-band rerank of both paths (the reference's
+    ``_maybe_rerank_host``, and its fused ``_rerank_fused``, which needs a
+    static shape under jit). The ambiguous band is collected as flat
+    (lane, slot) pairs across the batch, so the exact pass is one
+    rerank_fetch launch whose size is the band's population; a batch with
+    an empty band launches nothing. ``ub > r`` marks the band, a band entry
+    is kept when its exact distance is within r and then takes it,
+    survivors are stably compacted to the left, and ``n_rerank`` and
+    ``n_dist`` grow by the band size."""
+    if not (isinstance(points, QuantizedCorpus) and cfg.rerank
+            and points.raw is not None):
+        return res
+    metric = cfg.search.metric
+    ids, dists = res.ids, res.dists
+    valid = ids != INVALID_ID
+    ub = upper_bound_dists(points, torch.where(valid, ids, 0), dists, queries,
+                           metric)
+    amb = valid & (ub > rj[:, None])
+    lanes_p, slots_p = torch.nonzero(amb, as_tuple=True)  # syncs on the band
+    if lanes_p.numel() == 0:
+        return res
+    exact = torch.full_like(dists, torch.inf)
+    exact[lanes_p, slots_p] = fetch_rerank_pairs(
+        points.raw, queries, ids[lanes_p, slots_p], lanes_p.to(torch.int32),
+        metric=metric, use_kernel=cfg.search.use_kernels)
+    keep = valid & torch.where(amb, exact <= rj[:, None], True)
+    new_d = torch.where(amb & keep, exact, dists)
+    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    n_rerank = torch.sum(amb, dim=1, dtype=torch.int32)
+    return dataclasses.replace(
+        res,
+        ids=torch.gather(torch.where(keep, ids, INVALID_ID), 1, order),
+        dists=torch.gather(torch.where(keep, new_d, torch.inf), 1, order),
+        count=torch.sum(keep, dim=1, dtype=torch.int32),
+        n_dist=res.n_dist + n_rerank,
+        n_rerank=res.n_rerank + n_rerank)
+
+
 def finalize_results(corpus, queries, r, res: RangeResult, cfg: RangeConfig,
                      tombstones=None) -> RangeResult:
-    """Result-stage post-processing of the f32 path: the tombstone drop.
-    (Labels and the int8 rerank follow it in later slices.)"""
+    """Result-stage post-processing of both paths, in the reference's
+    order: the tombstone drop, (the label drop, a later slice,) then the
+    int8 guard-band rerank, so the exact pass never spends gathers on
+    candidates the filters already removed. ``r`` is the (Q,) radius."""
     if tombstones is not None:
         res = filter_tombstoned(tombstones, res)
-    return res
+    return _rerank_band(corpus, queries, r, res, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +456,7 @@ def _walk_compacted(corpus, graph: Graph, queries, start_ids, r,
     rj = broadcast_radius(r, queries.shape[0], device=dev)
     esj = None if es_radius is None else broadcast_radius(
         es_radius, queries.shape[0], device=dev)
+
     # phase 1 runs at the BASE beam for every mode; doubling restarts only
     # its survivors with widening enabled (paper Alg. 5)
     p1_search = cfg.search if cfg.mode != "doubling" else dataclasses.replace(
@@ -446,17 +503,22 @@ def _walk_compacted(corpus, graph: Graph, queries, start_ids, r,
 def _check_unported(corpus, labels, label_filter):
     if labels is not None or label_filter is not None:
         raise NotImplementedError("filtered range search " + _LATER)
+    if isinstance(corpus, QuantizedCorpus):
+        return
     if not isinstance(corpus, torch.Tensor) or corpus.dtype not in (
             torch.float32, torch.bfloat16):
-        raise NotImplementedError("a non-f32/bf16 corpus " + _LATER)
+        raise NotImplementedError(
+            "a corpus other than an f32/bf16 tensor or a QuantizedCorpus "
+            "(the tiered corpus is a later slice of the port, ROADMAP.md §1)")
 
 
 def range_search_fused(*, corpus, graph, queries, start_ids, r, cfg,
                        es_radius=None, tombstones=None, labels=None,
                        label_filter=None) -> RangeResult:
     """Batched range search with phase 2 masked (not compacted) over every
-    lane, then the tombstone drop. ``r``/``es_radius`` are a scalar or
-    per-query ``(Q,)`` radii."""
+    lane, then the result stage (tombstones, then the int8 guard-band
+    rerank). ``r``/``es_radius`` are a scalar or per-query ``(Q,)``
+    radii."""
     _check_unported(corpus, labels, label_filter)
     return _range_search_fused(corpus, graph, queries, start_ids, r, cfg,
                                es_radius, tombstones)
@@ -467,7 +529,8 @@ def range_search_compacted(*, corpus, graph, queries, start_ids, r, cfg,
                            label_filter=None) -> RangeResult:
     """Two-phase batched range search (the QPS path): phase 1 over the
     whole batch, phase 2 over the survivor lanes only, each at its own
-    radius."""
+    radius, then the result stage (tombstones, then the int8 guard-band
+    rerank)."""
     _check_unported(corpus, labels, label_filter)
     return _walk_compacted(corpus, graph, queries, start_ids, r, cfg,
                            es_radius, tombstones)

@@ -1,0 +1,41 @@
+"""Symmetric absmax int8 quantization.
+
+The quantized corpus (``core.corpus``) stores each row as int8 codes with
+its own absmax scale; the element-wise error is then at most half a scale
+step, which the corpus's guard band is derived from. Rounding is half to
+even (``torch.round``), as in the reference, and every division is a true
+f32 division, so a code on a .5 boundary lands where the reference puts it.
+(``compressed_psum_mean``, the int8 wire format of cross-device reductions,
+belongs to the multi-device slice.)
+"""
+from __future__ import annotations
+
+import torch
+
+# Relative slack on the quantized-corpus guard-band bounds (``core.corpus``
+# and the int8 CUDA kernels): the bounds are derived in real arithmetic but
+# evaluated in f32. Every lower-bound site must use this constant, because
+# the rerank's upper-bound recovery assumes each producer used at least it.
+GUARD_SLACK = 1e-4
+
+
+def quantize_int8(x: torch.Tensor):
+    """(q int8, scale) with one absmax scale for the whole tensor."""
+    amax = torch.max(torch.abs(x))
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_int8_rows(x: torch.Tensor):
+    """(q (N, d) int8, scales (N,) f32): one absmax scale per row, so the
+    element-wise error is at most ``scales[i] / 2``; ``scale = amax / 127``
+    means no value clips."""
+    amax = torch.amax(torch.abs(x), dim=-1)
+    scales = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scales[..., None]), -127, 127).to(torch.int8)
+    return q, scales
+
+
+def dequantize_int8(q: torch.Tensor, scale) -> torch.Tensor:
+    return q.float() * scale

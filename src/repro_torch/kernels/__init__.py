@@ -5,13 +5,19 @@ CUDA kernel, built by ``_build`` with nvcc for sm_90a and bound with
 ctypes), ``ref.py`` (the plain PyTorch version) and ``ops.py`` (dispatch:
 CPU tensors to the plain version, CUDA tensors to the kernel).
 
-* ``expand``     — fused frontier expansion (adjacency gather + row gather
-  + distance + first-occurrence tile dedup), every search-loop iteration.
-* ``gatherdist`` — per-(query, id) row gather + distance: start points and
-  the E=1 reference steps.
+* ``expand``       — fused frontier expansion (adjacency gather + row gather
+  + distance + first-occurrence tile dedup), every search-loop iteration;
+  ``expand.cu`` over f32/bf16 rows, ``expand_int8.cu`` over an int8 corpus
+  (certified lower bounds, f32-query or int8-query form).
+* ``gatherdist``   — per-(query, id) row gather + distance: start points and
+  the E=1 reference steps; ``gatherdist.cu`` and ``gatherdist_int8.cu``.
+* ``rerank_fetch`` — exact f32 distances of flat (row id, query) pairs: the
+  int8 corpus's guard-band rerank.
 """
-from .expand import expand_frontier, expand_frontier_ref
-from .gatherdist import gatherdist, gatherdist_ref
+from .expand import expand_frontier, expand_frontier_int8_ref, expand_frontier_ref
+from .gatherdist import gatherdist, gatherdist_int8_ref, gatherdist_ref
+from .rerank_fetch import fetch_rerank_dists, fetch_rerank_dists_ref, fetch_rerank_pairs
 
-__all__ = ["expand_frontier", "expand_frontier_ref", "gatherdist",
-           "gatherdist_ref"]
+__all__ = ["expand_frontier", "expand_frontier_int8_ref", "expand_frontier_ref",
+           "fetch_rerank_dists", "fetch_rerank_dists_ref", "fetch_rerank_pairs",
+           "gatherdist", "gatherdist_int8_ref", "gatherdist_ref"]

@@ -27,8 +27,13 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 SOURCES = {
     "expand": _KERNELS / "expand" / "csrc" / "expand.cu",
     "gatherdist": _KERNELS / "gatherdist" / "csrc" / "gatherdist.cu",
+    "expand_int8": _KERNELS / "expand" / "csrc" / "expand_int8.cu",
+    "gatherdist_int8": _KERNELS / "gatherdist" / "csrc" / "gatherdist_int8.cu",
+    "rerank_fetch": _KERNELS / "rerank_fetch" / "csrc" / "rerank_fetch.cu",
 }
 COMMON = _KERNELS / "csrc" / "common.cuh"
+# no --use_fast_math: the int8 kernels need true IEEE divisions and square
+# roots to round query codes and bounds as the plain versions do
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-I", str(COMMON.parent)]

@@ -3,7 +3,12 @@ from __future__ import annotations
 
 import torch
 
+from ..dist.compression import GUARD_SLACK
+
 ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# 1 + GUARD_SLACK, the factor every lower-bound site applies; ctypes rounds
+# it to f32 as PyTorch rounds the same Python float
+SLACK_FACTOR = 1.0 + GUARD_SLACK
 
 
 def check_tensor(name: str, t: torch.Tensor, dtypes, ndim: int,
@@ -33,3 +38,14 @@ def check_metric(metric: str) -> int:
     if metric not in ("l2", "ip"):
         raise ValueError(f"unknown metric {metric!r}")
     return int(metric == "l2")
+
+
+def code_vec(codes: torch.Tensor) -> int:
+    """The bytes an int8 kernel's lane may read from a code row at once: 16
+    when every row starts on a 16-byte boundary, 4 on a 4-byte boundary
+    (``__dp4a`` words), else 1."""
+    d, ptr = codes.shape[1], codes.data_ptr()
+    for vec in (16, 4):
+        if d % vec == 0 and ptr % vec == 0:
+            return vec
+    return 1

@@ -1,9 +1,13 @@
 // Device helpers shared by the port's CUDA kernels: 16-byte row loads of
-// f32 or bf16 storage into f32 registers, and a warp-wide sum.
+// f32 or bf16 storage into f32 registers, a row-vs-query distance share,
+// warp-wide reductions, and the int8 corpus's query quantization, row reads
+// (8 lanes a row), certified lower bound and bounds loop.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 #define INVALID_ID 2147483647
 
@@ -35,10 +39,322 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// This lane's share of sum((x - q)^2) (L2) or x.q (ip) between one row of
+// f32/bf16 storage and one f32 query, both in global memory: nvec 16-byte
+// chunks of the row (0 when rows are not 16-byte aligned), then the rest
+// element by element.
+template <typename T, bool L2>
+__device__ __forceinline__ float row_query_partial(const T* __restrict__ row,
+                                                   const float* __restrict__ q,
+                                                   int d, int nvec, int lane) {
+  constexpr int V = Vec<T>::N;
+  float acc = 0.f;
+  for (int c = lane; c < nvec; c += 32) {
+    float x[V];
+    load16(row + c * V, x);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float qv = __ldg(q + c * V + k);
+      if (L2) {
+        const float t = x[k] - qv;
+        acc = fmaf(t, t, acc);
+      } else {
+        acc = fmaf(x[k], qv, acc);
+      }
+    }
+  }
+  for (int i = nvec * V + lane; i < d; i += 32) {
+    const float xv = to_f32(row[i]);
+    const float qv = __ldg(q + i);
+    if (L2) {
+      const float t = xv - qv;
+      acc = fmaf(t, t, acc);
+    } else {
+      acc = fmaf(xv, qv, acc);
+    }
+  }
+  return acc;
+}
+
+// The xor butterfly leaves the same bits in every lane: each step adds a
+// pair of values in both orders, and f32 addition is commutative.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// int8 corpus (src/repro_torch/core/corpus.py). The arithmetic below is the
+// one the two int8 kernels share, written with explicit round-to-nearest
+// intrinsics so that the compiler contracts nothing differently in either:
+// expand_int8 and gatherdist_int8 give the same bits for the same
+// (query, row). Divisions are true IEEE divisions and rounding is rintf
+// (half to even, as torch.round and jnp.round), never roundf.
+// ---------------------------------------------------------------------------
+
+struct QueryQuant {
+  float scale;   // scale_q = max(max|q|, 1e-12) / 127 (int8-query form)
+  float err;     // err_q = ||q - q_hat|| (int8-query form), else 0
+  float sqnorm;  // |q_hat|^2 (int8-query form)
+  float norm;    // ||q||
+};
+
+// One warp reads the f32 query q (d values). In the int8-query form it also
+// writes the query's codes to qc, round_up(d, 4) bytes, 4-byte aligned, the
+// padding zeroed. Lane l owns the 4-element groups l, l + 32, ...; each sum
+// runs in that order and ends in the butterfly, so the result depends on d
+// and q alone, not on the kernel that calls it.
+template <bool kQuantQuery>
+__device__ __forceinline__ QueryQuant quantize_query(const float* __restrict__ q,
+                                                     int d, int lane,
+                                                     int8_t* __restrict__ qc) {
+  const int groups = (d + 3) / 4;
+  float amax = 0.f, nrm = 0.f;
+  for (int g = lane; g < groups; g += 32) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * g + j;
+      if (i < d) {
+        const float x = q[i];
+        amax = fmaxf(amax, fabsf(x));
+        nrm = __fmaf_rn(x, x, nrm);
+      }
+    }
+  }
+  QueryQuant s;
+  s.norm = __fsqrt_rn(warp_sum(nrm));
+  s.scale = 0.f;
+  s.err = 0.f;
+  s.sqnorm = 0.f;
+  if (!kQuantQuery) return s;
+  const float scale = __fdiv_rn(fmaxf(warp_max(amax), 1e-12f), 127.0f);
+  float err = 0.f, sq = 0.f;
+  for (int g = lane; g < groups; g += 32) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * g + j;
+      float c = 0.f;
+      if (i < d) {
+        const float x = q[i];
+        c = fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.f), 127.f);
+        const float h = __fmul_rn(c, scale);
+        const float e = __fsub_rn(x, h);
+        err = __fmaf_rn(e, e, err);
+        sq = __fmaf_rn(h, h, sq);
+      }
+      qc[i] = static_cast<int8_t>(c);
+    }
+  }
+  s.scale = scale;
+  s.err = __fsqrt_rn(warp_sum(err));
+  s.sqnorm = warp_sum(sq);
+  return s;
+}
+
+// An int8 code row is read by a group of 8 lanes, so one warp load
+// instruction covers four rows (at d = 128, 8 lanes x 16 B each). ``vec`` is
+// the bytes a lane loads at once: 16 when rows are 16-byte aligned (d % 16
+// == 0 on an aligned base), 4 when 4-byte aligned, 1 otherwise. Lane ``part``
+// of the group takes chunks part, part + 8, ... in that order, so a row's
+// partial sums, and the group butterfly below, depend on d, vec and the
+// values alone: every kernel that reads rows this way gives the same bits.
+constexpr int GROUP = 8;
+
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = GROUP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int group_sum_int(int v) {
+#pragma unroll
+  for (int o = GROUP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// This lane's share of the exact int8 dot of a code row with the query's
+// codes qc (shared memory, 16-byte aligned): __dp4a over 4-byte words.
+__device__ __forceinline__ int group_dot_i8(const int8_t* __restrict__ row,
+                                            const int8_t* __restrict__ qc,
+                                            int d, int part, int vec) {
+  int acc = 0;
+  if (vec == 16) {
+    const int4* r16 = reinterpret_cast<const int4*>(row);
+    const int4* q16 = reinterpret_cast<const int4*>(qc);
+    for (int c = part; c < d / 16; c += GROUP) {
+      const int4 w = __ldg(r16 + c);
+      const int4 x = q16[c];
+      acc = __dp4a(w.x, x.x, acc);
+      acc = __dp4a(w.y, x.y, acc);
+      acc = __dp4a(w.z, x.z, acc);
+      acc = __dp4a(w.w, x.w, acc);
+    }
+  } else if (vec == 4) {
+    const int* r4 = reinterpret_cast<const int*>(row);
+    const int* q4 = reinterpret_cast<const int*>(qc);
+    for (int c = part; c < d / 4; c += GROUP) acc = __dp4a(__ldg(r4 + c), q4[c], acc);
+  } else {
+    for (int i = part; i < d; i += GROUP)
+      acc += static_cast<int>(__ldg(row + i)) * static_cast<int>(qc[i]);
+  }
+  return acc;
+}
+
+// One code dequantized and set against one f32 query value.
+template <bool L2>
+__device__ __forceinline__ float deq_term(int code, float scale, float qv,
+                                          float acc) {
+  const float x = __fmul_rn(static_cast<float>(code), scale);
+  if (L2) {
+    const float t = __fsub_rn(x, qv);
+    return __fmaf_rn(t, t, acc);
+  }
+  return __fmaf_rn(x, qv, acc);
+}
+
+// One 4-byte code word against 4 query values at q (16-byte aligned).
+template <bool L2>
+__device__ __forceinline__ float deq_word(int w, float scale, const float* q,
+                                          float acc) {
+  const float4 v = *reinterpret_cast<const float4*>(q);
+  acc = deq_term<L2>(static_cast<int8_t>(w), scale, v.x, acc);
+  acc = deq_term<L2>(static_cast<int8_t>(w >> 8), scale, v.y, acc);
+  acc = deq_term<L2>(static_cast<int8_t>(w >> 16), scale, v.z, acc);
+  return deq_term<L2>(static_cast<int8_t>(w >> 24), scale, v.w, acc);
+}
+
+// This lane's share of sum((codes * scale - q)^2) (L2) or
+// sum(codes * scale * q) (ip): the f32-query form, each code dequantized in
+// registers against the f32 query q (shared memory, 16-byte aligned).
+template <bool L2>
+__device__ __forceinline__ float group_partial_deq(const int8_t* __restrict__ row,
+                                                   float scale,
+                                                   const float* __restrict__ q,
+                                                   int d, int part, int vec) {
+  float acc = 0.f;
+  if (vec == 16) {
+    const int4* r16 = reinterpret_cast<const int4*>(row);
+    for (int c = part; c < d / 16; c += GROUP) {
+      const int4 w = __ldg(r16 + c);
+      const float* qv = q + 16 * c;
+      acc = deq_word<L2>(w.x, scale, qv, acc);
+      acc = deq_word<L2>(w.y, scale, qv + 4, acc);
+      acc = deq_word<L2>(w.z, scale, qv + 8, acc);
+      acc = deq_word<L2>(w.w, scale, qv + 12, acc);
+    }
+  } else if (vec == 4) {
+    const int* r4 = reinterpret_cast<const int*>(row);
+    for (int c = part; c < d / 4; c += GROUP)
+      acc = deq_word<L2>(__ldg(r4 + c), scale, q + 4 * c, acc);
+  } else {
+    for (int i = part; i < d; i += GROUP)
+      acc = deq_term<L2>(__ldg(row + i), scale, q[i], acc);
+  }
+  return acc;
+}
+
+// The int8-query form's approximate distance from the exact int32 dot:
+// dots = idot * (scale_row * scale_q); l2 takes the norm form
+// max(|x_hat|^2 + |q_hat|^2 - 2 dots, 0), ip -dots.
+template <bool L2>
+__device__ __forceinline__ float int8_dhat(int idot, float scale, float sqnorm,
+                                           const QueryQuant& qq) {
+  const float dots = __fmul_rn(__int2float_rn(idot), __fmul_rn(scale, qq.scale));
+  if (L2)
+    return fmaxf(__fsub_rn(__fadd_rn(sqnorm, qq.sqnorm), __fmul_rn(2.f, dots)), 0.f);
+  return -dots;
+}
+
+// The certified lower bound (core/corpus.py::lower_bound_dists) of one
+// candidate with metadata row (err, sqnorm); slack is f32(1 + GUARD_SLACK).
+template <bool L2>
+__device__ __forceinline__ float lower_bound(float d_hat, float err,
+                                             float sqnorm,
+                                             const QueryQuant& qq,
+                                             float slack) {
+  if (L2) {
+    const float g = __fmul_rn(__fadd_rn(err, qq.err), slack);
+    const float s = fmaxf(__fsub_rn(__fsqrt_rn(fmaxf(d_hat, 0.f)), g), 0.f);
+    return __fmul_rn(s, s);
+  }
+  const float eps = __fmul_rn(
+      __fadd_rn(__fmul_rn(err, qq.norm),
+                __fmul_rn(__fsqrt_rn(fmaxf(sqnorm, 0.f)), qq.err)),
+      slack);
+  return __fsub_rn(d_hat, eps);
+}
+
+// The certified lower bounds of one query against cnt candidate ids, by
+// one warp: a group of 8 lanes a row, four rows per warp load, U such loads
+// in flight (U * 4 rows a pass). Each group's first lane writes its row's
+// bound (+inf for an INVALID or out-of-range id), the id when oid is
+// given, and the int32 dot when odot is given (0 in the f32-query form).
+// qs is the f32 query in shared memory, qc its codes (int8-query form).
+template <bool L2, bool kQuantQuery, int U>
+__device__ __forceinline__ void warp_int8_bounds(
+    const int8_t* __restrict__ codes, const float* __restrict__ meta, int n,
+    int d, int vec, const int* ids, int cnt, const float* qs,
+    const int8_t* qc, const QueryQuant& qq, float slack, int lane, int* oid,
+    float* od, int* odot) {
+  const int g = lane / GROUP, part = lane % GROUP;
+  constexpr int ROWS = 32 / GROUP;
+  for (int j0 = 0; j0 < cnt; j0 += ROWS * U) {
+    int id[U];
+    float scale[U], sqn[U], err[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + ROWS * u + g;
+      int a = j < cnt ? ids[j] : INVALID_ID;
+      if (a < 0 || a >= n) a = INVALID_ID;
+      id[u] = a;
+      scale[u] = sqn[u] = err[u] = 0.f;
+      if (a != INVALID_ID) {
+        const float* m = meta + 3 * (size_t)a;  // 12-byte stride: scalar loads
+        scale[u] = __ldg(m);
+        sqn[u] = __ldg(m + 1);
+        err[u] = __ldg(m + 2);
+      }
+    }
+    float accf[U];
+    int acci[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      accf[u] = 0.f;
+      acci[u] = 0;
+      if (id[u] != INVALID_ID) {
+        const int8_t* row = codes + (size_t)id[u] * d;
+        if (kQuantQuery)
+          acci[u] = group_dot_i8(row, qc, d, part, vec);
+        else
+          accf[u] = group_partial_deq<L2>(row, scale[u], qs, d, part, vec);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + ROWS * u + g;
+      const int si = kQuantQuery ? group_sum_int(acci[u]) : 0;
+      const float sf = kQuantQuery ? 0.f : group_sum(accf[u]);
+      if (part == 0 && j < cnt) {
+        float dist = INFINITY;
+        if (id[u] != INVALID_ID) {
+          const float d_hat = kQuantQuery ? int8_dhat<L2>(si, scale[u], sqn[u], qq)
+                                          : (L2 ? sf : -sf);
+          dist = lower_bound<L2>(d_hat, err[u], sqn[u], qq, slack);
+        }
+        if (oid) oid[j] = id[u];
+        od[j] = dist;
+        if (odot) odot[j] = si;
+      }
+    }
+  }
 }
 
 }  // namespace repro_torch

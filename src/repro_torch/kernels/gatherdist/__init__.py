@@ -1,4 +1,5 @@
-from .ops import gatherdist, gatherdist_cuda
-from .ref import gatherdist_ref
+from .ops import gatherdist, gatherdist_cuda, gatherdist_int8_cuda
+from .ref import gatherdist_int8_ref, gatherdist_ref
 
-__all__ = ["gatherdist", "gatherdist_cuda", "gatherdist_ref"]
+__all__ = ["gatherdist", "gatherdist_cuda", "gatherdist_int8_cuda",
+           "gatherdist_int8_ref", "gatherdist_ref"]

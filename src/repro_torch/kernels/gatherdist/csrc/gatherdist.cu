@@ -41,34 +41,8 @@ __global__ void gatherdist_kernel(const T* __restrict__ points,
   }
   const T* row = points + (size_t)id * d;
   const float* q = queries + (size_t)(p / s) * d;
-  constexpr int V = Vec<T>::N;
-  const int nvec = use_vec ? d / V : 0;
-  float acc = 0.f;
-  for (int c = lane; c < nvec; c += 32) {
-    float x[V];
-    load16(row + c * V, x);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const float qv = __ldg(q + c * V + k);
-      if (L2) {
-        const float t = x[k] - qv;
-        acc = fmaf(t, t, acc);
-      } else {
-        acc = fmaf(x[k], qv, acc);
-      }
-    }
-  }
-  for (int i = nvec * V + lane; i < d; i += 32) {
-    const float xv = to_f32(row[i]);
-    const float qv = __ldg(q + i);
-    if (L2) {
-      const float t = xv - qv;
-      acc = fmaf(t, t, acc);
-    } else {
-      acc = fmaf(xv, qv, acc);
-    }
-  }
-  acc = warp_sum(acc);
+  const int nvec = use_vec ? d / Vec<T>::N : 0;
+  const float acc = warp_sum(row_query_partial<T, L2>(row, q, d, nvec, lane));
   if (lane == 0) out[p] = L2 ? acc : -acc;
 }
 

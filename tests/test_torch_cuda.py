@@ -5,10 +5,11 @@ no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q tests/test_torch_cuda.py
 
-Tolerance: ids and counts equal; distances ``allclose(rtol=1e-5,
-atol=1e-5)`` for l2, and for ip ``atol = 1e-6 * max|x| * max|q|`` — the
-kernel sums the d terms in another order than PyTorch, and a reordered dot
-product errs in proportion to its terms, not to its value.
+Tolerance: ids, counts and int32 dots equal; distances ``allclose(rtol=
+1e-5, atol=1e-5)`` for l2, and for ip ``atol = 1e-6 * max|x| * max|q|`` —
+the kernel sums the d terms in another order than PyTorch, and a reordered
+dot product errs in proportion to its terms, not to its value. The two int8
+kernels share their arithmetic and must agree bit for bit.
 """
 import dataclasses
 
@@ -17,9 +18,15 @@ import pytest
 import torch
 
 from repro_torch.core import (
-    RangeConfig, RangeSearchEngine, SearchConfig, build_knn_graph)
-from repro_torch.kernels.expand import expand_cuda, expand_frontier, expand_frontier_ref
-from repro_torch.kernels.gatherdist import gatherdist, gatherdist_cuda, gatherdist_ref
+    RangeConfig, RangeSearchEngine, SearchConfig, build_knn_graph, quantize_corpus)
+from repro_torch.kernels.expand import (
+    expand_cuda, expand_frontier, expand_frontier_int8_ref, expand_frontier_ref,
+    expand_int8_cuda)
+from repro_torch.kernels.gatherdist import (
+    gatherdist, gatherdist_cuda, gatherdist_int8_cuda, gatherdist_int8_ref,
+    gatherdist_ref)
+from repro_torch.kernels.rerank_fetch import (
+    fetch_rerank_dists, fetch_rerank_pairs, fetch_rerank_pairs_ref, rerank_fetch_cuda)
 from repro_torch.utils import INVALID_ID
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -147,3 +154,176 @@ def test_engine_kernel_path_matches_plain_path(cuda_device, mode):
     same = ((a.ids == b.ids).all(dim=1) & (a.count == b.count)).float().mean()
     assert same.item() >= 0.95, same
     assert np.isfinite(a.dists[a.ids != INVALID_ID].cpu().numpy()).all()
+
+
+# ---------------------------------------------------------------------------
+# the int8 corpus path: expand-int8, gatherdist-int8, rerank_fetch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantize_query", [False, True])
+@pytest.mark.parametrize("n,r,d,q,e", [
+    (150, 8, 32, 6, 4),
+    (64, 5, 17, 3, 2),         # ragged degree and dim: byte loads
+    (2000, 32, 128, 64, 4),    # the main path's R, d and E
+    (500, 40, 130, 8, 3),      # R > 32 lanes, d not a multiple of 4
+    (120, 6, 20, 5, 3),        # 4-byte words: d % 4 == 0, d % 16 != 0
+    (300, 16, 256, 8, 2),      # two 16-byte chunks a lane
+])
+def test_expand_int8_kernel_matches_ref(cuda_device, metric, quantize_query,
+                                        n, r, d, q, e):
+    pts, adj, fr, qs = _expand_inputs(n, r, d, q, e, cuda_device)
+    fr[1] = INVALID_ID                    # a frozen lane: its block leaves early
+    qc = quantize_corpus(pts)
+    before = expand_int8_cuda.launches
+    ids, dd, nd = expand_frontier(qc, adj, fr, qs, metric=metric,
+                                  quantize_query=quantize_query)
+    assert expand_int8_cuda.launches == before + 1
+    rids, rd, rnd = expand_frontier_int8_ref(qc, adj, fr, qs, metric=metric,
+                                             quantize_query=quantize_query)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, rids) and torch.equal(nd, rnd)
+    _assert_dists(dd, rd, _tol(metric, pts, qs))
+    if quantize_query:
+        dots = expand_int8_cuda(qc.codes, qc.meta, adj, fr, qs, metric=metric,
+                                quantize_query=True, return_dots=True)[3]
+        rdots = expand_frontier_int8_ref(qc, adj, fr, qs, metric=metric,
+                                         quantize_query=True, return_dots=True)[3]
+        assert torch.equal(dots, rdots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantize_query", [False, True])
+@pytest.mark.parametrize("n,d,q,s", [(100, 32, 8, 16), (57, 19, 5, 7),
+                                     (60, 17, 3, 5), (4000, 128, 64, 4),
+                                     (90, 20, 11, 9), (200, 256, 9, 33)])
+def test_gatherdist_int8_kernel_matches_ref(cuda_device, metric,
+                                            quantize_query, n, d, q, s):
+    g = torch.Generator().manual_seed(1)
+    pts = torch.randn(n, d, generator=g).to(cuda_device)
+    qs = torch.randn(q, d, generator=g).to(cuda_device)
+    ids = torch.randint(0, n, (q, s), generator=g, dtype=torch.int32)
+    ids[0, -1] = INVALID_ID
+    ids[-1, 0] = n + 5
+    ids = ids.to(cuda_device)
+    qc = quantize_corpus(pts)
+    before = gatherdist_int8_cuda.launches
+    got = gatherdist(qc, ids, qs, metric=metric, quantize_query=quantize_query)
+    assert gatherdist_int8_cuda.launches == before + 1
+    want = gatherdist_int8_ref(qc, ids, qs, metric=metric,
+                               quantize_query=quantize_query)
+    torch.cuda.synchronize()
+    _assert_dists(got, want, _tol(metric, pts, qs))
+    if quantize_query:
+        dots = gatherdist_int8_cuda(qc.codes, qc.meta, ids, qs, metric=metric,
+                                    quantize_query=True, return_dots=True)[1]
+        rdots = gatherdist_int8_ref(qc, ids, qs, metric=metric,
+                                    quantize_query=True, return_dots=True)[1]
+        assert torch.equal(dots, rdots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantize_query", [False, True])
+@pytest.mark.parametrize("n,r,d,q,e", [(64, 5, 17, 3, 2), (120, 6, 20, 5, 3),
+                                       (2000, 32, 128, 64, 4)])
+def test_int8_kernels_agree_bitwise(cuda_device, metric, quantize_query,
+                                    n, r, d, q, e):
+    """expand-int8 and gatherdist-int8 share their query quantization, dot
+    and bound: on the candidates they share, the same bits."""
+    pts, adj, fr, qs = _expand_inputs(n, r, d, q, e, cuda_device, seed=4)
+    qc = quantize_corpus(pts)
+    kw = dict(metric=metric, quantize_query=quantize_query)
+    ids, dd, _ = expand_int8_cuda(qc.codes, qc.meta, adj, fr, qs, **kw)
+    g = gatherdist_int8_cuda(qc.codes, qc.meta, ids, qs, **kw)
+    torch.cuda.synchronize()
+    keep = ids != INVALID_ID
+    assert keep.any()
+    assert torch.equal(g[keep].view(torch.int32), dd[keep].view(torch.int32))
+    assert torch.isinf(g[~keep]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("p,d", [(1, 128), (17, 128), (4096, 128),
+                                 (65536, 128), (17, 17), (300, 130)])
+def test_rerank_fetch_kernel_matches_ref(cuda_device, metric, p, d):
+    g = torch.Generator().manual_seed(3)
+    n, nq = 100_000 if p > 4096 else 2000, 64
+    raw = torch.randn(n, d, generator=g).to(cuda_device)
+    queries = torch.randn(nq, d, generator=g).to(cuda_device)
+    ids = torch.randint(0, n, (p,), generator=g, dtype=torch.int32)
+    lanes = torch.randint(0, nq, (p,), generator=g, dtype=torch.int32)
+    ids[0] = n + 7                      # clipped, as the reference clips
+    ids, lanes = ids.to(cuda_device), lanes.to(cuda_device)
+    before = rerank_fetch_cuda.launches
+    got = fetch_rerank_pairs(raw, queries, ids, lanes, metric=metric)
+    assert rerank_fetch_cuda.launches == before + 1
+    want = fetch_rerank_pairs_ref(raw, queries, ids, lanes, metric)
+    torch.cuda.synchronize()
+    _assert_dists(got, want, _tol(metric, raw, queries))
+    qv = queries[lanes.long()]          # the reference's signature
+    _assert_dists(fetch_rerank_dists(raw, ids, qv, metric=metric), want,
+                  _tol(metric, raw, queries))
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    pts, adj, fr, qs = _expand_inputs(64, 8, 16, 4, 2, cuda_device)
+    qc = quantize_corpus(pts)
+    with pytest.raises(ValueError):
+        expand_int8_cuda(qc.codes.float(), qc.meta, adj, fr, qs)       # dtype
+    with pytest.raises(ValueError):
+        expand_int8_cuda(qc.codes, qc.meta[:, :2].contiguous(), adj, fr, qs)
+    with pytest.raises(ValueError):
+        expand_int8_cuda(qc.codes, qc.meta, adj, fr, qs, return_dots=True)
+    with pytest.raises(ValueError):
+        gatherdist_int8_cuda(qc.codes, qc.meta, adj[:4], qs.cpu())     # device
+    with pytest.raises(ValueError):
+        rerank_fetch_cuda(pts.double(), qs, adj[0], adj[1])            # dtype
+    with pytest.raises(ValueError):
+        rerank_fetch_cuda(pts, qs, adj[0], adj[1, :3].contiguous())    # shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["beam", "doubling", "greedy"])
+@pytest.mark.parametrize("use_expand_kernel", [False, True])
+def test_int8_engine_kernel_path_matches_plain_path(cuda_device, mode,
+                                                    use_expand_kernel):
+    """The int8 engine through the three kernels and through their plain
+    versions on the same card: every kernel launches, and the answers
+    agree."""
+    g = torch.Generator().manual_seed(2)
+    centers = torch.randn(16, 32, generator=g) * 3
+    pts = centers[torch.randint(0, 16, (6000,), generator=g)] + 0.4 * torch.randn(
+        6000, 32, generator=g)
+    qs = (pts[:128] + 0.01).to(cuda_device)
+    graph = build_knn_graph(pts, k=16, device=cuda_device)
+    eng = RangeSearchEngine.from_graph(pts, graph, corpus_dtype="int8",
+                                       device=cuda_device)
+    r = float(torch.quantile(((pts[:128, None] - pts[None, :2000]) ** 2).sum(-1), 0.01))
+    cfg = RangeConfig(search=SearchConfig(
+        beam=16, max_beam=64 if mode == "doubling" else 16, visit_cap=128,
+        use_expand_kernel=use_expand_kernel), mode=mode, result_cap=256)
+    plain = dataclasses.replace(cfg, search=dataclasses.replace(
+        cfg.search, use_kernels=False))
+    kernels = (expand_int8_cuda, gatherdist_int8_cuda, rerank_fetch_cuda)
+    for k in kernels:
+        k.launches = 0
+    a = eng.range(qs, r, cfg=cfg)
+    launched = tuple(k.launches for k in kernels)
+    # the rerank launches once a batch, when the batch has a band at all
+    band = int(a.n_rerank.sum())
+    assert min(launched[:2]) > 0 and launched[2] == int(band > 0), launched
+    if mode == "greedy":
+        assert band > 0
+    b = eng.range(qs, r, cfg=plain)
+    assert tuple(k.launches for k in kernels) == launched
+    same = ((a.ids == b.ids).all(dim=1) & (a.count == b.count)).float().mean()
+    assert same.item() >= 0.95, same
+    ok = a.ids != INVALID_ID
+    exact = ((eng.points.raw[a.ids[ok].long()]
+              - qs[torch.nonzero(ok)[:, 0]]) ** 2).sum(-1)
+    assert (exact <= r + 1e-5).all()          # no false positive

@@ -19,8 +19,8 @@ from repro_torch.convert import engine_from_arrays
 from repro_torch.core import (
     Graph, RangeConfig, RangeSearchEngine, SearchConfig, average_precision,
     build_knn_graph, default_grid, exact_range_search, exact_topk,
-    match_histogram, range_counts_at, recall_at_k, select_radius, start_points,
-    sweep, zero_result_accuracy)
+    match_histogram, range_counts_at, range_search_compacted, recall_at_k,
+    select_radius, start_points, sweep, zero_result_accuracy)
 from repro_torch.utils import INVALID_ID
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -157,8 +157,12 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         teng.range(qs, radii, filter=object())
     with pytest.raises(NotImplementedError):
-        RangeSearchEngine.from_graph(pts, teng.graph, corpus_dtype="int8",
-                                     device="cpu")
+        range_search_compacted(corpus=teng.points, graph=teng.graph,
+                               queries=torch.from_numpy(qs),
+                               start_ids=teng.start_ids, r=radii,
+                               cfg=RangeConfig(),
+                               labels=torch.zeros((pts.shape[0], 1),
+                                                  dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: range_counts_at(pts, pts[:4], np.ones(2, np.float32)),
         lambda: sweep(pts, pts[:4], np.ones(2, np.float32)),
         lambda: engine_from_arrays(pts, nbrs, np.zeros(1, np.int32)),
+        lambda: RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
+                                             corpus_dtype="int8"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -67,3 +69,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     eng = RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
                                        device="cpu")
     assert eng.device.type == "cpu"
+    eng = RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
+                                       corpus_dtype="int8", device="cpu")
+    assert eng.device.type == "cpu" and eng.stats()["corpus_dtype"] == "int8"
