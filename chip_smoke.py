@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # full size: N=1M, d=128, Q=4096
     python3 chip_smoke.py --n 100000      # a shorter rehearsal
-    python3 chip_smoke.py --result-cap 4096   # a larger result buffer
+    python3 chip_smoke.py --result-cap 4096   # a larger result buffer, and
+                                              # the two-tower AP probes
 
 Phases, each printed as it ends:
   1. build the CUDA kernels from the sources in the checkout (nvcc, sm_90a,
@@ -29,14 +30,33 @@ Phases, each printed as it ends:
   7. the guard-band contract on 256 queries: the post-rerank set equals the
      rerank-disabled set filtered by the exact distances;
   8. the kernel path against the plain path through the same engines on a
-     256-query subset (AP within 0.01), f32 and int8.
+     256-query subset (AP within 0.01), f32 and int8;
+  9. [two_tower], run right after the build so its 43 GB tables find the
+     card empty: the two-tower-retrieval model at full width (16 + 16
+     fields, vocab 10,485,760, d_embed 64, towers 1024-1024-512-256, both
+     from seeds), 1M items embedded by the item tower (freed before the
+     user tower is built), 512 user requests (serve_p99) and 1
+     (retrieval_cand); the radius the paper's way at ip; brute-force
+     serving (user tower + rangescan, k=256) and the graph engine on the
+     same corpus (exact k-NN graph at ip, greedy) with QPS, AP and
+     launches; expand and gatherdist against their plain versions at that
+     path's shapes (ip, d=256), and the graph engine's kernel path equal
+     to its plain path on every lane; rangescan against its plain version
+     at k=128 and k=256 on the 512 requests, on 64 and on 1, every lane,
+     excusing only pairs within 1e-5 of the radius or of each other (f32
+     rounding of a reordered dot of two unit vectors at d=256 is ~1e-6);
+     the kernel's time against its bound, the plain version and the
+     product alone (one torch.matmul).
 
 The search configuration is the repo's single-shard deployment,
 ``EngineDeployConfig`` in src/repro/configs/range_engine.py: 1M points per
 shard, d=128, R=32, l2, beam=64, visit_cap=256, E=4, greedy,
 result_cap=1024, frontier_rounds=2048, 4096-query batches; f32 and its
-production int8 setting. Any failure exits non-zero. The last line is the
-device JSON.
+production int8 setting. The two-tower phase serves the configuration of
+src/repro_torch/configs/two_tower_retrieval.py with the search settings of
+examples/two_tower_range.py (k=256; beam=32, visit_cap=128, greedy,
+result_cap=512). Any failure exits non-zero. The last line is the device
+JSON.
 """
 from __future__ import annotations
 
@@ -60,6 +80,8 @@ F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 INT8_OPS = 1979e12          # H100 SXM int8 (the table's rate for the type)
 DIST_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),  # sum order differs
             "bfloat16": dict(rtol=1e-2, atol=1e-5)}
+RANGESCAN_TOL = 1e-5        # unit vectors, d=256: reordered f32 dots differ ~1e-6
+TT_CHUNK = 65_536           # items a tower embeds at once
 ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -75,11 +97,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, repeats: int = 5) -> float:
+def time_ms(fn, reps: int = 20, repeats: int = 5, graph: bool = True) -> float:
     """Device time of one call: ``fn`` is captured once in a CUDA graph and
     replayed ``reps`` times between two CUDA events, so the host's launch
-    overhead is not counted; the median over ``repeats`` such runs."""
+    overhead is not counted; the median over ``repeats`` such runs. With
+    ``graph=False`` the calls themselves run between the events (for
+    plain versions whose launches are few against their device time)."""
     import torch
+    if not graph:
+        fn()
+        times = []
+        for _ in range(repeats):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / reps)
+        return float(np.median(times))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -142,10 +179,12 @@ def expand_bytes(ids, frontier, nbrs, queries, row_bytes: int) -> int:
             + queries.numel() * 4 + ids.numel() * 8 + frontier.shape[0] * 4)
 
 
-def kernel_checks(points, nbrs, queries, gen):
+def kernel_checks(points, nbrs, queries, gen, dtypes=("float32", "bfloat16"),
+                  metrics=("l2", "ip"), widths=(4, 32), tag=""):
     """Each f32/bf16 kernel against its plain version at the main path's
-    shapes. Returns the JSON entries of the f32 l2 configuration the main
-    path runs."""
+    shapes (E=4, SearchConfig's default; gatherdist at S in ``widths``).
+    Returns the JSON entries of the f32 l2 configuration the main path
+    runs, where it is among those checked."""
     import torch
     from repro_torch.kernels.expand import expand_cuda, expand_frontier_ref
     from repro_torch.kernels.gatherdist import gatherdist_cuda, gatherdist_ref
@@ -156,9 +195,9 @@ def kernel_checks(points, nbrs, queries, gen):
     dev = points.device
     frontier = make_frontier(n, qn, e, gen, dev)
     entries = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         pts = points.to(getattr(torch, dtype)).contiguous()
-        for metric in ("l2", "ip"):
+        for metric in metrics:
             args = (pts, nbrs, frontier, queries)
             ids, dd, nd = expand_cuda(*args, metric=metric)
             rids, rd, rnd = expand_frontier_ref(*args, metric=metric)
@@ -173,7 +212,7 @@ def kernel_checks(points, nbrs, queries, gen):
                                    d * pts.element_size())
             flops = kept.numel() * (3 if metric == "l2" else 2) * d
             b_ms, b_by = bound_ms(n_bytes, flops)
-            log(f"[kernel] expand {dtype} {metric} Q={qn} E={e} R={r} d={d}: "
+            log(f"[kernel] expand{tag} {dtype} {metric} Q={qn} E={e} R={r} d={d}: "
                 f"ids/n_dist equal, max_abs_err={err:.3g}, ms={ms:.4f}, "
                 f"plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}, "
                 f"{n_bytes / 1e6:.1f} MB), gathered rows={kept.numel()}")
@@ -184,11 +223,11 @@ def kernel_checks(points, nbrs, queries, gen):
                     replaces="src/repro/kernels/expand/kernel.py:49",
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
-        for s in (4, 32):
+        for s in widths:
             ids = torch.randint(0, n, (qn, s), generator=gen, device=dev,
                                 dtype=torch.int32)
             ids[::5, -1] = INVALID_ID
-            for metric in ("l2", "ip"):
+            for metric in metrics:
                 args = (pts, ids, queries)
                 got = gatherdist_cuda(*args, metric=metric)
                 want = gatherdist_ref(*args, metric=metric)
@@ -202,7 +241,7 @@ def kernel_checks(points, nbrs, queries, gen):
                            + ids.numel() * 8 + queries.numel() * 4)
                 flops = ok.numel() * (3 if metric == "l2" else 2) * d
                 b_ms, b_by = bound_ms(n_bytes, flops)
-                log(f"[kernel] gatherdist {dtype} {metric} Q={qn} S={s} d={d}: "
+                log(f"[kernel] gatherdist{tag} {dtype} {metric} Q={qn} S={s} d={d}: "
                     f"max_abs_err={err:.3g}, ms={ms:.4f}, plain_ms={plain:.4f}, "
                     f"bound_ms={b_ms:.4f} ({b_by})")
                 if (dtype, metric, s) == ("float32", "l2", 4):
@@ -488,6 +527,306 @@ def run_mode(engine, queries, r, cfg, kernels, profile: bool, name):
     return res, dt, counts
 
 
+def rangescan_checks(queries, q1, items, r, launches: int):
+    """rangescan against its plain version at k=128 and k=256, on the
+    512-request batch, on 64 of its requests and on 1, every lane
+    (``compare_scans`` excuses only what f32 rounding explains); times at
+    512 requests and at 1 (k=256) against the bound, the plain version and
+    the product alone. Returns the JSON entry."""
+    import torch
+    from repro_torch.kernels.rangescan import rangescan_cuda, rangescan_dists, rangescan_ref
+    from repro_torch.kernels.rangescan.ref import compare_scans
+    n, d = items.shape
+    max_err = 0.0
+    for k in (128, 256):
+        for name, qq in ((f"Q={queries.shape[0]}", queries), ("Q=64", queries[:64]),
+                         ("Q=1", q1)):
+            got = rangescan_cuda(qq, items, r, k=k, metric="ip")
+            want = rangescan_ref(qq, items, r, k=k, metric="ip")
+            dist = rangescan_dists(qq, items, "ip")
+            torch.cuda.synchronize()
+            excused, unexcused, err = compare_scans(got, want, dist, r, RANGESCAN_TOL)
+            if unexcused:
+                raise AssertionError(f"rangescan k={k} {name}: {unexcused} "
+                                     "differences from the plain version beyond "
+                                     "f32 rounding")
+            max_err = max(max_err, err)
+            log(f"[kernel] rangescan ip k={k} {name} N={n} d={d}: counts, ids and "
+                f"ranks equal to the plain version on every lane but {excused} "
+                f"excused (pairs within {RANGESCAN_TOL:g} of r or of each other), "
+                f"max_abs_err={err:.3g}, in-range counts "
+                f"{want[2].min().item()}..{want[2].max().item()}")
+            del dist
+    out = dict(name="rangescan", route="cuda",
+               source="src/repro_torch/kernels/rangescan/csrc/rangescan.cu",
+               replaces="src/repro/kernels/rangescan/kernel.py:73",
+               launches=launches, max_abs_err=max_err)
+    for qq, tag, reps in ((queries, "", 10), (q1, "q1_", 50)):
+        qn = qq.shape[0]
+        times = {k: time_ms(lambda: rangescan_cuda(qq, items, r, k=k, metric="ip"),
+                            reps=reps, repeats=3) for k in (128, 256)}
+        plain = time_ms(lambda: rangescan_ref(qq, items, r, k=256, metric="ip"),
+                        reps=2 if qn > 1 else 10, repeats=3, graph=False)
+        lib = time_ms(lambda: torch.matmul(qq, items.T), reps=reps, repeats=3)
+        n_bytes = n * d * 4 + qn * d * 4 + qn * 256 * 8 + qn * 4
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * qn * n * d)
+        log(f"[kernel] rangescan ip Q={qn} N={n} d={d}: ms={times[256]:.4f} (k=256), "
+            f"{times[128]:.4f} (k=128), plain_ms={plain:.4f}, bound_ms={b_ms:.4f} "
+            f"({b_by}), the product alone (torch.matmul, TF32 off) {lib:.4f} ms")
+        out.update({f"{tag}ms": times[256], f"{tag}plain_ms": plain,
+                    f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
+                    f"{tag}library_ms": lib})
+    return out
+
+
+def ip_radius(items, sample, dev, name: str) -> float:
+    """The radius the paper's way (sweep + select_radius, half the sample
+    answering empty) over unit vectors at ip."""
+    from repro_torch.core import default_grid, exact_topk, match_histogram, select_radius, sweep
+    t0 = time.perf_counter()
+    base = default_grid(items, sample, metric="ip", num=48)
+    # the sampled grid's low end already holds many matches among 1M items,
+    # and a request answers empty below its nearest item's distance: extend
+    # the grid down through the sample's nearest distances (finely) and to
+    # -1, the least ip between unit vectors
+    nearest = exact_topk(items, sample, k=1, metric="ip", device=dev)[1][:, 0]
+    lo, hi = float(nearest.min()), float(nearest.max())
+    grid = np.unique(np.concatenate([[-1.0], np.linspace(lo, hi, 128), base])
+                     .astype(np.float32))
+    prof = sweep(items, sample, grid, metric="ip", device=dev)
+    r, gi = select_radius(prof, target_zero_frac=0.5)
+    log(f"[radius] {name}: r={r:.6g} (grid index {gi} of {grid.size}, "
+        f"{grid[0]:.4f}..{grid[-1]:.4f}; the sample's nearest items at "
+        f"{lo:.4f}..{hi:.4f}, median {float(nearest.median()):.4f}; zero-result "
+        f"fraction {prof.zero_frac[gi]:.3f} on {sample.shape[0]} requests; "
+        f"{time.perf_counter() - t0:.2f} s); sample matches "
+        f"{match_histogram(prof.counts[:, gi])}")
+    return r
+
+
+def two_tower_ap_probes(engine, items, queries, held, r, gt, cfg_r, dev) -> None:
+    """Where the graph half's AP goes: held-out items as queries
+    (similar-items retrieval) at their own radius, chosen the same way, and
+    both kinds of query through a 4x beam and an 8x visit budget on the
+    same graph. Prints only; it gates nothing."""
+    from repro_torch.core import average_precision, exact_range_search, match_histogram
+    r_ii = ip_radius(items, held[:256], dev, "two-tower ip (held-out items)")
+    gt_ii = exact_range_search(items, held, r_ii, metric="ip", device=dev)
+    gt_ii = (gt_ii[0].cpu().numpy(), gt_ii[2].cpu().numpy())
+    res_ii = engine.range(held, r_ii, cfg=cfg_r)
+    ap_ii = average_precision(*gt_ii, res_ii.ids.cpu().numpy(), res_ii.count.cpu().numpy())
+    log(f"[two_tower] graph engine control, {held.shape[0]} held-out items as "
+        f"queries: AP={ap_ii:.4f}, mean n_dist {float(res_ii.n_dist.float().mean()):.0f}, "
+        f"matches {match_histogram(gt_ii[1])}")
+    wide = dataclasses.replace(cfg_r, search=dataclasses.replace(
+        cfg_r.search, beam=128, max_beam=128, visit_cap=1024))
+    for name, qq, rr, (g_ids, g_cnt) in (("user requests", queries, r, gt),
+                                         ("held-out items", held, r_ii, gt_ii)):
+        res_w = engine.range(qq, rr, cfg=wide)
+        ap_w = average_precision(g_ids, g_cnt, res_w.ids.cpu().numpy(),
+                                 res_w.count.cpu().numpy())
+        log(f"[two_tower] graph engine probe, beam=128 visit_cap=1024, {name}: "
+            f"AP={ap_w:.4f}, mean n_dist {float(res_w.n_dist.float().mean()):.0f}")
+
+
+def two_tower_phase(dev, kernels, ap_probes: bool = False) -> dict:
+    """Two-tower retrieval serving at full width: the item corpus, the
+    requests, the radius, brute-force serving through rangescan, the graph
+    engine on the same corpus at ip, and rangescan against its plain
+    version. ``ap_probes`` adds ``two_tower_ap_probes``. Returns the kernels
+    JSON entry of rangescan."""
+    import torch
+    from repro_torch.configs.two_tower_retrieval import ARCH
+    from repro_torch.core import (
+        RangeConfig, RangeSearchEngine, SearchConfig, average_precision,
+        build_knn_graph, exact_range_search, match_histogram, point_dist)
+    from repro_torch.kernels.rangescan import rangescan
+    from repro_torch.kernels.rangescan.ref import compare_scans
+    from repro_torch.models import init_tower
+    cfg = ARCH.model_cfg
+    n_items = ARCH.shapes["retrieval_cand"].n_candidates
+    n_req = ARCH.shapes["serve_p99"].global_batch
+    k = 256                                   # examples/two_tower_range.py
+    log(f"[two_tower] {ARCH.arch_id}: {cfg.n_sparse} user + "
+        f"{cfg.tower_fields('item')} item fields, vocab {cfg.vocab:,}, d_embed "
+        f"{cfg.d_embed}, towers {cfg.tower_dims('item')}, {n_items:,} items, "
+        f"{n_req} requests (serve_p99) and 1 (retrieval_cand)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the item corpus: item tower from seed 0, embedded in chunks, freed --
+    item_sparse = np.random.default_rng(1).integers(
+        0, cfg.vocab, (n_items, cfg.tower_fields("item")))
+    t0 = time.perf_counter()
+    tower = init_tower(cfg, "item", seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids = torch.as_tensor(item_sparse, device=dev)
+    items = torch.empty((n_items, cfg.d_out), device=dev)
+    for c0 in range(0, n_items, TT_CHUNK):
+        items[c0:c0 + TT_CHUNK] = tower(ids[c0:c0 + TT_CHUNK])
+    held = None
+    if ap_probes:   # held-out items, the queries of the similar-items control
+        held = tower(torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab, (n_req, cfg.tower_fields("item"))), device=dev))
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    table_bytes = tower.tables.numel() * tower.tables.element_size()
+    del tower, ids
+    torch.cuda.empty_cache()
+    norms = items.norm(dim=1)
+    if not (torch.isfinite(items).all() and torch.allclose(norms, torch.ones_like(norms),
+                                                           atol=1e-5)):
+        raise AssertionError("item embeddings are not finite unit vectors")
+    log(f"[two_tower] item tower (seed 0, tables {table_bytes / 1e9:.2f} GB) "
+        f"built in {t_init:.2f} s; {n_items:,} items embedded in {t_embed:.2f} s "
+        f"in chunks of {TT_CHUNK}; peak device memory {peak / 1e9:.2f} GB; item "
+        f"tower freed; corpus ({n_items}, {cfg.d_out}) f32, unit norm")
+
+    # -- the requests: user tower from seed 1 -------------------------------
+    rng = np.random.default_rng(2)
+    users = {name: torch.as_tensor(rng.integers(0, cfg.vocab, (b, cfg.n_sparse)),
+                                   device=dev)
+             for name, b in (("serve_p99", n_req), ("retrieval_cand", 1),
+                             ("sample", 256))}
+    t0 = time.perf_counter()
+    user_tower = init_tower(cfg, "user", seed=1, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    queries = user_tower(users["serve_p99"])
+    q1 = user_tower(users["retrieval_cand"])
+    sample = user_tower(users["sample"])
+    torch.cuda.synchronize()
+    log(f"[two_tower] user tower (seed 1) built in {t_init:.2f} s; {n_req} + 1 + "
+        f"256 requests embedded in {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # -- the radius, the paper's way, at ip ---------------------------------
+    r = ip_radius(items, sample, dev, "two-tower ip")
+    gt_ids, gt_d, gt_counts = exact_range_search(items, queries, r, metric="ip",
+                                                 device=dev)
+    gt1 = exact_range_search(items, q1, r, metric="ip", device=dev)
+    gt_np, gc_np = gt_ids.cpu().numpy(), gt_counts.cpu().numpy()
+    log(f"[oracle] two-tower: matches of the {n_req} requests "
+        f"{match_histogram(gc_np)}; retrieval_cand {int(gt1[2][0])}")
+
+    # -- brute-force serving: user tower + rangescan --------------------------
+    def brute(u):
+        return rangescan(user_tower(u), items, r, k=k, metric="ip")
+
+    brute(users["serve_p99"])
+    torch.cuda.synchronize()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    ids_bf, d_bf, c_bf = brute(users["serve_p99"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: kern.launches for n, kern in kernels.items()}
+    if counts["rangescan"] != 1:
+        raise AssertionError(f"brute force: launches {counts}")
+    t0 = time.perf_counter()
+    _, _, c_alone = rangescan(queries, items, r, k=k, metric="ip")
+    torch.cuda.synchronize()
+    dt_alone = time.perf_counter() - t0
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        brute(users["retrieval_cand"])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    _, unexcused, _ = compare_scans(
+        (ids_bf, d_bf, c_bf), (gt_ids[:, :k], gt_d[:, :k], gt_counts),
+        -(queries @ items.T), r, RANGESCAN_TOL)
+    if unexcused or not torch.equal(c_bf, c_alone):
+        raise AssertionError(f"brute force: {unexcused} differences from "
+                             "exact_range_search beyond f32 rounding")
+    c_np = c_bf.cpu().numpy()
+    lo = gc_np <= k
+    ap_lo = average_precision(gt_np[lo], gc_np[lo], ids_bf.cpu().numpy()[lo], c_np[lo])
+    ap_hi = average_precision(gt_np[~lo], gc_np[~lo], ids_bf.cpu().numpy()[~lo],
+                              np.minimum(c_np[~lo], k))
+    log(f"[two_tower] brute force (user tower + rangescan, k={k}): "
+        f"QPS={n_req / dt:.1f} ({dt * 1e3:.2f} ms for {n_req} requests; "
+        f"rangescan alone {dt_alone * 1e3:.2f} ms), retrieval_cand latency "
+        f"median {np.median(lat) * 1e3:.3f} ms (p90 {np.quantile(lat, 0.9) * 1e3:.3f}), "
+        f"AP={ap_lo:.4f} on the {int(lo.sum())} lanes with count <= {k}, "
+        f"AP={ap_hi:.4f} on the {int((~lo).sum())} lanes with count > {k} "
+        f"(k of count), launches={counts}")
+
+    # -- the graph engine on the same corpus, ip -------------------------------
+    t0 = time.perf_counter()
+    graph = build_knn_graph(items, k=32, metric="ip", device=dev)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    engine = RangeSearchEngine.from_graph(items, graph, metric="ip", n_starts=4,
+                                          device=dev)
+    cfg_r = RangeConfig(search=SearchConfig(beam=32, max_beam=32, visit_cap=128,
+                                            metric="ip"),
+                        mode="greedy", result_cap=512)
+
+    def served(u):
+        return engine.range(user_tower(u), r, cfg=cfg_r)
+
+    served(users["serve_p99"])
+    torch.cuda.synchronize()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    res = served(users["serve_p99"])
+    torch.cuda.synchronize()
+    dt_g = time.perf_counter() - t0
+    g_counts = {n: kern.launches for n, kern in kernels.items()}
+    if min(g_counts["expand"], g_counts["gatherdist"]) == 0:
+        raise AssertionError(f"graph engine: launches {g_counts}")
+    lane, slot = _check_shapes(res, n_req, cfg_r.result_cap, "two-tower graph")
+    exact = point_dist(items[res.ids[lane, slot].long()], queries[lane], "ip")
+    if not (exact <= r + RANGESCAN_TOL).all():
+        raise AssertionError("two-tower graph: a returned id is out of range")
+    t0 = time.perf_counter()
+    res_k = engine.range(queries, r, cfg=cfg_r)
+    torch.cuda.synchronize()
+    dt_alone = time.perf_counter() - t0
+    ap_g = average_precision(gt_np, gc_np, res.ids.cpu().numpy(), res.count.cpu().numpy())
+    log(f"[two_tower] graph engine (exact k-NN graph R=32 at ip, built in "
+        f"{t_graph:.2f} s; greedy beam=32 visit_cap=128 result_cap=512): "
+        f"QPS={n_req / dt_g:.1f} ({dt_g * 1e3:.2f} ms for {n_req} requests, user "
+        f"tower included; search alone {dt_alone * 1e3:.2f} ms), AP={ap_g:.4f}, "
+        f"mean n_dist {float(res.n_dist.float().mean()):.0f} vs {n_items:,} brute, "
+        f"overflowed lanes={int(res.overflow.sum())}, launches={g_counts}")
+    # expand and gatherdist against their plain versions at this path's
+    # shapes (ip, d=256, 512 requests, R=32, E=4, S=4) on this corpus
+    kernel_checks(items, graph.neighbors, queries,
+                  torch.Generator(device=dev).manual_seed(SEED),
+                  dtypes=("float32",), metrics=("ip",), widths=(4,),
+                  tag=" (two-tower)")
+    # the same engine through the plain versions of its kernels: the same
+    # walk on every lane
+    plain_cfg = dataclasses.replace(cfg_r, search=dataclasses.replace(
+        cfg_r.search, use_kernels=False))
+    res_p = engine.range(queries, r, cfg=plain_cfg)
+    for field in ("ids", "count", "n_dist", "n_visited", "overflow"):
+        if not torch.equal(getattr(res_k, field), getattr(res_p, field)):
+            raise AssertionError(f"two-tower graph engine: {field} of the kernel "
+                                 "and plain paths differ")
+    err = check_close("two-tower graph engine", res_k.dists, res_p.dists,
+                      DIST_TOL["float32"])
+    ap_p = average_precision(gt_np, gc_np, res_p.ids.cpu().numpy(),
+                             res_p.count.cpu().numpy())
+    log(f"[plain] two-tower graph engine ip on {n_req} requests: AP kernel="
+        f"{ap_g:.4f} plain={ap_p:.4f}; ids, counts, n_dist, n_visited and "
+        f"overflow equal on every lane, max_abs_err={err:.3g}")
+    if ap_probes:
+        two_tower_ap_probes(engine, items, queries, held, r, (gt_np, gc_np), cfg_r, dev)
+    del engine, graph, user_tower
+    torch.cuda.empty_cache()
+
+    return rangescan_checks(queries, q1, items, r, counts["rangescan"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
@@ -495,7 +834,9 @@ def main() -> int:
                     help="also trace each mode's main-path run with "
                          "torch.profiler and print its device-time breakdown")
     ap.add_argument("--result-cap", type=int, default=1024,
-                    help="result buffer per query (the deployment's 1024)")
+                    help="result buffer per query (the deployment's 1024); "
+                         "another value is the AP-gap probe, and also runs "
+                         "the two-tower graph half's AP probes")
     args = ap.parse_args()
 
     import torch
@@ -510,6 +851,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.expand import expand_cuda, expand_int8_cuda
     from repro_torch.kernels.gatherdist import gatherdist_cuda, gatherdist_int8_cuda
+    from repro_torch.kernels.rangescan import rangescan_cuda
     from repro_torch.kernels.rerank_fetch import rerank_fetch_cuda
 
     dev = torch.device("cuda")
@@ -528,6 +870,14 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+
+    # -- 9. two-tower retrieval serving (first: its tables need the card) ----
+    with torch.inference_mode():
+        tt_entry = two_tower_phase(dev, {
+            "rangescan": rangescan_cuda, "expand": expand_cuda,
+            "gatherdist": gatherdist_cuda},
+            ap_probes=args.result_cap != ap.get_default("result_cap"))
+    torch.cuda.empty_cache()
 
     # -- 2. data and graph ---------------------------------------------------
     t0 = time.perf_counter()
@@ -689,12 +1039,14 @@ def main() -> int:
         entries[name]["launches"] = launches["greedy"][name]
     for name in ("expand_int8", "gatherdist_int8"):
         entries[name]["launches"] = q_launches["greedy f32-query"][name]
+    entries["rangescan"] = tt_entry
     log(card_line())
-    extra = ("form", "int8_query_ms")
+    extra = ("form", "int8_query_ms", "q1_ms", "q1_plain_ms", "q1_bound_ms",
+             "q1_bound_by", "q1_library_ms")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",
-                  "rerank_fetch")]}))
+                  "rerank_fetch", "rangescan")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

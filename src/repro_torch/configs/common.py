@@ -1,0 +1,48 @@
+"""ArchSpec / ShapeSpec: the (architecture x input-shape) cell definitions.
+
+Every configuration module exports ``ARCH`` (the exact published config)
+and ``reduced()`` (a CPU-test version of the same family)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | prefill | decode | serve | bulk | retrieval |
+                         # graph_full | graph_sampled | graph_batched
+    seq_len: int = 0
+    global_batch: int = 0
+    n_candidates: int = 0
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: tuple = ()
+    n_graphs: int = 0
+    nodes_per_graph: int = 0
+    edges_per_graph: int = 0
+    notes: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                        # lm | gnn | recsys
+    model_cfg: Any
+    shapes: dict[str, ShapeSpec]
+    source: str = ""
+    technique_note: str = ""           # paper-technique applicability
+    reduced: Optional[Callable[[], Any]] = None  # smoke-size config factory
+
+
+def recsys_shapes() -> dict[str, ShapeSpec]:
+    return {
+        "train_batch": ShapeSpec("train_batch", "train", global_batch=65_536),
+        "serve_p99": ShapeSpec("serve_p99", "serve", global_batch=512),
+        "serve_bulk": ShapeSpec("serve_bulk", "serve", global_batch=262_144),
+        "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                    global_batch=1, n_candidates=1_000_000),
+    }

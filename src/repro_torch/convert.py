@@ -5,7 +5,8 @@ and ``start_ids``; given those as numpy arrays, ``engine_from_arrays``
 builds this package's engine over the identical index, so both packages
 can be run on the same graph. An int8 reference corpus comes across as its
 ``codes`` and ``meta`` beside the raw ``points``, so both packages search
-the identical quantized corpus.
+the identical quantized corpus. ``recsys_params_from_jax`` carries a JAX
+two-tower parameter tree across.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 from .core.corpus import QuantizedCorpus
 from .core.engine import RangeSearchEngine
 from .core.graph import Graph
+from .layers.mlp import DenseStack
+from .models.recsys import RecsysConfig, Tower, TwoTower, _device
 from .utils import resolve_device
 
 
@@ -35,3 +38,26 @@ def engine_from_arrays(points, neighbors, start_ids, metric: str = "l2",
     return RangeSearchEngine(points=corpus,
                              graph=Graph(neighbors=nbrs.contiguous()),
                              start_ids=starts.reshape(-1), metric=metric)
+
+
+def recsys_params_from_jax(params: dict, cfg: RecsysConfig,
+                           device="cuda") -> TwoTower:
+    """The reference's ``init_recsys`` tree for a two-tower model, given as
+    numpy arrays ({"user"|"item": {"tables": (F, V, d), "mlp": {"w{i}":
+    (in, out), "b{i}": (out,)}}}), as the port's ``TwoTower``. The port
+    keeps the (in, out) weight layout, so nothing is transposed."""
+    if cfg.kind != "two_tower":
+        raise NotImplementedError(f"recsys kind {cfg.kind!r}")
+    dev = _device(device)
+
+    def tensor(x):
+        return torch.as_tensor(np.array(x, np.float32), device=dev).contiguous()
+
+    def tower(p):
+        mlp = p["mlp"]
+        n = len(mlp) // 2
+        stack = DenseStack([tensor(mlp[f"w{i}"]) for i in range(n)],
+                           [tensor(mlp[f"b{i}"]) for i in range(n)])
+        return Tower(tensor(p["tables"]), stack, cfg.dtype)
+
+    return TwoTower(tower(params["user"]), tower(params["item"]))

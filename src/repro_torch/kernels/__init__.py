@@ -13,11 +13,16 @@ CPU tensors to the plain version, CUDA tensors to the kernel).
   the E=1 reference steps; ``gatherdist.cu`` and ``gatherdist_int8.cu``.
 * ``rerank_fetch`` — exact f32 distances of flat (row id, query) pairs: the
   int8 corpus's guard-band rerank.
+* ``rangescan``    — brute-force range scan (every distance, the exact
+  in-range count, the K closest in-range points): the two-tower
+  retrieval route; ``rangescan.cu`` (a scan kernel and a merge kernel).
 """
 from .expand import expand_frontier, expand_frontier_int8_ref, expand_frontier_ref
 from .gatherdist import gatherdist, gatherdist_int8_ref, gatherdist_ref
+from .rangescan import rangescan, rangescan_ref
 from .rerank_fetch import fetch_rerank_dists, fetch_rerank_dists_ref, fetch_rerank_pairs
 
 __all__ = ["expand_frontier", "expand_frontier_int8_ref", "expand_frontier_ref",
            "fetch_rerank_dists", "fetch_rerank_dists_ref", "fetch_rerank_pairs",
-           "gatherdist", "gatherdist_int8_ref", "gatherdist_ref"]
+           "gatherdist", "gatherdist_int8_ref", "gatherdist_ref", "rangescan",
+           "rangescan_ref"]

@@ -10,6 +10,13 @@ Tolerance: ids, counts and int32 dots equal; distances ``allclose(rtol=
 the kernel sums the d terms in another order than PyTorch, and a reordered
 dot product errs in proportion to its terms, not to its value. The two int8
 kernels share their arithmetic and must agree bit for bit.
+
+rangescan runs on integer-valued rows (coordinates in [-3, 3]): every dot
+product and norm is then an exact integer in f32 (and bf16) whatever the
+order of the sum, and radii sit at half-integers, so the kernel's ids,
+distances and counts must equal the plain version's exactly, ties included
+(the lower id first). One real-valued case (unit vectors, ip) is held by
+``compare_scans``, which excuses only what f32 rounding can explain.
 """
 import dataclasses
 
@@ -25,6 +32,9 @@ from repro_torch.kernels.expand import (
 from repro_torch.kernels.gatherdist import (
     gatherdist, gatherdist_cuda, gatherdist_int8_cuda, gatherdist_int8_ref,
     gatherdist_ref)
+from repro_torch.kernels.rangescan import (
+    rangescan, rangescan_cuda, rangescan_dists, rangescan_ref)
+from repro_torch.kernels.rangescan.ref import compare_scans
 from repro_torch.kernels.rerank_fetch import (
     fetch_rerank_dists, fetch_rerank_pairs, fetch_rerank_pairs_ref, rerank_fetch_cuda)
 from repro_torch.utils import INVALID_ID
@@ -327,3 +337,147 @@ def test_int8_engine_kernel_path_matches_plain_path(cuda_device, mode,
     exact = ((eng.points.raw[a.ids[ok].long()]
               - qs[torch.nonzero(ok)[:, 0]]) ** 2).sum(-1)
     assert (exact <= r + 1e-5).all()          # no false positive
+
+
+def _int_rig(q, n, d, dev, seed=0, dtype=torch.float32):
+    """Integer rows and queries (exact sums in any order); rows 7 and
+    n // 2 .. n // 2 + 4 are duplicates."""
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.randint(-3, 4, (n, d), generator=g).float()
+    qs = torch.randint(-3, 4, (q, d), generator=g).float()
+    if n > 20:
+        pts[n // 2:n // 2 + 5] = pts[7]
+    return pts.to(dev, dtype), qs.to(dev, dtype)
+
+
+def _half_integer_radius(qs, pts, metric, frac):
+    """A radius between two integers near the ``frac`` quantile of the
+    distances of the first query, so no distance equals it."""
+    dist = rangescan_dists(qs[:1], pts, metric)[0]
+    return float(torch.quantile(dist.double(), frac).floor()) + 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("q,n,d,k", [
+    (1, 100_000, 128, 256),   # retrieval_cand's one query
+    (1, 100_000, 256, 8),
+    (37, 1000, 17, 8),        # ragged Q, N and d
+    (5, 3001, 33, 128),
+    (70, 5000, 128, 256),
+    (300, 2000, 256, 128),
+])
+def test_rangescan_kernel_matches_ref(cuda_device, dtype, metric, q, n, d, k):
+    pts, qs = _int_rig(q, n, d, cuda_device, seed=q + n, dtype=DTYPES[dtype])
+    for frac in (0.001, 0.2):    # counts below and above k
+        r = _half_integer_radius(qs, pts, metric, frac)
+        before = rangescan_cuda.launches
+        ids, dd, c = rangescan(qs, pts, r, k=k, metric=metric)
+        assert rangescan_cuda.launches == before + 1
+        rids, rd, rc = rangescan_ref(qs, pts, r, k=k, metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(c, rc)
+        assert torch.equal(ids, rids)
+        assert torch.equal(dd, rd)
+    assert (c > k).any() or n < 2 * k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(256, 16), (100_000, 256)])
+def test_rangescan_kernel_counts_exceed_k(cuda_device, n, k):
+    """All points at distance 0: the counts stay exact far above k and the
+    k lowest ids are kept, in order."""
+    pts = torch.zeros((n, 8), device=cuda_device)
+    qs = torch.zeros((4, 8), device=cuda_device)
+    ids, dd, c = rangescan_cuda(qs, pts, 1.0, k=k)
+    assert (c == n).all()
+    assert torch.equal(ids, torch.arange(k, dtype=torch.int32,
+                                         device=cuda_device).expand(4, k))
+    assert (dd == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_rangescan_kernel_every_point_in_range(cuda_device, metric):
+    """An infinite radius: every split keeps k, so the merge runs several
+    rounds."""
+    pts, qs = _int_rig(40, 20_000, 64, cuda_device, seed=5)
+    ids, dd, c = rangescan_cuda(qs, pts, float("inf"), k=256, metric=metric)
+    rids, rd, rc = rangescan_ref(qs, pts, float("inf"), k=256, metric=metric)
+    assert (c == 20_000).all() and torch.equal(c, rc)
+    assert torch.equal(ids, rids) and torch.equal(dd, rd)
+
+
+@pytest.mark.cuda
+def test_rangescan_kernel_duplicate_rows_tie_by_id(cuda_device):
+    """Real-valued duplicated rows at scattered positions get identical
+    distance bits, and the lower id ranks first."""
+    g = torch.Generator().manual_seed(4)
+    pts = torch.randn(5000, 96, generator=g)
+    pts[[3, 1500, 2999, 4998]] = pts[77].clone()
+    qs = torch.cat([pts[77:78] + 0.01, torch.randn(2, 96, generator=g)])
+    pts, qs = pts.to(cuda_device), qs.to(cuda_device)
+    for metric in ("l2", "ip"):
+        ids, dd, _ = rangescan_cuda(qs, pts, float("inf"), k=64, metric=metric)
+        row = ids[0].tolist()
+        pos = [row.index(i) for i in (3, 77, 1500, 2999, 4998) if i in row]
+        if metric == "l2":
+            assert len(pos) == 5
+        assert pos == sorted(pos)
+        assert len({dd[0, p].item() for p in pos}) <= 1
+        full = rangescan_cuda(qs, pts, float("inf"), k=256, metric=metric)
+        lanes = full[0].cpu().numpy()
+        for i in range(qs.shape[0]):
+            hit = [list(lanes[i]).index(j) for j in (3, 77, 1500, 2999, 4998)
+                   if j in lanes[i]]
+            assert hit == sorted(hit)
+
+
+@pytest.mark.cuda
+def test_rangescan_kernel_empty_result(cuda_device):
+    pts, qs = _int_rig(9, 3000, 40, cuda_device)
+    ids, dd, c = rangescan_cuda(qs, pts, -1.0, k=128)
+    assert (c == 0).all() and (ids == INVALID_ID).all() and torch.isinf(dd).all()
+
+
+@pytest.mark.cuda
+def test_rangescan_kernel_unit_vectors_within_rounding(cuda_device):
+    """Real-valued unit vectors (the two-tower corpus's kind), ip: what
+    differs from the plain version is only what f32 rounding explains."""
+    g = torch.Generator().manual_seed(6)
+    pts = torch.nn.functional.normalize(torch.randn(50_000, 256, generator=g), dim=1)
+    qs = torch.nn.functional.normalize(torch.randn(64, 256, generator=g), dim=1)
+    pts, qs = pts.to(cuda_device), qs.to(cuda_device)
+    dist = rangescan_dists(qs, pts, "ip")
+    # about 128 members a query on average: lanes on both sides of k
+    r = float(torch.quantile(dist[:, :10_000].flatten().cpu(), 0.0026))
+    got = rangescan_cuda(qs, pts, r, k=128, metric="ip")
+    want = rangescan_ref(qs, pts, r, k=128, metric="ip")
+    excused, unexcused, err = compare_scans(got, want, dist, r, 1e-5)
+    print(f"unit vectors, ip, k=128: excused={excused} unexcused={unexcused} "
+          f"max_abs_err={err:.3g}")
+    assert unexcused == 0 and err <= 1e-5, (excused, unexcused, err)
+    assert (want[2] > 128).any() and (want[2] < 128).any()
+
+
+@pytest.mark.cuda
+def test_rangescan_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    pts, qs = _int_rig(4, 100, 16, cuda_device)
+    with pytest.raises(ValueError):
+        rangescan_cuda(qs, pts.double(), 1.0)                    # dtype
+    with pytest.raises(ValueError):
+        rangescan_cuda(qs.long(), pts, 1.0)                      # dtype
+    with pytest.raises(ValueError):
+        rangescan_cuda(qs, pts.t().contiguous().t(), 1.0)        # not contiguous
+    with pytest.raises(ValueError):
+        rangescan_cuda(qs[:, :8].contiguous(), pts, 1.0)         # shape
+    with pytest.raises(ValueError):
+        rangescan_cuda(qs.cpu(), pts, 1.0)                       # device
+    with pytest.raises(ValueError):
+        rangescan_cuda(qs.cpu(), pts.cpu(), 1.0)                 # CPU tensors
+    for k in (0, 257):
+        with pytest.raises(ValueError):
+            rangescan_cuda(qs, pts, 1.0, k=k)                    # k
+    with pytest.raises(ValueError):
+        rangescan_cuda(qs, pts, 1.0, metric="cos")               # metric

@@ -44,13 +44,20 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
-    from repro_torch.convert import engine_from_arrays
+    from repro_torch.configs.two_tower_retrieval import reduced
+    from repro_torch.convert import engine_from_arrays, recsys_params_from_jax
+    from repro_torch.kernels import rangescan
+    from repro_torch.models import init_recsys, init_tower
     from repro_torch.core import (
         Graph, RangeSearchEngine, build_knn_graph, exact_range_search,
         exact_topk, range_counts_at, sweep)
 
     pts = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     nbrs = np.zeros((64, 4), np.int32)
+    params = {side: init_tower(reduced(), side, device="cpu") for side in ("user", "item")}
+    params = {side: {"tables": t.tables.detach().numpy(),
+                     "mlp": {k: v.detach().numpy() for k, v in t.mlp.state_dict().items()}}
+              for side, t in params.items()}
     calls = [
         lambda: RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs))),
         lambda: build_knn_graph(pts, k=4),
@@ -61,6 +68,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: engine_from_arrays(pts, nbrs, np.zeros(1, np.int32)),
         lambda: RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
                                              corpus_dtype="int8"),
+        lambda: init_tower(reduced(), "item"),
+        lambda: init_recsys(reduced()),
+        lambda: recsys_params_from_jax(params, reduced()),
+        lambda: rangescan(pts[:4], pts, 1.0, k=8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -72,3 +83,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     eng = RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
                                        corpus_dtype="int8", device="cpu")
     assert eng.device.type == "cpu" and eng.stats()["corpus_dtype"] == "int8"
+    assert init_recsys(reduced(), device="cpu").user.tables.device.type == "cpu"
+    assert recsys_params_from_jax(params, reduced(), device="cpu").item.tables.shape == (4, 1000, 16)
+    assert rangescan(pts[:4], pts, 1.0, k=8, device="cpu")[0].device.type == "cpu"
