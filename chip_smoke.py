@@ -46,7 +46,20 @@ Phases, each printed as it ends:
      excusing only pairs within 1e-5 of the radius or of each other (f32
      rounding of a reordered dot of two unit vectors at d=256 is ~1e-6);
      the kernel's time against its bound, the plain version and the
-     product alone (one torch.matmul).
+     product alone (one torch.matmul);
+ 10. [lm], right after [two_tower] (its 54 GB of weights need the card
+     too): gemma3-27b at full width and depth (62 layers, 52 local with a
+     1024 window and 10 global, 32 heads over 16 kv heads, dh 128, vocab
+     262,144) in bf16 from seed 0; 4 prompts of 4,096 tokens from the
+     synthetic LM stream prefilled (cache of 4,128) and 32 greedy decode
+     steps, with flashattn's launches counted (62 a prefill, 62 a step);
+     the kernel path against the plain path (use_kernels=False) on prompt
+     0, full depth in bf16 (relative L2 of the last-token logits <= 5e-2 on
+     every step) and depth 6 in f32 (<= 1e-4, argmax equal); flashattn
+     against its plain version at the JAX tests' shapes and on the inputs
+     the path gave one local and one global layer at prefill and at a
+     decode step, with its time against the bound, the plain version and
+     one scaled_dot_product_attention call.
 
 The search configuration is the repo's single-shard deployment,
 ``EngineDeployConfig`` in src/repro/configs/range_engine.py: 1M points per
@@ -55,8 +68,8 @@ result_cap=1024, frontier_rounds=2048, 4096-query batches; f32 and its
 production int8 setting. The two-tower phase serves the configuration of
 src/repro_torch/configs/two_tower_retrieval.py with the search settings of
 examples/two_tower_range.py (k=256; beam=32, visit_cap=128, greedy,
-result_cap=512). Any failure exits non-zero. The last line is the device
-JSON.
+result_cap=512); the LM phase serves src/repro_torch/configs/gemma3_27b.py.
+Any failure exits non-zero. The last line is the device JSON.
 """
 from __future__ import annotations
 
@@ -78,10 +91,25 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 INT8_OPS = 1979e12          # H100 SXM int8 (the table's rate for the type)
+BF16_FLOPS = 989e12         # H100 SXM bf16, dense tensor cores
 DIST_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),  # sum order differs
             "bfloat16": dict(rtol=1e-2, atol=1e-5)}
 RANGESCAN_TOL = 1e-5        # unit vectors, d=256: reordered f32 dots differ ~1e-6
 TT_CHUNK = 65_536           # items a tower embeds at once
+LM_PROMPTS, LM_PROMPT_LEN, LM_STEPS = 4, 4096, 32
+LM_PARAMS = 27_009_002_240  # gemma3-27b's parameters (sum of the table shapes)
+LM_MAX_LEN = LM_PROMPT_LEN + LM_STEPS
+LM_BF16_REL = 5e-2          # kernel vs plain path, bf16, full depth: rel. L2 of logits
+LM_F32_REL = 1e-4           # the same in f32 at depth 6
+FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),    # sum order, q scaled first
+             "bfloat16": dict(rtol=1e-2, atol=1e-2)}   # one bf16 ulp of the output
+FLASH_CASES = [   # tests/test_kernels.py's five: b, hq, hkv, sq, skv, dh, causal,
+    (2, 4, 2, 64, 64, 32, True, 0, 0.0, 0),        # window, softcap, q_offset
+    (1, 8, 2, 37, 37, 16, True, 0, 50.0, 0),
+    (1, 4, 4, 16, 128, 32, True, 64, 0.0, 112),
+    (2, 2, 1, 33, 65, 64, False, 0, 0.0, 0),
+    (1, 6, 3, 128, 128, 64, True, 32, 30.0, 0),
+]
 ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -827,12 +855,315 @@ def two_tower_phase(dev, kernels, ap_probes: bool = False) -> dict:
     return rangescan_checks(queries, q1, items, r, counts["rangescan"])
 
 
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+class AttentionCapture:
+    """Swaps the LM layer's attention core for one that also keeps copies of
+    its inputs, in the model's layouts, on the calls named in ``want``
+    ({call index: tag}; call i of a run is layer i % L of its i // L-th
+    forward). It launches what it wraps, so the kernel's count moves as it
+    would; used on the warm-up run only."""
+
+    def __init__(self, want: dict):
+        from repro_torch.layers import attention
+        self.mod, self.want, self.calls, self.kept = attention, want, 0, {}
+
+    def __enter__(self):
+        inner = self.inner = self.mod.flash_attention
+
+        def core(q, k, v, **kw):
+            tag = self.want.get(self.calls)
+            if tag is not None:
+                keep = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+                self.kept[tag] = (*keep, dict(kw))
+            self.calls += 1
+            return inner(q, k, v, **kw)
+
+        self.mod.flash_attention = core
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.inner
+
+
+def sdpa_library(q, k, v, kw):
+    """The same function as one ``scaled_dot_product_attention`` call (no
+    configuration sets a soft cap): no mask where every key is visible,
+    ``is_causal`` where rows and keys start together, else a boolean mask
+    made here. Returns the call."""
+    import torch
+    from repro_torch.kernels.flashattn.ref import visible_mask
+    if kw["softcap"] > 0:
+        raise ValueError("no library call applies a soft cap")
+    sq, skv = q.shape[2], k.shape[2]
+    mask = visible_mask(sq, skv, causal=kw["causal"], window=kw["window"],
+                        q_offset=kw["q_offset"], device=q.device)
+    if bool(mask.all()):
+        how = {}
+    elif kw["causal"] and kw["window"] <= 0 and kw["q_offset"] == 0 and sq == skv:
+        how = dict(is_causal=True)
+    else:
+        how = dict(attn_mask=mask)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, scale=kw["scale"], enable_gqa=True, **how)
+
+
+def flash_checks(captured: dict, dev) -> dict:
+    """flashattn against its plain version at the JAX tests' shapes (f32 and
+    bf16) and on the captured inputs of the LM path (one global and one
+    local layer, at prefill and at one decode step, all prompts); times by
+    CUDA-graph replay against the bound, the plain version and one SDPA
+    call. Returns the JSON entry (prefill global layer; decode_* the
+    decode step's global layer)."""
+    import torch
+    from repro_torch.kernels.flashattn import flash_attention_cuda, flash_attention_ref
+    from repro_torch.kernels.flashattn.ref import visible_mask
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = 0.0
+    for (b, hq, hkv, sq, skv, dh, causal, window, cap, qoff) in FLASH_CASES:
+        kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
+                       for shape in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh)))
+            got = flash_attention_cuda(q, k, v, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = check_close(f"flashattn {dtype} {(b, hq, hkv, sq, skv, dh)}",
+                              got.float(), want.float(), FLASH_TOL[dtype])
+            log(f"[kernel] flashattn {dtype} B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
+                f"dh={dh} causal={causal} window={window} softcap={cap} "
+                f"q_offset={qoff}: max_abs_err={err:.3g}")
+    entry = dict(name="flashattn", route="cuda",
+                 source="src/repro_torch/kernels/flashattn/csrc/flashattn.cu",
+                 replaces="src/repro/kernels/flashattn/kernel.py:33")
+    for tag, (q, k, v, kw) in captured.items():
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        lib_fn = sdpa_library(q, k, v, kw)
+        lib_out = lib_fn()
+        torch.cuda.synchronize()
+        err = check_close(f"flashattn {tag}", got.float(), want.float(),
+                          FLASH_TOL["bfloat16"])
+        lib_err = float((lib_out.float() - want.float()).abs().max())
+        max_err = max(max_err, err)
+        b, hq, sq, dh = q.shape
+        skv = k.shape[2]
+        decode = sq == 1
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, **kw),
+                     reps=200 if decode else 10, repeats=5)
+        plain = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                        reps=20 if decode else 2, repeats=3, graph=False)
+        lib = time_ms(lib_fn, reps=200 if decode else 10, repeats=5)
+        mask = visible_mask(sq, skv, causal=kw["causal"], window=kw["window"],
+                            q_offset=kw["q_offset"], device=dev)
+        flops = 4.0 * dh * int(mask.sum()) * b * hq
+        # q and the output once each, and K and V of the keys some row sees
+        # (at a local layer's decode step, its window)
+        n_bytes = (2 * q.numel() + 2 * int(mask.any(0).sum()) * b * k.shape[1] * dh
+                   ) * q.element_size()
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+        log(f"[kernel] flashattn {tag} B={b} Hq={hq} Hkv={k.shape[1]} Sq={sq} Skv={skv} "
+            f"dh={dh} window={kw['window']} q_offset={kw['q_offset']} bf16: "
+            f"max_abs_err={err:.3g} (SDPA vs plain {lib_err:.3g}), ms={ms:.4f}, "
+            f"plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}: {flops:.3g} flops at "
+            f"989 TFLOP/s, {n_bytes / 1e6:.1f} MB at 3.35 TB/s; at the f32 rate "
+            f"{flops / F32_FLOPS * 1e3:.4f} ms), library_ms={lib:.4f} "
+            f"(scaled_dot_product_attention), {ms / b_ms:.2f}x the bound")
+        times = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        if tag == "prefill global":
+            entry.update(times)
+        elif tag == "decode global":
+            entry.update({f"decode_{k}": v for k, v in times.items()})
+        del got, want, lib_out
+        torch.cuda.empty_cache()
+    entry["max_abs_err"] = max_err
+    return entry
+
+
+def lm_paths(model, toks, cfg, steps: int, feed=None):
+    """prefill + ``steps`` decode steps of ``toks`` through ``cfg``'s path;
+    the next token is the greedy one, or ``feed[t]`` (teacher forcing).
+    Returns (last-token f32 logits a step, the tokens chosen, each layer's
+    hidden state at the prompt's last position)."""
+    import torch
+    from repro_torch.models import decode_step, greedy_token, prefill
+    hidden = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, out: hidden.append(out[0, -1].float()) if out.shape[1] > 1 else None)
+        for layer in model.layers]
+    try:
+        logits, cache, pos = prefill(model, toks, cfg, max_len=toks.shape[1] + steps)
+        out, chosen = [logits[0, -1]], [greedy_token(logits)]
+        for t in range(steps):
+            tok = chosen[-1] if feed is None else feed[t]
+            logits, cache = decode_step(model, tok, cache, pos, cfg)
+            pos += 1
+            out.append(logits[0, -1])
+            chosen.append(greedy_token(logits))
+    finally:
+        for h in hooks:
+            h.remove()
+    return torch.stack(out), chosen, hidden
+
+
+def lm_compare(model, toks, cfg, steps: int, limit: float, name: str) -> float:
+    """The kernel path against the plain path (``use_kernels=False``) on
+    the same model and prompt, the plain path fed the kernel path's tokens:
+    the relative L2 error of the last-token logits at the prefill and each
+    step must stay within ``limit``; the share of equal argmaxes and each
+    layer's hidden-state error at the prompt's last position are printed."""
+    import torch
+    lk, chosen, hk = lm_paths(model, toks, cfg, steps)
+    lp, _, hp = lm_paths(model, toks, dataclasses.replace(cfg, use_kernels=False),
+                         steps, feed=chosen[:-1])
+    torch.cuda.synchronize()
+    errs = [rel_l2(a, b) for a, b in zip(lk, lp)]
+    same = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    layer_errs = [rel_l2(a, b) for a, b in zip(hk, hp)]
+    del lk, lp, hk, hp
+    log(f"[lm] kernel vs plain path, {name}: relative L2 error of the last-token "
+        f"logits max {max(errs):.3g} (prefill {errs[0]:.3g}; steps "
+        f"{' '.join(f'{e:.2g}' for e in errs[1:])}), limit {limit:g}; argmax equal "
+        f"on a share {same:.4f} of {len(errs)} (prefill + {steps} steps); "
+        f"hidden-state error by layer at the prompt's last position: "
+        f"{' '.join(f'{e:.2g}' for e in layer_errs)}")
+    if max(errs) > limit:
+        raise AssertionError(f"{name}: the kernel and plain paths part by "
+                             f"{max(errs):.3g} > {limit:g}")
+    return same
+
+
+def lm_phase(dev, kernels, profile: bool = False) -> dict:
+    """gemma3-27b serving at full width and depth: the model from seed 0 in
+    bf16, 4 prompts of 4,096 tokens prefilled and 32 greedy decode steps
+    (launches counted), the kernel path against the plain path (prompt 0,
+    full depth, bf16; then depth 6 in f32), and flashattn against its plain
+    version on the inputs this path gave it. ``profile`` traces one decode
+    step. Returns the JSON entry."""
+    import torch
+    from repro_torch.configs.gemma3_27b import ARCH
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import decode_step, greedy_token, init_transformer, prefill
+    cfg = ARCH.model_cfg
+    windows, _ = cfg.layer_meta()
+    n_layers = cfg.n_layers
+    local, glob = int(np.flatnonzero(windows > 0)[0]), int(np.flatnonzero(windows == 0)[0])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_transformer(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[lm] {ARCH.arch_id}: {n_layers} layers ({int((windows > 0).sum())} local "
+        f"window {cfg.window}, {int((windows == 0).sum())} global), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv} kv heads, dh {cfg.d_head}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab:,}, tied; built from seed {SEED} in "
+        f"{t_build:.2f} s: {n_params:,} parameters, {w_bytes / 1e9:.2f} GB")
+    if n_params != LM_PARAMS:
+        raise AssertionError(f"{ARCH.arch_id} has {n_params:,} parameters, not {LM_PARAMS:,}")
+    tokens = torch.as_tensor(lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=LM_PROMPT_LEN, batch=LM_PROMPTS, seed=SEED), 0)["tokens"],
+        device=dev)
+
+    # warm-up: a prefill and one decode step, keeping the attention inputs
+    # of the first local and the first global layer
+    want = {local: "prefill local", glob: "prefill global",
+            n_layers + local: "decode local", n_layers + glob: "decode global"}
+    with AttentionCapture(want) as cap:
+        logits, cache, pos = prefill(model, tokens, cfg, max_len=LM_MAX_LEN)
+        decode_step(model, greedy_token(logits), cache, pos, cfg)
+    torch.cuda.synchronize()
+    captured = cap.kept
+    del logits, cache
+    torch.cuda.empty_cache()
+
+    # the served run, launches counted
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    logits, cache, pos = prefill(model, tokens, cfg, max_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    n_prefill = kernels["flashattn"].launches
+    tok = greedy_token(logits)
+    chosen, step_s = [tok], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = decode_step(model, tok, cache, pos, cfg)
+        tok = greedy_token(logits)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        pos += 1
+        chosen.append(tok)
+    counts = {n: k.launches for n, k in kernels.items()}
+    if profile:
+        # the last step again (its cache row rewritten): the cache is full
+        profile_run(lambda: decode_step(model, tok, cache, pos - 1, cfg),
+                    float(np.median(step_s)), "lm decode step")
+    if n_prefill != n_layers or counts["flashattn"] != n_layers * (LM_STEPS + 1):
+        raise AssertionError(f"flashattn launches: {n_prefill} at prefill, "
+                             f"{counts['flashattn']} in all")
+    if tuple(logits.shape) != (LM_PROMPTS, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"decode logits {tuple(logits.shape)} not finite")
+    toks_out = torch.cat(chosen, dim=1).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = np.median(step_s) * 1e3
+    log(f"[lm] served {LM_PROMPTS} prompts x {LM_PROMPT_LEN} tokens (lm_batch seed "
+        f"{SEED}), cache {tuple(cache.k.shape)} x 2 bf16 "
+        f"({2 * cache.k.numel() * 2 / 1e9:.2f} GB): prefill {t_prefill * 1e3:.1f} ms "
+        f"({LM_PROMPTS * LM_PROMPT_LEN / t_prefill:.1f} tokens/s); {LM_STEPS} greedy "
+        f"decode steps, median {step_ms:.2f} ms a step (min {min(step_s) * 1e3:.2f}, "
+        f"max {max(step_s) * 1e3:.2f}; {LM_PROMPTS / step_ms * 1e3:.1f} tokens/s); "
+        f"peak device memory {peak / 1e9:.2f} GB; flashattn launches {n_prefill} at "
+        f"prefill, {(counts['flashattn'] - n_prefill) // LM_STEPS} a step "
+        f"({counts['flashattn']} in all); tokens of prompt 0 {toks_out[0, :8].tolist()}...")
+    del logits, cache, chosen
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path: full depth, bf16, prompt 0
+    torch.cuda.reset_peak_memory_stats()
+    lm_compare(model, tokens[:1], cfg, LM_STEPS, LM_BF16_REL,
+               f"full depth bf16, prompt 0, {LM_STEPS} steps")
+    log(f"[lm] peak device memory of the comparison "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+
+    # the kernel against its plain version, on the card emptied of the model
+    torch.cuda.reset_peak_memory_stats()
+    entry = flash_checks(captured, dev)
+    entry["launches"] = counts["flashattn"]
+    del captured
+    torch.cuda.empty_cache()
+    log(f"[lm] peak device memory of the kernel checks "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # full width, depth 6 (one 5:1 period), f32
+    torch.cuda.reset_peak_memory_stats()
+    cfg6 = dataclasses.replace(cfg, n_layers=6, dtype=torch.float32)
+    model = init_transformer(cfg6, seed=SEED, device=dev)
+    same = lm_compare(model, tokens[:1], cfg6, 8, LM_F32_REL,
+                      "full width, depth 6, f32, prompt 0, 8 steps")
+    if same != 1.0:
+        raise AssertionError("depth 6 f32: an argmax differs between the paths")
+    log(f"[lm] peak device memory of the depth-6 f32 run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace each mode's main-path run with "
-                         "torch.profiler and print its device-time breakdown")
+                    help="also trace each mode's main-path run and one LM "
+                         "decode step with torch.profiler and print the "
+                         "device-time breakdown")
     ap.add_argument("--result-cap", type=int, default=1024,
                     help="result buffer per query (the deployment's 1024); "
                          "another value is the AP-gap probe, and also runs "
@@ -850,6 +1181,7 @@ def main() -> int:
     from repro_torch.data import make_corpus
     from repro_torch.kernels import _build
     from repro_torch.kernels.expand import expand_cuda, expand_int8_cuda
+    from repro_torch.kernels.flashattn import flash_attention_cuda
     from repro_torch.kernels.gatherdist import gatherdist_cuda, gatherdist_int8_cuda
     from repro_torch.kernels.rangescan import rangescan_cuda
     from repro_torch.kernels.rerank_fetch import rerank_fetch_cuda
@@ -877,7 +1209,15 @@ def main() -> int:
             "rangescan": rangescan_cuda, "expand": expand_cuda,
             "gatherdist": gatherdist_cuda},
             ap_probes=args.result_cap != ap.get_default("result_cap"))
+    log(f"[two_tower] peak device memory of the phase "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     torch.cuda.empty_cache()
+
+    # -- 10. LM serving (second: its 54 GB of weights need the card too) -----
+    with torch.inference_mode():
+        lm_entry = lm_phase(dev, {"flashattn": flash_attention_cuda}, args.profile)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     # -- 2. data and graph ---------------------------------------------------
     t0 = time.perf_counter()
@@ -1040,13 +1380,17 @@ def main() -> int:
     for name in ("expand_int8", "gatherdist_int8"):
         entries[name]["launches"] = q_launches["greedy f32-query"][name]
     entries["rangescan"] = tt_entry
+    entries["flashattn"] = lm_entry
+    log(f"[main] peak device memory of the engine phases "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(card_line())
     extra = ("form", "int8_query_ms", "q1_ms", "q1_plain_ms", "q1_bound_ms",
-             "q1_bound_by", "q1_library_ms")
+             "q1_bound_by", "q1_library_ms", "decode_ms", "decode_plain_ms",
+             "decode_bound_ms", "decode_bound_by", "decode_library_ms")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",
-                  "rerank_fetch", "rangescan")]}))
+                  "rerank_fetch", "rangescan", "flashattn")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

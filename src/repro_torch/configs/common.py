@@ -38,6 +38,20 @@ class ArchSpec:
     reduced: Optional[Callable[[], Any]] = None  # smoke-size config factory
 
 
+# The four LM shapes shared by all five LM archs.
+def lm_shapes() -> dict[str, ShapeSpec]:
+    return {
+        "train_4k": ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill", seq_len=32_768, global_batch=32),
+        "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32_768, global_batch=128),
+        "long_500k": ShapeSpec(
+            "long_500k", "decode", seq_len=524_288, global_batch=1,
+            notes="decode lowering: O(kv_len) per step for every attention "
+                  "kind (DESIGN.md §6); gemma3 additionally has 5:1 "
+                  "local:global sub-quadratic structure"),
+    }
+
+
 def recsys_shapes() -> dict[str, ShapeSpec]:
     return {
         "train_batch": ShapeSpec("train_batch", "train", global_batch=65_536),

@@ -6,7 +6,7 @@ builds this package's engine over the identical index, so both packages
 can be run on the same graph. An int8 reference corpus comes across as its
 ``codes`` and ``meta`` beside the raw ``points``, so both packages search
 the identical quantized corpus. ``recsys_params_from_jax`` carries a JAX
-two-tower parameter tree across.
+two-tower parameter tree across, ``transformer_params_from_jax`` a JAX LM's.
 """
 from __future__ import annotations
 
@@ -16,8 +16,10 @@ import torch
 from .core.corpus import QuantizedCorpus
 from .core.engine import RangeSearchEngine
 from .core.graph import Graph
-from .layers.mlp import DenseStack
-from .models.recsys import RecsysConfig, Tower, TwoTower, _device
+from .layers.attention import GQA
+from .layers.mlp import MLP, DenseStack
+from .models.recsys import RecsysConfig, Tower, TwoTower
+from .models.transformer import Block, Transformer, TransformerConfig, _check_supported
 from .utils import resolve_device
 
 
@@ -48,7 +50,7 @@ def recsys_params_from_jax(params: dict, cfg: RecsysConfig,
     keeps the (in, out) weight layout, so nothing is transposed."""
     if cfg.kind != "two_tower":
         raise NotImplementedError(f"recsys kind {cfg.kind!r}")
-    dev = _device(device)
+    dev = resolve_device(device)
 
     def tensor(x):
         return torch.as_tensor(np.array(x, np.float32), device=dev).contiguous()
@@ -61,3 +63,38 @@ def recsys_params_from_jax(params: dict, cfg: RecsysConfig,
         return Tower(tensor(p["tables"]), stack, cfg.dtype)
 
     return TwoTower(tower(params["user"]), tower(params["item"]))
+
+
+def transformer_params_from_jax(params: dict, cfg: TransformerConfig,
+                                device="cuda") -> Transformer:
+    """The reference's ``init_transformer`` tree, given as numpy arrays with
+    the layers stacked on axis 0 ({"embed": (V, d), "final_norm": (d,),
+    "layers": {"attn": {"wq": (L, d, H, dh), ...}, "attn_norm": (L, d),
+    "mlp": {...}, ...}}, "unembed" when untied), as the port's
+    ``Transformer``. Layouts are kept, so nothing is transposed: the layers
+    are unstacked, dense weights cast to ``cfg.dtype`` (as the reference
+    casts them at each use) and norm scales kept in f32."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+
+    def tensor(x, dtype=torch.float32):
+        return torch.as_tensor(np.array(x, np.float32), device=dev).to(dtype).contiguous()
+
+    def dense(x):
+        return tensor(x, cfg.dtype)
+
+    lp = params["layers"]
+    norm_names = [n for n in ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
+                  if n in lp]
+    layers = []
+    for i in range(cfg.n_layers):
+        a, m = lp["attn"], lp["mlp"]
+        qk = [tensor(a[n][i]) for n in ("q_norm", "k_norm") if n in a]
+        attn = GQA(dense(a["wq"][i]), dense(a["wk"][i]), dense(a["wv"][i]),
+                   dense(a["wo"][i]), *qk)
+        ffn = MLP(dense(m["w_up"][i]), dense(m["w_down"][i]),
+                  dense(m["w_gate"][i]) if "w_gate" in m else None)
+        layers.append(Block(attn, ffn, {n: tensor(lp[n][i]) for n in norm_names}))
+    unembed_table = None if cfg.tie_embeddings else dense(params["unembed"])
+    return Transformer(dense(params["embed"]), tensor(params["final_norm"]), layers,
+                       unembed_table)

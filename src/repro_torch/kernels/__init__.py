@@ -16,13 +16,19 @@ CPU tensors to the plain version, CUDA tensors to the kernel).
 * ``rangescan``    — brute-force range scan (every distance, the exact
   in-range count, the K closest in-range points): the two-tower
   retrieval route; ``rangescan.cu`` (a scan kernel and a merge kernel).
+* ``flashattn``    — flash-attention forward (GQA, causal on absolute
+  positions, sliding window, soft cap): the attention core of every LM
+  layer at prefill and decode; ``flashattn.cu`` (a tile kernel and a
+  decode kernel).
 """
 from .expand import expand_frontier, expand_frontier_int8_ref, expand_frontier_ref
+from .flashattn import flash_attention, flash_attention_ref
 from .gatherdist import gatherdist, gatherdist_int8_ref, gatherdist_ref
 from .rangescan import rangescan, rangescan_ref
 from .rerank_fetch import fetch_rerank_dists, fetch_rerank_dists_ref, fetch_rerank_pairs
 
 __all__ = ["expand_frontier", "expand_frontier_int8_ref", "expand_frontier_ref",
            "fetch_rerank_dists", "fetch_rerank_dists_ref", "fetch_rerank_pairs",
+           "flash_attention", "flash_attention_ref",
            "gatherdist", "gatherdist_int8_ref", "gatherdist_ref", "rangescan",
            "rangescan_ref"]

@@ -31,6 +31,7 @@ SOURCES = {
     "gatherdist_int8": _KERNELS / "gatherdist" / "csrc" / "gatherdist_int8.cu",
     "rerank_fetch": _KERNELS / "rerank_fetch" / "csrc" / "rerank_fetch.cu",
     "rangescan": _KERNELS / "rangescan" / "csrc" / "rangescan.cu",
+    "flashattn": _KERNELS / "flashattn" / "csrc" / "flashattn.cu",
 }
 COMMON = _KERNELS / "csrc" / "common.cuh"
 # no --use_fast_math: the int8 kernels need true IEEE divisions and square

@@ -1,4 +1,4 @@
-"""Models of the port. This slice has the two-tower retrieval model."""
+"""Models of the port: the two-tower retrieval model and the dense LM."""
 from .recsys import (
     RecsysConfig,
     Tower,
@@ -10,6 +10,21 @@ from .recsys import (
     retrieval_scores,
     retrieval_topk,
 )
+from .transformer import (
+    Transformer,
+    TransformerConfig,
+    cache_shapes,
+    decode_step,
+    forward,
+    greedy_token,
+    init_cache,
+    init_transformer,
+    logits_from_hidden,
+    prefill,
+)
 
-__all__ = ["RecsysConfig", "Tower", "TwoTower", "embed_items", "init_recsys",
-           "init_tower", "recsys_forward", "retrieval_scores", "retrieval_topk"]
+__all__ = ["RecsysConfig", "Tower", "Transformer", "TransformerConfig", "TwoTower",
+           "cache_shapes", "decode_step", "embed_items", "forward", "greedy_token",
+           "init_cache", "init_recsys", "init_tower", "init_transformer",
+           "logits_from_hidden", "prefill", "recsys_forward", "retrieval_scores",
+           "retrieval_topk"]

@@ -85,19 +85,12 @@ class TwoTower(nn.Module):
         self.item = item
 
 
-def _device(device) -> torch.device:
-    """``"meta"`` builds shapes only (nothing is allocated); anything else
-    must be a device an entry point runs on."""
-    dev = torch.device(device)
-    return dev if dev.type == "meta" else resolve_device(dev)
-
-
 def init_tower(cfg: RecsysConfig, side: str, *, seed: int = 0,
                device="cuda") -> Tower:
     """One tower of a two-tower model, drawn from ``seed``: the (F, V, d)
     table one field at a time (no temporary of the table's size: at full
     width it holds 1.07e10 f32), then the dense stack."""
-    dev = _device(device)
+    dev = resolve_device(device, meta=True)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     f = cfg.tower_fields(side)
     tables = torch.empty((f, cfg.vocab, cfg.d_embed), device=dev)

@@ -18,11 +18,14 @@ def next_pow2(x: int) -> int:
     return 1 << (int(x) - 1).bit_length()
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, *, meta: bool = False) -> torch.device:
     """The device an entry point runs on. ``"cuda"`` is the default of every
     entry point and raises when no card is present: nothing falls back to
-    the CPU unless the caller asks for it with ``device="cpu"``."""
+    the CPU unless the caller asks for it with ``device="cpu"``. ``meta``
+    lets a model constructor take ``"meta"`` (shapes only, nothing allocated)."""
     dev = torch.device(device)
+    if dev.type == "meta" and meta:
+        return dev
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -11,6 +11,11 @@ the kernel sums the d terms in another order than PyTorch, and a reordered
 dot product errs in proportion to its terms, not to its value. The two int8
 kernels share their arithmetic and must agree bit for bit.
 
+flashattn is held to its plain version with ``allclose(rtol=2e-4,
+atol=2e-4)`` in f32 (the kernel scales q before the product and sums
+online, the plain version scales the logits and sums once) and within one
+bf16 ulp of the output in bf16 (``rtol=1e-2, atol=1e-2``).
+
 rangescan runs on integer-valued rows (coordinates in [-3, 3]): every dot
 product and norm is then an exact integer in f32 (and bf16) whatever the
 order of the sum, and radii sit at half-integers, so the kernel's ids,
@@ -29,6 +34,8 @@ from repro_torch.core import (
 from repro_torch.kernels.expand import (
     expand_cuda, expand_frontier, expand_frontier_int8_ref, expand_frontier_ref,
     expand_int8_cuda)
+from repro_torch.kernels.flashattn import (
+    flash_attention, flash_attention_cuda, flash_attention_ref)
 from repro_torch.kernels.gatherdist import (
     gatherdist, gatherdist_cuda, gatherdist_int8_cuda, gatherdist_int8_ref,
     gatherdist_ref)
@@ -481,3 +488,142 @@ def test_rangescan_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
             rangescan_cuda(qs, pts, 1.0, k=k)                    # k
     with pytest.raises(ValueError):
         rangescan_cuda(qs, pts, 1.0, metric="cos")               # metric
+
+
+# ---------------------------------------------------------------------------
+# flashattn
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+             "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+
+
+def _qkv(b, hq, hkv, sq, skv, dh, dev, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, hq, sq, dh, generator=g)
+    k = torch.randn(b, hkv, skv, dh, generator=g)
+    v = torch.randn(b, hkv, skv, dh, generator=g)
+    return [x.to(dev, DTYPES[dtype]) for x in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window,cap,qoff", [
+    # the five cases of tests/test_kernels.py
+    (2, 4, 2, 64, 64, 32, True, 0, 0.0, 0),
+    (1, 8, 2, 37, 37, 16, True, 0, 50.0, 0),
+    (1, 4, 4, 16, 128, 32, True, 64, 0.0, 112),
+    (2, 2, 1, 33, 65, 64, False, 0, 0.0, 0),
+    (1, 6, 3, 128, 128, 64, True, 32, 30.0, 0),
+    # GQA groups 5 and 9, ragged lengths past one tile
+    (2, 10, 2, 100, 130, 128, True, 0, 0.0, 30),
+    (1, 9, 1, 70, 70, 128, True, 24, 0.0, 0),
+    # decode: Sq = 1, the G heads of a kv head as the rows
+    (4, 32, 16, 1, 4097, 128, True, 0, 0.0, 4096),
+    (4, 32, 16, 1, 4097, 128, True, 1024, 0.0, 4096),
+    (2, 40, 8, 1, 300, 128, True, 0, 0.0, 299),
+    (1, 36, 4, 1, 513, 128, True, 0, 0.0, 512),
+    (1, 4, 1, 3, 40, 16, True, 0, 10.0, 37),
+    # gemma3-27b's layer width at a shorter prompt: global and local
+    (1, 32, 16, 1500, 1500, 128, True, 0, 0.0, 0),
+    (1, 32, 16, 1500, 1500, 128, True, 1024, 0.0, 0),
+])
+def test_flashattn_kernel_matches_ref(cuda_device, dtype, b, hq, hkv, sq, skv, dh,
+                                      causal, window, cap, qoff):
+    q, k, v = _qkv(b, hq, hkv, sq, skv, dh, cuda_device, dtype, seed=sq + skv)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 200])
+def test_flashattn_kernel_reads_the_model_layouts(cuda_device, sq):
+    """q as (B, S, Hq, dh) and a cache as (B, T, Hkv, dh) sliced to its
+    valid length, seen as (B, H, S, dh): read in place, the output in q's
+    layout, the same values as contiguous copies give."""
+    g = torch.Generator().manual_seed(sq)
+    q = torch.randn(2, sq, 8, 64, generator=g).to(cuda_device, torch.bfloat16)
+    cache = torch.randn(2, 300, 4, 64, generator=g).to(cuda_device, torch.bfloat16)
+    t = 250
+    k, v = cache[:, :t].transpose(1, 2), cache.flip(1)[:, :t].transpose(1, 2)
+    kw = dict(causal=True, window=64, q_offset=t - sq)
+    got = flash_attention(q.transpose(1, 2), k, v, **kw)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention(q.transpose(1, 2).contiguous(), k.contiguous(),
+                           v.contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 8, 80])
+def test_flashattn_kernel_rows_that_see_no_key(cuda_device, sq):
+    """Rows whose window ends before every key give 0, as the plain version
+    (both kernels: decode rows and tile rows)."""
+    q, k, v = _qkv(1, 2, 1, sq, 16, 32, cuda_device, "float32", seed=9)
+    for qoff in (14, 40):
+        kw = dict(causal=True, window=4, q_offset=qoff)
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FLASH_TOL["float32"])
+        assert not got[:, :, max(0, 19 - qoff):].any()
+
+
+@pytest.mark.cuda
+def test_flashattn_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _qkv(1, 4, 2, 8, 8, 32, cuda_device, "float32")
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.double(), k.double(), v.double())   # dtype
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, k.bfloat16(), v)                   # mixed dtypes
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q[..., :24], k[..., :24], v[..., :24])   # dh 24
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q[:, :3], k, v)                       # 3 over 2 heads
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, k, v[:, :, :4])                    # k/v shapes
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.transpose(2, 3), k, v)              # last dim strided
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.cpu(), k.cpu(), v.cpu())            # CPU tensors
+
+
+@pytest.mark.cuda
+def test_lm_kernel_path_matches_plain_path(cuda_device):
+    """A reduced gemma3 (window 16 under a 40-token prompt) in f32 on the
+    card: prefill and 6 decode steps through the kernel equal the plain
+    path's within 1e-4, and the greedy tokens are equal."""
+    import dataclasses
+
+    from repro_torch.configs.gemma3_27b import reduced
+    from repro_torch.models import decode_step, greedy_token, init_transformer, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced()
+    model = init_transformer(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(0))
+    toks = toks.to(cuda_device)
+    runs = []
+    for use in (True, False):
+        c = dataclasses.replace(cfg, use_kernels=use)
+        before = flash_attention_cuda.launches
+        lg, cache, pos = prefill(model, toks, c, max_len=48)
+        out = [lg]
+        tok = greedy_token(lg)
+        for _ in range(6):
+            lg, cache = decode_step(model, tok, cache, pos, c)
+            tok, pos = greedy_token(lg), pos + 1
+            out.append(lg)
+        assert flash_attention_cuda.launches - before == (7 * cfg.n_layers if use else 0)
+        runs.append(torch.stack(out))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(runs[0], runs[1], rtol=1e-4, atol=1e-4)
+    assert torch.equal(runs[0].argmax(-1), runs[1].argmax(-1))

@@ -33,7 +33,7 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 20
+    assert int(n_modules) >= 50
     assert bad.strip() == "[]"
 
 
@@ -44,10 +44,14 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.configs import gemma3_27b
     from repro_torch.configs.two_tower_retrieval import reduced
-    from repro_torch.convert import engine_from_arrays, recsys_params_from_jax
+    from repro_torch.convert import (
+        engine_from_arrays, recsys_params_from_jax, transformer_params_from_jax)
     from repro_torch.kernels import rangescan
-    from repro_torch.models import init_recsys, init_tower
+    from repro_torch.layers import (
+        GQAConfig, MLPConfig, init_dense_stack, init_gqa, init_mlp, init_token_embedding)
+    from repro_torch.models import init_cache, init_recsys, init_tower, init_transformer
     from repro_torch.core import (
         Graph, RangeSearchEngine, build_knn_graph, exact_range_search,
         exact_topk, range_counts_at, sweep)
@@ -58,6 +62,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     params = {side: {"tables": t.tables.detach().numpy(),
                      "mlp": {k: v.detach().numpy() for k, v in t.mlp.state_dict().items()}}
               for side, t in params.items()}
+    lm = gemma3_27b.reduced()
+    lm_params = {"embed": np.zeros((lm.vocab, lm.d_model), np.float32),
+                 "final_norm": np.zeros(lm.d_model, np.float32), "layers": {}}
     calls = [
         lambda: RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs))),
         lambda: build_knn_graph(pts, k=4),
@@ -72,6 +79,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: init_recsys(reduced()),
         lambda: recsys_params_from_jax(params, reduced()),
         lambda: rangescan(pts[:4], pts, 1.0, k=8),
+        lambda: init_dense_stack((8, 4)),
+        lambda: init_transformer(lm),
+        lambda: init_cache(lm, 1, 8),
+        lambda: transformer_params_from_jax(lm_params, lm),
+        lambda: init_mlp(MLPConfig(d_model=8, d_ff=16)),
+        lambda: init_gqa(GQAConfig(d_model=8, n_heads=2, n_kv=1, d_head=4)),
+        lambda: init_token_embedding(16, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -86,3 +100,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert init_recsys(reduced(), device="cpu").user.tables.device.type == "cpu"
     assert recsys_params_from_jax(params, reduced(), device="cpu").item.tables.shape == (4, 1000, 16)
     assert rangescan(pts[:4], pts, 1.0, k=8, device="cpu")[0].device.type == "cpu"
+    assert init_dense_stack((8, 4), device="cpu").w0.device.type == "cpu"
+    assert init_transformer(lm, device="cpu").embed.device.type == "cpu"
+    assert init_cache(lm, 1, 8, device="cpu").k.device.type == "cpu"
+    assert init_transformer(lm, device="meta").embed.is_meta
