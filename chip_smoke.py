@@ -52,14 +52,17 @@ Phases, each printed as it ends:
      1024 window and 10 global, 32 heads over 16 kv heads, dh 128, vocab
      262,144) in bf16 from seed 0; 4 prompts of 4,096 tokens from the
      synthetic LM stream prefilled (cache of 4,128) and 32 greedy decode
-     steps, with flashattn's launches counted (62 a prefill, 62 a step);
-     the kernel path against the plain path (use_kernels=False) on prompt
-     0, full depth in bf16 (relative L2 of the last-token logits <= 5e-2 on
-     every step) and depth 6 in f32 (<= 1e-4, argmax equal); flashattn
-     against its plain version at the JAX tests' shapes and on the inputs
-     the path gave one local and one global layer at prefill and at a
-     decode step, with its time against the bound, the plain version and
-     one scaled_dot_product_attention call.
+     steps, with flashattn's launches counted (62 a prefill, 62 a step)
+     and its routes (all 62 prefill calls on wgmma, every step's on
+     decode_split); the kernel path against the plain path
+     (use_kernels=False) on prompt 0, full depth in bf16 (relative L2 of
+     the last-token logits <= 5e-2 on every step) and depth 6 in f32
+     (<= 1e-4, argmax equal); flashattn against its plain version at the
+     JAX tests' shapes and on the inputs the path gave one local and one
+     global layer at prefill and at a decode step, with its route (and
+     split count), its time against the bound (TFLOP/s or GB/s and the
+     share of the bound), the plain version and one
+     scaled_dot_product_attention call (and the ratio to it).
 
 The search configuration is the repo's single-shard deployment,
 ``EngineDeployConfig`` in src/repro/configs/range_engine.py: 1M points per
@@ -910,6 +913,18 @@ def sdpa_library(q, k, v, kw):
         q, k, v, scale=kw["scale"], enable_gqa=True, **how)
 
 
+def call_route(fn) -> str:
+    """The flashattn route one call of ``fn`` took (by the wrapper's route
+    counts)."""
+    from repro_torch.kernels.flashattn import flash_attention_cuda
+    before = dict(flash_attention_cuda.routes)
+    fn()
+    moved = [r for r, n in flash_attention_cuda.routes.items() if n != before[r]]
+    if len(moved) != 1:
+        raise AssertionError(f"flashattn: one call moved the routes {moved}")
+    return moved[0]
+
+
 def flash_checks(captured: dict, dev) -> dict:
     """flashattn against its plain version at the JAX tests' shapes (f32 and
     bf16) and on the captured inputs of the LM path (one global and one
@@ -919,6 +934,7 @@ def flash_checks(captured: dict, dev) -> dict:
     decode step's global layer)."""
     import torch
     from repro_torch.kernels.flashattn import flash_attention_cuda, flash_attention_ref
+    from repro_torch.kernels.flashattn.ops import decode_splits, visible_key_range
     from repro_torch.kernels.flashattn.ref import visible_mask
     gen = torch.Generator(device=dev).manual_seed(SEED)
     max_err = 0.0
@@ -927,6 +943,7 @@ def flash_checks(captured: dict, dev) -> dict:
         for dtype in ("float32", "bfloat16"):
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
                        for shape in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh)))
+            route = call_route(lambda: flash_attention_cuda(q, k, v, **kw))
             got = flash_attention_cuda(q, k, v, **kw)
             want = flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -934,11 +951,13 @@ def flash_checks(captured: dict, dev) -> dict:
                               got.float(), want.float(), FLASH_TOL[dtype])
             log(f"[kernel] flashattn {dtype} B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} "
                 f"dh={dh} causal={causal} window={window} softcap={cap} "
-                f"q_offset={qoff}: max_abs_err={err:.3g}")
+                f"q_offset={qoff}: route {route}, max_abs_err={err:.3g}")
     entry = dict(name="flashattn", route="cuda",
-                 source="src/repro_torch/kernels/flashattn/csrc/flashattn.cu",
+                 source="src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
+                 decode_source="src/repro_torch/kernels/flashattn/csrc/flashattn.cu",
                  replaces="src/repro/kernels/flashattn/kernel.py:33")
     for tag, (q, k, v, kw) in captured.items():
+        route = call_route(lambda: flash_attention_cuda(q, k, v, **kw))
         got = flash_attention_cuda(q, k, v, **kw)
         want = flash_attention_ref(q, k, v, **kw)
         lib_fn = sdpa_library(q, k, v, kw)
@@ -964,18 +983,34 @@ def flash_checks(captured: dict, dev) -> dict:
         n_bytes = (2 * q.numel() + 2 * int(mask.any(0).sum()) * b * k.shape[1] * dh
                    ) * q.element_size()
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+        if decode:   # the split count as ops.py plans it for these inputs
+            lo, hi = visible_key_range(sq, skv, causal=kw["causal"], window=kw["window"],
+                                       q_offset=kw["q_offset"])
+            splits = decode_splits(hi - lo, b * k.shape[1])
+            how, rate = f"{splits} splits, ", f"{n_bytes / ms / 1e6:.1f} GB/s"
+        else:
+            how, rate = "", f"{flops / ms / 1e9:.1f} TFLOP/s"
         log(f"[kernel] flashattn {tag} B={b} Hq={hq} Hkv={k.shape[1]} Sq={sq} Skv={skv} "
-            f"dh={dh} window={kw['window']} q_offset={kw['q_offset']} bf16: "
+            f"dh={dh} window={kw['window']} q_offset={kw['q_offset']} bf16: route {route} "
+            f"({how}{rate}, {b_ms / ms:.1%} of the bound), "
             f"max_abs_err={err:.3g} (SDPA vs plain {lib_err:.3g}), ms={ms:.4f}, "
             f"plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}: {flops:.3g} flops at "
             f"989 TFLOP/s, {n_bytes / 1e6:.1f} MB at 3.35 TB/s; at the f32 rate "
             f"{flops / F32_FLOPS * 1e3:.4f} ms), library_ms={lib:.4f} "
-            f"(scaled_dot_product_attention), {ms / b_ms:.2f}x the bound")
+            f"(scaled_dot_product_attention), {ms / lib:.3f}x SDPA, "
+            f"{ms / b_ms:.2f}x the bound")
+        want_route = "decode_split" if decode else "wgmma"
+        if route != want_route:
+            raise AssertionError(f"flashattn {tag}: route {route}, not {want_route}")
         times = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         if tag == "prefill global":
-            entry.update(times)
+            entry.update(times, prefill_route=route)
+        elif tag == "prefill local":
+            entry.update({f"local_{k}": v for k, v in times.items()})
         elif tag == "decode global":
-            entry.update({f"decode_{k}": v for k, v in times.items()})
+            entry.update({f"decode_{k}": v for k, v in times.items()}, decode_route=route)
+        else:
+            entry.update({f"decode_local_{k}": v for k, v in times.items()})
         del got, want, lib_out
         torch.cuda.empty_cache()
     entry["max_abs_err"] = max_err
@@ -1082,13 +1117,16 @@ def lm_phase(dev, kernels, profile: bool = False) -> dict:
     torch.cuda.empty_cache()
 
     # the served run, launches counted
+    flash = kernels["flashattn"]
     for kern in kernels.values():
         kern.launches = 0
+    flash.routes = dict.fromkeys(flash.routes, 0)
     t0 = time.perf_counter()
     logits, cache, pos = prefill(model, tokens, cfg, max_len=LM_MAX_LEN)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    n_prefill = kernels["flashattn"].launches
+    n_prefill = flash.launches
+    prefill_routes = dict(flash.routes)
     tok = greedy_token(logits)
     chosen, step_s = [tok], []
     for _ in range(LM_STEPS):
@@ -1100,6 +1138,7 @@ def lm_phase(dev, kernels, profile: bool = False) -> dict:
         pos += 1
         chosen.append(tok)
     counts = {n: k.launches for n, k in kernels.items()}
+    decode_routes = {r: n - prefill_routes[r] for r, n in flash.routes.items()}
     if profile:
         # the last step again (its cache row rewritten): the cache is full
         profile_run(lambda: decode_step(model, tok, cache, pos - 1, cfg),
@@ -1107,6 +1146,11 @@ def lm_phase(dev, kernels, profile: bool = False) -> dict:
     if n_prefill != n_layers or counts["flashattn"] != n_layers * (LM_STEPS + 1):
         raise AssertionError(f"flashattn launches: {n_prefill} at prefill, "
                              f"{counts['flashattn']} in all")
+    if (prefill_routes != {"wgmma": n_layers, "tile_f32": 0, "decode_split": 0}
+            or decode_routes != {"wgmma": 0, "tile_f32": 0,
+                                 "decode_split": n_layers * LM_STEPS}):
+        raise AssertionError(f"flashattn routes: {prefill_routes} at prefill, "
+                             f"{decode_routes} over the steps")
     if tuple(logits.shape) != (LM_PROMPTS, 1, cfg.vocab) or not torch.isfinite(logits).all():
         raise AssertionError(f"decode logits {tuple(logits.shape)} not finite")
     toks_out = torch.cat(chosen, dim=1).cpu().numpy()
@@ -1120,7 +1164,8 @@ def lm_phase(dev, kernels, profile: bool = False) -> dict:
         f"max {max(step_s) * 1e3:.2f}; {LM_PROMPTS / step_ms * 1e3:.1f} tokens/s); "
         f"peak device memory {peak / 1e9:.2f} GB; flashattn launches {n_prefill} at "
         f"prefill, {(counts['flashattn'] - n_prefill) // LM_STEPS} a step "
-        f"({counts['flashattn']} in all); tokens of prompt 0 {toks_out[0, :8].tolist()}...")
+        f"({counts['flashattn']} in all), routes {prefill_routes} at prefill and "
+        f"{decode_routes} over the steps; tokens of prompt 0 {toks_out[0, :8].tolist()}...")
     del logits, cache, chosen
     torch.cuda.empty_cache()
 
@@ -1385,8 +1430,11 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(card_line())
     extra = ("form", "int8_query_ms", "q1_ms", "q1_plain_ms", "q1_bound_ms",
-             "q1_bound_by", "q1_library_ms", "decode_ms", "decode_plain_ms",
-             "decode_bound_ms", "decode_bound_by", "decode_library_ms")
+             "q1_bound_by", "q1_library_ms", "prefill_route", "local_ms",
+             "local_bound_ms", "local_library_ms", "decode_source", "decode_route",
+             "decode_ms", "decode_plain_ms", "decode_bound_ms",
+             "decode_bound_by", "decode_library_ms", "decode_local_ms",
+             "decode_local_bound_ms", "decode_local_library_ms")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

@@ -32,6 +32,7 @@ SOURCES = {
     "rerank_fetch": _KERNELS / "rerank_fetch" / "csrc" / "rerank_fetch.cu",
     "rangescan": _KERNELS / "rangescan" / "csrc" / "rangescan.cu",
     "flashattn": _KERNELS / "flashattn" / "csrc" / "flashattn.cu",
+    "flashattn_wgmma": _KERNELS / "flashattn" / "csrc" / "flashattn_wgmma.cu",
 }
 COMMON = _KERNELS / "csrc" / "common.cuh"
 # no --use_fast_math: the int8 kernels need true IEEE divisions and square

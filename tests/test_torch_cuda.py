@@ -36,6 +36,7 @@ from repro_torch.kernels.expand import (
     expand_int8_cuda)
 from repro_torch.kernels.flashattn import (
     flash_attention, flash_attention_cuda, flash_attention_ref)
+from repro_torch.kernels.flashattn import ops as flash_ops
 from repro_torch.kernels.gatherdist import (
     gatherdist, gatherdist_cuda, gatherdist_int8_cuda, gatherdist_int8_ref,
     gatherdist_ref)
@@ -498,6 +499,14 @@ FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
              "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 
 
+def _route(q, hkv):
+    """The route ops.py takes: by the rows of a kv head, the dtype and dh."""
+    b, hq, sq, dh = q.shape
+    if hq // hkv * sq <= 16:
+        return "decode_split"
+    return "wgmma" if q.dtype == torch.bfloat16 and dh in (64, 128) else "tile_f32"
+
+
 def _qkv(b, hq, hkv, sq, skv, dh, dev, dtype, seed=0):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(b, hq, sq, dh, generator=g)
@@ -527,14 +536,36 @@ def _qkv(b, hq, hkv, sq, skv, dh, dev, dtype, seed=0):
     # gemma3-27b's layer width at a shorter prompt: global and local
     (1, 32, 16, 1500, 1500, 128, True, 0, 0.0, 0),
     (1, 32, 16, 1500, 1500, 128, True, 1024, 0.0, 0),
+    # ragged Sq and Skv around the 64-row, 128-row and 128-key tile edges,
+    # G = 1, 2, 5 and 9 at dh 64 and 128
+    (1, 2, 2, 127, 129, 128, True, 0, 0.0, 2),
+    (1, 4, 2, 129, 129, 64, True, 0, 0.0, 0),
+    (1, 2, 1, 255, 4097, 128, True, 0, 0.0, 3842),
+    (1, 2, 1, 127, 1, 128, False, 0, 0.0, 0),
+    (2, 10, 2, 64, 129, 64, True, 0, 0.0, 65),
+    (1, 9, 1, 130, 257, 64, True, 0, 0.0, 127),
+    (1, 4, 4, 255, 255, 64, True, 0, 0.0, 0),
+    # chunked prefill, a window narrower than a tile, the soft cap
+    (1, 10, 2, 200, 500, 128, True, 0, 0.0, 300),
+    (1, 4, 2, 300, 300, 128, True, 24, 0.0, 0),
+    (1, 4, 2, 300, 300, 128, True, 0, 20.0, 0),
+    (1, 4, 2, 96, 96, 64, False, 0, 30.0, 0),
+    # decode at Skv = 1, just past a split boundary, a window over splits
+    (2, 4, 2, 1, 1, 128, True, 0, 0.0, 0),
+    (1, 2, 1, 1, 513, 128, True, 0, 0.0, 512),
+    (4, 32, 16, 1, 1025, 128, True, 0, 0.0, 1024),
+    (2, 8, 4, 1, 3000, 64, True, 1024, 0.0, 2999),
 ])
 def test_flashattn_kernel_matches_ref(cuda_device, dtype, b, hq, hkv, sq, skv, dh,
                                       causal, window, cap, qoff):
     q, k, v = _qkv(b, hq, hkv, sq, skv, dh, cuda_device, dtype, seed=sq + skv)
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
     before = flash_attention_cuda.launches
+    routes = dict(flash_attention_cuda.routes)
     got = flash_attention(q, k, v, **kw)
     assert flash_attention_cuda.launches == before + 1
+    routes[_route(q, hkv)] += 1
+    assert flash_attention_cuda.routes == routes
     want = flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.shape == q.shape
@@ -574,6 +605,26 @@ def test_flashattn_kernel_rows_that_see_no_key(cuda_device, sq):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **FLASH_TOL["float32"])
         assert not got[:, :, max(0, 19 - qoff):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flashattn_decode_splits_a_row_cannot_see(cuda_device, dtype, monkeypatch):
+    """Splits narrower than the rows' windows (one key each): a split that
+    a row cannot see adds l = 0 and no NaN, and the merge still matches
+    the plain version; a row that sees no key at all gives 0."""
+    monkeypatch.setattr(flash_ops, "decode_splits", lambda n, blocks: max(1, min(n, 64)))
+    q, k, v = _qkv(2, 4, 2, 8, 300, 64, cuda_device, dtype, seed=5)   # 16 rows a kv head
+    for kw in (dict(causal=True, window=16, q_offset=292),
+               dict(causal=True, window=4, q_offset=298)):
+        before = flash_attention_cuda.routes["decode_split"]
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.routes["decode_split"] == before + 1
+        assert not torch.isnan(got).any()
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    assert not got[:, :, 5:].any()    # positions 303.. see no key
 
 
 @pytest.mark.cuda

@@ -18,6 +18,10 @@ flash-attention function on the (B, H, S, dh) views, keys sliced to
 
 A row that sees no key: the port returns 0 there (its docstring says why);
 JAX's plain version returns the mean of all Skv value rows.
+
+The decode kernel's split plan (``ops.visible_key_range``,
+``decode_splits``, ``split_bounds``: plain Python on the host) is held to
+the plain version's mask and to covering the visible keys exactly once.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +34,9 @@ from repro.kernels.flashattn import flash_attention_ref as jax_flash_ref
 from repro.layers.attention import sdpa as jax_sdpa
 from repro_torch.kernels.flashattn import (
     flash_attention, flash_attention_cuda, flash_attention_ref)
+from repro_torch.kernels.flashattn.ops import (
+    SPLIT_BLOCKS, SPLIT_MIN_KEYS, decode_splits, split_bounds, visible_key_range)
+from repro_torch.kernels.flashattn.ref import visible_mask
 from repro_torch.layers.attention import sdpa
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -154,3 +161,60 @@ def test_sdpa_matches_jax(win, cap, kvv, kv_chunk):
                            causal=True, window=win, softcap=cap, q_offset=36,
                            scale=0.25).transpose(1, 2).numpy()
     np.testing.assert_allclose(core, want, **TOL)
+
+
+# --- the decode kernel's split plan (ops.py, host side) ----------------------
+
+SKVS = sorted(set(range(1, 8193, 37)) | {1, 2, 255, 256, 257, 511, 512, 513, 1023,
+                                          1024, 1025, 4096, 4097, 8191, 8192})
+
+
+@pytest.mark.parametrize("bh", [1, 2, 16, 64, 100, 132, 256])
+@pytest.mark.parametrize("window,sq", [(0, 1), (1024, 1), (24, 1), (0, 8), (100, 3)])
+def test_decode_split_plan_covers_the_visible_keys(bh, window, sq):
+    """For a decode step at the end of the cache (q_offset = Skv - Sq,
+    causal), the visible range equals the keys some row of the plain
+    version's mask sees, and the splits cover it exactly once: no gap, no
+    overlap, every split non-empty, at least one split; more than one only
+    when each keeps SPLIT_MIN_KEYS keys, and no more than the card needs
+    (a power of two at or above SPLIT_BLOCKS / (B * Hkv))."""
+    for skv in SKVS:
+        if skv < sq:
+            continue
+        kw = dict(causal=True, window=window, q_offset=skv - sq)
+        lo, hi = visible_key_range(sq, skv, **kw)
+        seen = torch.nonzero(visible_mask(sq, skv, device="cpu", **kw).any(0)).flatten()
+        assert (lo, hi) == (int(seen[0]), int(seen[-1]) + 1)
+        splits = decode_splits(hi - lo, bh)
+        bounds = split_bounds(lo, hi, splits)
+        assert len(bounds) == splits >= 1
+        assert bounds[0][0] == lo and bounds[-1][1] == hi
+        assert all(a < b for a, b in bounds)                          # non-empty
+        assert all(b == a2 for (_, b), (a2, _) in zip(bounds, bounds[1:]))   # no gap, no overlap
+        if splits > 1:
+            assert min(b - a for a, b in bounds) >= SPLIT_MIN_KEYS
+        want = 1
+        while want * bh < SPLIT_BLOCKS:
+            want *= 2
+        assert splits == min(max(1, (hi - lo) // SPLIT_MIN_KEYS), want)
+
+
+def test_decode_split_plan_at_the_served_shapes():
+    """gemma3-27b at B=4 (64 (b, kv head) pairs), one step past a 4,096-token
+    prompt: 8 splits of 512 keys on a global layer, 4 of 256 on a local
+    layer (window 1,024)."""
+    lo, hi = visible_key_range(1, 4097, causal=True, window=0, q_offset=4096)
+    assert decode_splits(hi - lo, 64) == 8
+    assert [b - a for a, b in split_bounds(lo, hi, 8)] == [512] * 7 + [513]
+    lo, hi = visible_key_range(1, 4097, causal=True, window=1024, q_offset=4096)
+    assert (lo, hi) == (3073, 4097) and decode_splits(hi - lo, 64) == 4
+    assert [b - a for a, b in split_bounds(lo, hi, 4)] == [256] * 4
+
+
+def test_visible_key_range_without_keys():
+    """A window that ends before every key: an empty range, one split that
+    sweeps nothing."""
+    lo, hi = visible_key_range(8, 16, causal=True, window=4, q_offset=40)
+    assert hi <= lo
+    assert decode_splits(hi - lo, 64) == 1
+    assert all(a >= b for a, b in split_bounds(lo, hi, 1))
