@@ -44,9 +44,12 @@ Phases, each printed as it ends:
      to its plain path on every lane; rangescan against its plain version
      at k=128 and k=256 on the 512 requests, on 64 and on 1, every lane,
      excusing only pairs within 1e-5 of the radius or of each other (f32
-     rounding of a reordered dot of two unit vectors at d=256 is ~1e-6);
-     the kernel's time against its bound, the plain version and the
-     product alone (one torch.matmul);
+     rounding of a reordered dot of two unit vectors at d=256 is ~1e-6),
+     with the route of each call (the served batch asserted on wgmma);
+     the kernel's time and TFLOP/s against both bounds (the f32 pipes,
+     and three TF32 products on the tensor cores), the SIMT route, the
+     plain version and the product alone (one torch.matmul); with
+     --profile, a trace of the brute-force batch (tower, scan, merge);
  10. [lm], right after [two_tower] (its 54 GB of weights need the card
      too): gemma3-27b at full width and depth (62 layers, 52 local with a
      1024 window and 10 global, 32 heads over 16 kv heads, dh 128, vocab
@@ -95,6 +98,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 INT8_OPS = 1979e12          # H100 SXM int8 (the table's rate for the type)
 BF16_FLOPS = 989e12         # H100 SXM bf16, dense tensor cores
+TF32_FLOPS = 495e12         # H100 SXM tf32, dense tensor cores (3xTF32: three products)
 DIST_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),  # sum order differs
             "bfloat16": dict(rtol=1e-2, atol=1e-5)}
 RANGESCAN_TOL = 1e-5        # unit vectors, d=256: reordered f32 dots differ ~1e-6
@@ -558,12 +562,26 @@ def run_mode(engine, queries, r, cfg, kernels, profile: bool, name):
     return res, dt, counts
 
 
-def rangescan_checks(queries, q1, items, r, launches: int):
+def scan_route(fn) -> str:
+    """Call ``fn`` (one rangescan_cuda call) and name the route it took."""
+    from repro_torch.kernels.rangescan import rangescan_cuda
+    before = dict(rangescan_cuda.routes)
+    fn()
+    moved = [r for r, n in rangescan_cuda.routes.items() if n != before[r]]
+    if len(moved) != 1:
+        raise AssertionError(f"rangescan: one call moved the routes {moved}")
+    return moved[0]
+
+
+def rangescan_checks(queries, q1, items, r, launches: int, routes: dict):
     """rangescan against its plain version at k=128 and k=256, on the
     512-request batch, on 64 of its requests and on 1, every lane
-    (``compare_scans`` excuses only what f32 rounding explains); times at
-    512 requests and at 1 (k=256) against the bound, the plain version and
-    the product alone. Returns the JSON entry."""
+    (``compare_scans`` excuses only what f32 rounding explains), with the
+    route of each call; times at 512 requests and at 1 (k=256) against both
+    bounds (the f32 pipes; three TF32 products on the tensor cores, the
+    lower and the one the JSON entry carries), the SIMT route on the same
+    inputs, the plain version and the product alone. ``launches`` and
+    ``routes`` are the served batch's. Returns the JSON entry."""
     import torch
     from repro_torch.kernels.rangescan import rangescan_cuda, rangescan_dists, rangescan_ref
     from repro_torch.kernels.rangescan.ref import compare_scans
@@ -572,7 +590,8 @@ def rangescan_checks(queries, q1, items, r, launches: int):
     for k in (128, 256):
         for name, qq in ((f"Q={queries.shape[0]}", queries), ("Q=64", queries[:64]),
                          ("Q=1", q1)):
-            got = rangescan_cuda(qq, items, r, k=k, metric="ip")
+            got = []
+            route = scan_route(lambda: got.extend(rangescan_cuda(qq, items, r, k=k, metric="ip")))
             want = rangescan_ref(qq, items, r, k=k, metric="ip")
             dist = rangescan_dists(qq, items, "ip")
             torch.cuda.synchronize()
@@ -582,8 +601,8 @@ def rangescan_checks(queries, q1, items, r, launches: int):
                                      "differences from the plain version beyond "
                                      "f32 rounding")
             max_err = max(max_err, err)
-            log(f"[kernel] rangescan ip k={k} {name} N={n} d={d}: counts, ids and "
-                f"ranks equal to the plain version on every lane but {excused} "
+            log(f"[kernel] rangescan ip k={k} {name} N={n} d={d} route={route}: counts, "
+                f"ids and ranks equal to the plain version on every lane but {excused} "
                 f"excused (pairs within {RANGESCAN_TOL:g} of r or of each other), "
                 f"max_abs_err={err:.3g}, in-range counts "
                 f"{want[2].min().item()}..{want[2].max().item()}")
@@ -594,19 +613,32 @@ def rangescan_checks(queries, q1, items, r, launches: int):
                launches=launches, max_abs_err=max_err)
     for qq, tag, reps in ((queries, "", 10), (q1, "q1_", 50)):
         qn = qq.shape[0]
+        route = scan_route(lambda: rangescan_cuda(qq, items, r, k=256, metric="ip"))
         times = {k: time_ms(lambda: rangescan_cuda(qq, items, r, k=k, metric="ip"),
                             reps=reps, repeats=3) for k in (128, 256)}
+        simt = time_ms(lambda: rangescan_cuda(qq, items, r, k=256, metric="ip", route="simt"),
+                       reps=reps, repeats=3)
         plain = time_ms(lambda: rangescan_ref(qq, items, r, k=256, metric="ip"),
                         reps=2 if qn > 1 else 10, repeats=3, graph=False)
         lib = time_ms(lambda: torch.matmul(qq, items.T), reps=reps, repeats=3)
         n_bytes = n * d * 4 + qn * d * 4 + qn * 256 * 8 + qn * 4
-        b_ms, b_by = bound_ms(n_bytes, 2.0 * qn * n * d)
-        log(f"[kernel] rangescan ip Q={qn} N={n} d={d}: ms={times[256]:.4f} (k=256), "
-            f"{times[128]:.4f} (k=128), plain_ms={plain:.4f}, bound_ms={b_ms:.4f} "
-            f"({b_by}), the product alone (torch.matmul, TF32 off) {lib:.4f} ms")
-        out.update({f"{tag}ms": times[256], f"{tag}plain_ms": plain,
+        flops = 2.0 * qn * n * d
+        b_f32, by_f32 = bound_ms(n_bytes, flops, F32_FLOPS)
+        b_ms, b_by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS)
+        ms = times[256]
+        log(f"[kernel] rangescan ip Q={qn} N={n} d={d} route={route}: ms={ms:.4f} "
+            f"(k=256), {times[128]:.4f} (k=128), {flops / ms / 1e9:.1f} TFLOP/s; "
+            f"bound_ms={b_ms:.4f} ({b_by}, 3xTF32 on the tensor cores at "
+            f"{TF32_FLOPS / 1e12:.0f} TFLOP/s, {b_ms / ms * 100:.1f}% of it), "
+            f"f32-pipe bound {b_f32:.4f} ({by_f32}, {F32_FLOPS / 1e12:.0f} TFLOP/s, "
+            f"{b_f32 / ms * 100:.1f}%); the simt route {simt:.4f} ms; plain_ms={plain:.4f}; "
+            f"the product alone (torch.matmul, TF32 off) {lib:.4f} ms, "
+            f"ratio {ms / lib:.3f}")
+        out.update({f"{tag}ms": ms, f"{tag}plain_ms": plain,
                     f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
-                    f"{tag}library_ms": lib})
+                    f"{tag}library_ms": lib, f"{tag}scan_route": route,
+                    f"{tag}simt_ms": simt, f"{tag}f32_bound_ms": b_f32})
+    out["routes"] = routes
     return out
 
 
@@ -660,12 +692,12 @@ def two_tower_ap_probes(engine, items, queries, held, r, gt, cfg_r, dev) -> None
             f"AP={ap_w:.4f}, mean n_dist {float(res_w.n_dist.float().mean()):.0f}")
 
 
-def two_tower_phase(dev, kernels, ap_probes: bool = False) -> dict:
+def two_tower_phase(dev, kernels, ap_probes: bool = False, profile: bool = False) -> dict:
     """Two-tower retrieval serving at full width: the item corpus, the
     requests, the radius, brute-force serving through rangescan, the graph
     engine on the same corpus at ip, and rangescan against its plain
-    version. ``ap_probes`` adds ``two_tower_ap_probes``. Returns the kernels
-    JSON entry of rangescan."""
+    version. ``ap_probes`` adds ``two_tower_ap_probes``; ``profile`` traces
+    the brute-force batch. Returns the kernels JSON entry of rangescan."""
     import torch
     from repro_torch.configs.two_tower_retrieval import ARCH
     from repro_torch.core import (
@@ -750,15 +782,19 @@ def two_tower_phase(dev, kernels, ap_probes: bool = False) -> dict:
 
     brute(users["serve_p99"])
     torch.cuda.synchronize()
+    scan = kernels["rangescan"]
     for kern in kernels.values():
         kern.launches = 0
+    scan.routes = dict.fromkeys(scan.routes, 0)
     t0 = time.perf_counter()
     ids_bf, d_bf, c_bf = brute(users["serve_p99"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {n: kern.launches for n, kern in kernels.items()}
-    if counts["rangescan"] != 1:
-        raise AssertionError(f"brute force: launches {counts}")
+    routes = dict(scan.routes)
+    if counts["rangescan"] != 1 or routes != {**dict.fromkeys(routes, 0), "wgmma": 1}:
+        raise AssertionError(f"brute force: launches {counts}, routes {routes}")
+    q1_route = scan_route(lambda: brute(users["retrieval_cand"]))
     t0 = time.perf_counter()
     _, _, c_alone = rangescan(queries, items, r, k=k, metric="ip")
     torch.cuda.synchronize()
@@ -786,7 +822,10 @@ def two_tower_phase(dev, kernels, ap_probes: bool = False) -> dict:
         f"median {np.median(lat) * 1e3:.3f} ms (p90 {np.quantile(lat, 0.9) * 1e3:.3f}), "
         f"AP={ap_lo:.4f} on the {int(lo.sum())} lanes with count <= {k}, "
         f"AP={ap_hi:.4f} on the {int((~lo).sum())} lanes with count > {k} "
-        f"(k of count), launches={counts}")
+        f"(k of count), launches={counts}, routes={routes} (retrieval_cand: "
+        f"{q1_route})")
+    if profile:
+        profile_run(lambda: brute(users["serve_p99"]), dt, "two-tower brute-force batch")
 
     # -- the graph engine on the same corpus, ip -------------------------------
     t0 = time.perf_counter()
@@ -855,7 +894,7 @@ def two_tower_phase(dev, kernels, ap_probes: bool = False) -> dict:
     del engine, graph, user_tower
     torch.cuda.empty_cache()
 
-    return rangescan_checks(queries, q1, items, r, counts["rangescan"])
+    return rangescan_checks(queries, q1, items, r, counts["rangescan"], routes)
 
 
 def rel_l2(a, b) -> float:
@@ -1206,9 +1245,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace each mode's main-path run and one LM "
-                         "decode step with torch.profiler and print the "
-                         "device-time breakdown")
+                    help="also trace each mode's main-path run, the two-tower "
+                         "brute-force batch and one LM decode step with "
+                         "torch.profiler and print the device-time breakdown")
     ap.add_argument("--result-cap", type=int, default=1024,
                     help="result buffer per query (the deployment's 1024); "
                          "another value is the AP-gap probe, and also runs "
@@ -1253,7 +1292,7 @@ def main() -> int:
         tt_entry = two_tower_phase(dev, {
             "rangescan": rangescan_cuda, "expand": expand_cuda,
             "gatherdist": gatherdist_cuda},
-            ap_probes=args.result_cap != ap.get_default("result_cap"))
+            ap_probes=args.result_cap != ap.get_default("result_cap"), profile=args.profile)
     log(f"[two_tower] peak device memory of the phase "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     torch.cuda.empty_cache()
@@ -1429,8 +1468,9 @@ def main() -> int:
     log(f"[main] peak device memory of the engine phases "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(card_line())
-    extra = ("form", "int8_query_ms", "q1_ms", "q1_plain_ms", "q1_bound_ms",
-             "q1_bound_by", "q1_library_ms", "prefill_route", "local_ms",
+    extra = ("form", "int8_query_ms", "scan_route", "simt_ms", "f32_bound_ms", "q1_ms",
+             "q1_plain_ms", "q1_bound_ms", "q1_bound_by", "q1_library_ms", "q1_scan_route",
+             "q1_simt_ms", "q1_f32_bound_ms", "routes", "prefill_route", "local_ms",
              "local_bound_ms", "local_library_ms", "decode_source", "decode_route",
              "decode_ms", "decode_plain_ms", "decode_bound_ms",
              "decode_bound_by", "decode_library_ms", "decode_local_ms",

@@ -15,7 +15,9 @@ CPU tensors to the plain version, CUDA tensors to the kernel).
   int8 corpus's guard-band rerank.
 * ``rangescan``    — brute-force range scan (every distance, the exact
   in-range count, the K closest in-range points): the two-tower
-  retrieval route; ``rangescan.cu`` (a scan kernel and a merge kernel).
+  retrieval route; ``rangescan.cu`` (a 3xTF32 tensor-core scan fed by TMA
+  after a query pre-pass, an f32 CUDA-core scan for rows TMA cannot
+  address, and a merge kernel).
 * ``flashattn``    — flash-attention forward (GQA, causal on absolute
   positions, sliding window, soft cap): the attention core of every LM
   layer at prefill and decode; ``flashattn.cu`` (a tile kernel and a

@@ -51,16 +51,17 @@
 //    mask only on a tile that crosses its causal diagonal, its window's
 //    edge or Skv. Blocks start with the latest rows, so the longest causal
 //    sweeps are scheduled first.
-// cuTensorMapEncodeTiled, a driver-API call, is reached through
-// cudaGetDriverEntryPoint(ByVersion), so the library links no -lcuda.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// The mbarrier, TMA and wgmma helpers and the tensor-map encoder are
+// common.cuh's.
 #include <math.h>
 #include <stdint.h>
 #include <stdio.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace repro_torch;
 
 constexpr int BM = 64;                   // rows of a consumer warpgroup
 constexpr int NWG = 2;                   // consumer warpgroups
@@ -107,77 +108,6 @@ __device__ __forceinline__ void key_range(const Params& p, int r0, int r1,
   if (p.window > 0) lo = max(lo, pmin - p.window + 1);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ uint64_t globaltimer_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase of the given parity to complete. A wait of more than
-// WAIT_LIMIT_NS traps (a launch error the wrapper raises) instead of
-// hanging the card: a copy that never completes is a fault, not a delay.
-constexpr uint64_t WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  uint64_t start = 0;
-  for (uint32_t tries = 0;; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if ((tries & 1023) == 1023) {
-      const uint64_t now = globaltimer_ns();
-      if (start == 0) start = now;
-      else if (now - start > WAIT_LIMIT_NS) __trap();
-    }
-  }
-}
-
-// One box of a 4-D tensor map into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor with the 128-byte swizzle. The K-major
-// K tile (rows of 64 bf16 at 128 bytes, 8-row groups 1024 bytes apart)
-// takes sbo = 1024; the MN-major V tile also takes lbo, the distance
-// between its two 64-column halves.
-__device__ __forceinline__ uint64_t sw128_desc(const void* ptr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(ptr) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
 // Named barriers 3 and 4 order the two warpgroups' products
 // (ping-pong): a warpgroup waits on its own barrier before it issues, and
 // arrives on the other's after, so one warpgroup's softmax runs while the
@@ -187,25 +117,6 @@ __device__ __forceinline__ void turn_wait(int wg) {
 }
 __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - wg) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -553,30 +464,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and the launch.
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A (B, H, S, dh) bf16 view as a 4-D tensor map of 64 x 128 boxes: dims
 // (dh, s, h, b), or (dh, h, s, b) when h has the smaller stride (the cache
 // layout), so the strides grow with the dims. Returns 0 or an error code;

@@ -23,6 +23,36 @@ def rangescan_dists(queries, points, metric: str = "l2") -> torch.Tensor:
     return -dots
 
 
+def tf32_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10 mantissa bits, to nearest, ties to
+    even; the low 13 bits zero), as the kernel's wgmma route rounds them
+    (``cvt.rn.tf32.f32``), by integer arithmetic on the bits."""
+    b = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = (b + 0xFFF + ((b >> 13) & 1)) & 0xFFFFE000
+    return torch.where(b >= 1 << 31, b - (1 << 32), b).to(torch.int32).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32_rn(x) and lo = x - hi, exact in f32 (hi + lo
+    == x); the products read tf32_rn(lo)."""
+    hi = tf32_rn(x)
+    return hi, x.float() - hi
+
+
+def dots_3xtf32(queries, points) -> torch.Tensor:
+    """(Q, N) dot products as the wgmma route forms them (3xTF32): each
+    operand split into TF32 halves, lo.hi + hi.lo summed first, then hi.hi,
+    in f32; lo.lo is dropped. Every TF32 product is exact in f32, so this
+    pins the scheme's error on the CPU (the tensor cores' own order of
+    summation is not modelled); the plain version ``rangescan_dists`` keeps
+    the full-f32 product."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qh, ql = split_tf32(queries)
+    xh, xl = split_tf32(points)
+    ql, xl = tf32_rn(ql), tf32_rn(xl)
+    return (ql @ xh.T + qh @ xl.T) + qh @ xh.T
+
+
 def rangescan_ref(queries, points, r, *, k: int = 128, metric: str = "l2"):
     """(ids (Q, k), dists (Q, k), counts (Q,)): exact and unblocked. counts
     are the points with dist <= r; ids/dists the k in-range points with the

@@ -18,10 +18,12 @@ bf16 ulp of the output in bf16 (``rtol=1e-2, atol=1e-2``).
 
 rangescan runs on integer-valued rows (coordinates in [-3, 3]): every dot
 product and norm is then an exact integer in f32 (and bf16) whatever the
-order of the sum, and radii sit at half-integers, so the kernel's ids,
-distances and counts must equal the plain version's exactly, ties included
-(the lower id first). One real-valued case (unit vectors, ip) is held by
-``compare_scans``, which excuses only what f32 rounding can explain.
+order of the sum, and, on the wgmma route, every TF32 split is exact (hi =
+v, lo = 0); radii sit at half-integers, so the kernel's ids, distances and
+counts must equal the plain version's exactly, ties included (the lower id
+first). Each wgmma-route case asserts the route it took. Two real-valued
+cases (unit vectors, ip) are held by ``compare_scans``, which excuses only
+what f32 rounding can explain.
 """
 import dataclasses
 
@@ -467,6 +469,90 @@ def test_rangescan_kernel_unit_vectors_within_rounding(cuda_device):
           f"max_abs_err={err:.3g}")
     assert unexcused == 0 and err <= 1e-5, (excused, unexcused, err)
     assert (want[2] > 128).any() and (want[2] < 128).any()
+
+
+def _scan_on_route(route, qs, pts, r, **kw):
+    """One rangescan call, asserted to have taken ``route``."""
+    before = dict(rangescan_cuda.routes)
+    out = rangescan(qs, pts, r, **kw)
+    moved = {k: rangescan_cuda.routes[k] - before[k] for k in before}
+    assert moved == {**dict.fromkeys(before, 0), route: 1}, moved
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("q,n,d", [
+    (1, 10_007, 256),    # one request: the 8-query tile, two blocks an SM
+    (8, 3001, 96),       # an odd number of 32-dim chunks
+    (9, 3001, 128),
+    (256, 2003, 64),
+    (257, 3001, 128),    # a second, nearly empty query tile
+    (512, 5003, 256),    # the served batch's tile: 256 queries, two tiles
+])
+def test_rangescan_wgmma_route_matches_ref(cuda_device, dtype, metric, q, n, d):
+    """The tensor-core route on integer rows: hi = v, lo = 0 and exact sums,
+    so every id, distance and count equals the plain version's."""
+    pts, qs = _int_rig(q, n, d, cuda_device, seed=q + n + d, dtype=DTYPES[dtype])
+    for frac, k in ((0.001, 256), (0.2, 128)):    # counts below and above k
+        r = _half_integer_radius(qs, pts, metric, frac)
+        ids, dd, c = _scan_on_route("wgmma", qs, pts, r, k=k, metric=metric)
+        rids, rd, rc = rangescan_ref(qs, pts, r, k=k, metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(c, rc)
+        assert torch.equal(ids, rids)
+        assert torch.equal(dd, rd)
+    assert (c > k).any()
+
+
+@pytest.mark.cuda
+def test_rangescan_wgmma_unit_vectors_within_rounding(cuda_device):
+    """The served kind at the served batch: unit vectors, ip, Q=512 against
+    200,000 points of d=256; 3xTF32 differs from the plain f32 product only
+    by what f32 rounding explains."""
+    g = torch.Generator().manual_seed(7)
+    pts = torch.nn.functional.normalize(torch.randn(200_000, 256, generator=g), dim=1)
+    qs = torch.nn.functional.normalize(torch.randn(512, 256, generator=g), dim=1)
+    pts, qs = pts.to(cuda_device), qs.to(cuda_device)
+    dist = rangescan_dists(qs, pts, "ip")
+    # about 128 members a query on average: lanes on both sides of k
+    r = float(torch.quantile(dist[:, :10_000].flatten().cpu(), 128 / 200_000))
+    got = _scan_on_route("wgmma", qs, pts, r, k=128, metric="ip")
+    want = rangescan_ref(qs, pts, r, k=128, metric="ip")
+    excused, unexcused, err = compare_scans(got, want, dist, r, 1e-5)
+    print(f"unit vectors, ip, Q=512, k=128: excused={excused} unexcused={unexcused} "
+          f"max_abs_err={err:.3g}")
+    assert unexcused == 0 and err <= 1e-5, (excused, unexcused, err)
+    assert (want[2] > 128).any() and (want[2] < 128).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("q", [1, 512])
+def test_rangescan_wgmma_duplicate_rows_tie_by_id(cuda_device, dtype, q):
+    """Real-valued duplicated rows at scattered positions (other tiles,
+    other N splits) on the tensor-core route: identical distance bits, the
+    lower id first."""
+    g = torch.Generator().manual_seed(8)
+    pts = torch.randn(300_000, 128, generator=g)
+    dup = [5, 77, 131_072, 150_001, 299_998]
+    pts[dup] = pts[4242].clone()
+    qs = torch.cat([pts[4242:4243] + 0.01, torch.randn(q - 1, 128, generator=g)])
+    pts, qs = pts.to(cuda_device, DTYPES[dtype]), qs.to(cuda_device)
+    rows = sorted(dup + [4242])
+    for metric in ("l2", "ip"):
+        ids, dd, _ = _scan_on_route("wgmma", qs, pts, float("inf"), k=256, metric=metric)
+        for i in range(min(q, 3)):
+            row = ids[i].tolist()
+            pos = [row.index(j) for j in rows if j in row]
+            if i == 0 and metric == "l2":
+                assert len(pos) == len(rows)     # the query sits next to them
+            assert pos == sorted(pos)
+            assert len({dd[i, p].item() for p in pos}) <= 1
+            # every kept row's distance equals its duplicates', bit for bit
+            if pos:
+                assert all(torch.equal(dd[i, pos[0]], dd[i, p]) for p in pos)
 
 
 @pytest.mark.cuda

@@ -19,8 +19,10 @@ from repro.kernels import rangescan as jax_rangescan
 from repro.kernels import rangescan_ref as jax_rangescan_ref
 from repro_torch.kernels import rangescan
 from repro_torch.kernels.rangescan import rangescan_dists, rangescan_ref
-from repro_torch.kernels.rangescan.ops import _splits
-from repro_torch.kernels.rangescan.ref import compare_scans
+from repro_torch.kernels.rangescan.ops import (
+    MAX_SPLITS, TILE, WGMMA_BLOCK_Q, _splits, plan, tma_rows)
+from repro_torch.kernels.rangescan.ref import (
+    compare_scans, dots_3xtf32, split_tf32, tf32_rn)
 from repro_torch.utils import INVALID_ID
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -189,3 +191,113 @@ def test_compare_scans_excuses_only_rounding():
     bad = [t.clone() for t in want]
     bad[0][1, 0] = (int(bad[0][1, 0]) + 1) % 300
     assert compare_scans(bad, want, dist, r, 1e-5)[1] >= 1
+
+
+# ---------------------------------------------------------------------------
+# The wgmma route's 3xTF32 scheme (ref.py's emulation) and the route plan
+# ---------------------------------------------------------------------------
+
+def _f32_specials(rng, n=20_000):
+    """Random f32 over the whole exponent range, with 0, -0, negatives,
+    subnormals, the largest finite value and values at rounding ties."""
+    mant = rng.integers(0, 1 << 23, n, dtype=np.int64)
+    expo = rng.integers(0, 255, n, dtype=np.int64)          # 0: subnormals
+    sign = rng.integers(0, 2, n, dtype=np.int64)
+    bits = (sign << 31) | (expo << 23) | mant
+    ties = (np.int64(127) << 23) | (rng.integers(0, 1 << 10, 64) << 13) | 0x1000
+    extra = np.array([0x00000000, 0x80000000, 0x00000001, 0x807FFFFF, 0x7F7FFFFF,
+                      0x3F800000, 0xBF800000], dtype=np.int64)
+    bits = np.concatenate([bits, ties, ties | (1 << 13), extra]).astype(np.uint32)
+    return torch.as_tensor(bits.view(np.float32).copy())
+
+
+def test_split_tf32_hi_keeps_ten_mantissa_bits():
+    x = _f32_specials(np.random.default_rng(10))
+    hi, _ = split_tf32(x)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    # round to nearest: |x - hi| is at most half a unit of hi's last place
+    fin = torch.isfinite(hi) & (x.abs() < 3e38)
+    # a unit in hi's last place: 2^(e - 11) for x = m 2^e, m in [0.5, 1), and
+    # 2^-136 among the subnormals
+    ulp = torch.ldexp(torch.ones_like(x).double(), (torch.frexp(x)[1] - 11).clamp(min=-136))
+    assert ((x.double() - hi.double()).abs()[fin] <= ulp[fin] / 2).all()
+
+
+def test_split_tf32_halves_sum_to_the_value_exactly():
+    x = _f32_specials(np.random.default_rng(11))
+    x = x[torch.isfinite(tf32_rn(x))]      # the largest values round to inf
+    hi, lo = split_tf32(x)
+    assert torch.equal(hi + lo, x)
+    assert torch.equal(hi.double() + lo.double(), x.double())
+    sub = x[(x != 0) & (x.abs() < 1.1754944e-38)]
+    assert sub.numel() > 10 and torch.equal(sum(split_tf32(sub)), sub)
+
+
+def test_split_tf32_lo_is_zero_on_bf16_and_small_integers():
+    rng = np.random.default_rng(12)
+    bf = torch.as_tensor(rng.standard_normal(10_000) * 10.0 ** rng.integers(-30, 30, 10_000),
+                         dtype=torch.float32).bfloat16().float()
+    ints = torch.arange(-2048, 2049, dtype=torch.float32)
+    for v in (bf, ints):
+        hi, lo = split_tf32(v)
+        assert torch.equal(hi, v) and (lo == 0).all()
+
+
+@pytest.mark.parametrize("q,n,d", [(7, 300, 17), (16, 1000, 256), (1, 5000, 128)])
+def test_dots_3xtf32_exact_on_integer_rigs(q, n, d):
+    g = torch.Generator().manual_seed(q + n + d)
+    qs = torch.randint(-3, 4, (q, d), generator=g).float()
+    pts = torch.randint(-3, 4, (n, d), generator=g).float()
+    assert torch.equal(dots_3xtf32(qs, pts), qs @ pts.T)
+    assert torch.equal(dots_3xtf32(qs, pts.bfloat16()), qs @ pts.T)
+
+
+def test_dots_3xtf32_unit_vectors_within_2e6_of_f64():
+    rng = np.random.default_rng(13)
+    qs = rng.standard_normal((64, 256))
+    pts = rng.standard_normal((4000, 256))
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    want = qs.astype(np.float32).astype(np.float64) @ pts.astype(np.float32).astype(np.float64).T
+    got = dots_3xtf32(torch.as_tensor(qs, dtype=torch.float32),
+                      torch.as_tensor(pts, dtype=torch.float32)).double().numpy()
+    err = np.abs(got - want).max()
+    assert err <= 2e-6, err
+    # plain TF32 errs a thousand times more: the reason for the split
+    plain = (tf32_rn(torch.as_tensor(qs, dtype=torch.float32)).double()
+             @ tf32_rn(torch.as_tensor(pts, dtype=torch.float32)).double().T).numpy()
+    assert np.abs(plain - want).max() > 100 * err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [17, 33, 128, 256])
+@pytest.mark.parametrize("q", [1, 7, 8, 9, 64, 257, 512])
+def test_rangescan_plan_covers_every_pair_once(q, d, dtype):
+    """The kernel's blocks: every (query, point) pair in exactly one (query
+    tile, N split) block; the route by the rows' bytes alone."""
+    for n in (1, 127, 3001, 1_000_003):
+        p = plan(q, n, d, dtype)
+        wgmma = d * (4 if dtype == torch.float32 else 2) % 16 == 0
+        assert tma_rows(d, dtype) == wgmma
+        assert p.route == ("wgmma" if wgmma else "simt")
+        assert plan(q, n, d, dtype, aligned=False).route == "simt"
+        if wgmma:
+            # the smallest tile that holds the queries, up to 256; above 256,
+            # 128 where it leaves fewer empty slots (257: 384 against 512)
+            want = min(b for b in WGMMA_BLOCK_Q if b >= min(q, 256))
+            if q > 256 and -(-q // 128) * 128 < -(-q // 256) * 256:
+                want = 128
+            assert p.block_q == want and p.block_q % 8 == 0
+        else:
+            assert p.block_q == (8 if q <= 8 else 32)
+        assert p.q_tiles == -(-q // p.block_q) and (p.q_tiles - 1) * p.block_q < q
+        assert p.split_len % TILE == 0 and 1 <= p.n_split <= MAX_SPLITS
+        assert (p.n_split - 1) * p.split_len < n <= p.n_split * p.split_len
+        # every pair once: the blocks' ranges tile [0, Q) x [0, N)
+        cover_q = np.zeros(q, np.int64)
+        for i in range(p.q_tiles):
+            cover_q[i * p.block_q:(i + 1) * p.block_q] += 1
+        cover_n = np.zeros(n, np.int64)
+        for j in range(p.n_split):
+            cover_n[j * p.split_len:(j + 1) * p.split_len] += 1
+        assert (cover_q == 1).all() and (cover_n == 1).all()
