@@ -16,17 +16,24 @@ Phases, each printed as it ends:
      shapes of the main path (time, bound, plain version's time): expand
      and gatherdist (f32/bf16), expand-int8 and gatherdist-int8 in both
      arithmetic forms (int32 dots equal; the two kernels bit for bit on
-     shared candidates), rerank_fetch at P in {1, 17, 4096, 65536};
+     shared candidates), rerank_fetch at P in {1, 17, 4096, 65536}; expand
+     and expand-int8 on the route their plan takes (bulk) and on the warp
+     route, bit for bit equal, each timed;
   4. the radius, chosen the paper's way (sweep + select_radius) on a
      256-query sample, for half the queries to answer empty;
   5. the f32 main path: ``RangeSearchEngine.range(compacted=True)`` on all
      queries in greedy, beam and doubling modes (QPS, AP against
-     ``exact_range_search``, match histogram, launches of each kernel);
+     ``exact_range_search``, match histogram, launches of each kernel,
+     expand's routes, all bulk);
   6. the int8 main path: ``from_graph(corpus_dtype="int8")`` on the same
      graph and radius, greedy/beam/doubling in the f32-query form and
      greedy in the int8-query form (QPS, AP, AP against f32, mean n_rerank,
-     band size P, launches; no false positive); rerank_fetch at the band
-     the greedy run produced;
+     band size P, launches and routes; no false positive); rerank_fetch at
+     the band the greedy run produced; the expand launches of the greedy
+     f32, int8 f32-query and int8 int8-query batches (kept on their
+     warm-up runs) replayed in one CUDA graph on each route ([served]:
+     sum, mean a launch, count, bound; every launch bit for bit equal on
+     the two routes);
   7. the guard-band contract on 256 queries: the post-rerank set equals the
      rerank-disabled set filtered by the exact distances;
   8. the kernel path against the plain path through the same engines on a
@@ -39,8 +46,9 @@ Phases, each printed as it ends:
      (retrieval_cand); the radius the paper's way at ip; brute-force
      serving (user tower + rangescan, k=256) and the graph engine on the
      same corpus (exact k-NN graph at ip, greedy) with QPS, AP and
-     launches; expand and gatherdist against their plain versions at that
-     path's shapes (ip, d=256), and the graph engine's kernel path equal
+     launches (expand's routes asserted bulk); expand and gatherdist
+     against their plain versions at that path's shapes (ip, d=256), and
+     the graph engine's kernel path equal
      to its plain path on every lane; rangescan against its plain version
      at k=128 and k=256 on the 512 requests, on 64 and on 1, every lane,
      excusing only pairs within 1e-5 of the radius or of each other (f32
@@ -80,6 +88,7 @@ Any failure exits non-zero. The last line is the device JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -200,6 +209,14 @@ def make_frontier(n, qn, e, gen, dev):
     return frontier
 
 
+def same_bits(a, b) -> bool:
+    """Whether two tuples of tensors hold the same bits."""
+    import torch
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a, b))
+
+
 def expand_bytes(ids, frontier, nbrs, queries, row_bytes: int) -> int:
     """Bytes an expansion must move: each distinct surviving row once, each
     distinct frontier node's adjacency row once, the frontier, the queries
@@ -234,13 +251,19 @@ def kernel_checks(points, nbrs, queries, gen, dtypes=("float32", "bfloat16"),
         pts = points.to(getattr(torch, dtype)).contiguous()
         for metric in metrics:
             args = (pts, nbrs, frontier, queries)
+            route = kernel_route(expand_cuda, lambda: expand_cuda(*args, metric=metric))
             ids, dd, nd = expand_cuda(*args, metric=metric)
+            warp = expand_cuda(*args, metric=metric, route="warp")
             rids, rd, rnd = expand_frontier_ref(*args, metric=metric)
             torch.cuda.synchronize()
             if not (torch.equal(ids, rids) and torch.equal(nd, rnd)):
                 raise AssertionError(f"expand {dtype} {metric}: ids/n_dist differ")
             err = check_close(f"expand {dtype} {metric}", dd, rd, DIST_TOL[dtype])
+            if not same_bits((ids, dd, nd), warp):
+                raise AssertionError(f"expand {dtype} {metric}: the {route} and warp "
+                                     "routes differ")
             ms = time_ms(lambda: expand_cuda(*args, metric=metric))
+            warp_ms = time_ms(lambda: expand_cuda(*args, metric=metric, route="warp"))
             plain = time_ms(lambda: expand_frontier_ref(*args, metric=metric))
             kept = ids[ids != INVALID_ID]
             n_bytes = expand_bytes(ids, frontier, nbrs, queries,
@@ -248,16 +271,19 @@ def kernel_checks(points, nbrs, queries, gen, dtypes=("float32", "bfloat16"),
             flops = kept.numel() * (3 if metric == "l2" else 2) * d
             b_ms, b_by = bound_ms(n_bytes, flops)
             log(f"[kernel] expand{tag} {dtype} {metric} Q={qn} E={e} R={r} d={d}: "
-                f"ids/n_dist equal, max_abs_err={err:.3g}, ms={ms:.4f}, "
-                f"plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}, "
-                f"{n_bytes / 1e6:.1f} MB), gathered rows={kept.numel()}")
+                f"ids/n_dist equal, max_abs_err={err:.3g}, route {route}: ms={ms:.4f} "
+                f"({b_ms / ms:.1%} of the bound), warp route ms={warp_ms:.4f} "
+                f"({b_ms / warp_ms:.1%}), bitwise equal; plain_ms={plain:.4f}, "
+                f"bound_ms={b_ms:.4f} ({b_by}, {n_bytes / 1e6:.1f} MB), gathered "
+                f"rows={kept.numel()}")
             if (dtype, metric) == ("float32", "l2"):
                 entries["expand"] = dict(
                     name="expand", route="cuda",
                     source="src/repro_torch/kernels/expand/csrc/expand.cu",
                     replaces="src/repro/kernels/expand/kernel.py:49",
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None)
+                    bound_by=b_by, library_ms=None, expand_route=route,
+                    warp_ms=warp_ms)
         for s in widths:
             ids = torch.randint(0, n, (qn, s), generator=gen, device=dev,
                                 dtype=torch.int32)
@@ -316,7 +342,9 @@ def int8_kernel_checks(qc, nbrs, queries, gen):
         for metric in ("l2", "ip"):
             kw = dict(metric=metric, quantize_query=quant)
             args = (qc.codes, qc.meta, nbrs, frontier, queries)
+            route = kernel_route(expand_int8_cuda, lambda: expand_int8_cuda(*args, **kw))
             got = expand_int8_cuda(*args, **kw, return_dots=quant)
+            warp = expand_int8_cuda(*args, **kw, return_dots=quant, route="warp")
             want = expand_frontier_int8_ref(qc, nbrs, frontier, queries, **kw,
                                             return_dots=quant)
             torch.cuda.synchronize()
@@ -326,6 +354,9 @@ def int8_kernel_checks(qc, nbrs, queries, gen):
             if quant and not torch.equal(got[3], want[3]):
                 raise AssertionError(f"expand-int8 {form} {metric}: int32 dots differ")
             err = check_close(f"expand-int8 {form} {metric}", dd, want[1], tol)
+            if not same_bits(got, warp):
+                raise AssertionError(f"expand-int8 {form} {metric}: the {route} and "
+                                     "warp routes differ")
             # the two int8 kernels on the candidates they share: same bits
             g = gatherdist_int8_cuda(qc.codes, qc.meta, ids, queries, **kw,
                                      return_dots=quant)
@@ -338,6 +369,7 @@ def int8_kernel_checks(qc, nbrs, queries, gen):
             if quant and not torch.equal(g[1][keep], got[3][keep]):
                 raise AssertionError(f"{form} {metric}: the two kernels' dots differ")
             ms = time_ms(lambda: expand_int8_cuda(*args, **kw))
+            warp_ms = time_ms(lambda: expand_int8_cuda(*args, **kw, route="warp"))
             plain = time_ms(lambda: expand_frontier_int8_ref(
                 qc, nbrs, frontier, queries, **kw))
             n_kept = int(keep.sum())
@@ -346,19 +378,22 @@ def int8_kernel_checks(qc, nbrs, queries, gen):
             b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS if quant else F32_FLOPS)
             log(f"[kernel] expand-int8 {form} {metric} Q={qn} E={e} R={r} d={d}: "
                 f"ids/n_dist equal{', dots equal' if quant else ''}, "
-                f"max_abs_err={err:.3g}, ms={ms:.4f}, plain_ms={plain:.4f}, "
-                f"bound_ms={b_ms:.4f} ({b_by}, {n_bytes / 1e6:.1f} MB), "
-                f"gathered rows={n_kept}; gatherdist-int8 on the same "
-                f"{n_kept} candidates: bitwise equal")
+                f"max_abs_err={err:.3g}, route {route}: ms={ms:.4f} ({b_ms / ms:.1%} "
+                f"of the bound), warp route ms={warp_ms:.4f} ({b_ms / warp_ms:.1%}), "
+                f"bitwise equal; plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}, "
+                f"{n_bytes / 1e6:.1f} MB), gathered rows={n_kept}; gatherdist-int8 "
+                f"on the same {n_kept} candidates: bitwise equal")
             if (quant, metric) == (False, "l2"):
                 entries["expand_int8"] = dict(
                     name="expand_int8", route="cuda",
                     source="src/repro_torch/kernels/expand/csrc/expand_int8.cu",
                     replaces="src/repro/kernels/expand/kernel.py:118",
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None, form=form)
+                    bound_by=b_by, library_ms=None, form=form, expand_route=route,
+                    warp_ms=warp_ms)
             elif metric == "l2":
-                entries["expand_int8"]["int8_query_ms"] = ms
+                entries["expand_int8"].update(int8_query_ms=ms,
+                                              int8_query_warp_ms=warp_ms)
             # gatherdist-int8 at the start points' shape (S=4)
             got = gatherdist_int8_cuda(qc.codes, qc.meta, starts, queries, **kw,
                                        return_dots=quant)
@@ -544,32 +579,134 @@ def check_guard_band(eng_q, points, queries, r, cfg, name, tol=1e-6):
     return checked, int((maybe_in & ~sure_in).sum())
 
 
-def run_mode(engine, queries, r, cfg, kernels, profile: bool, name):
-    """One main-path run of one mode, with every launch count set to 0 just
-    before and read just after. Returns (result, wall seconds, counts)."""
+class _Recorder:
+    """Stands in for a kernel wrapper: records each call's arguments, calls
+    the wrapper, and reads and writes the wrapper's own counters (the
+    wrapper counts through its module-level name)."""
+
+    def __init__(self, inner, record):
+        object.__setattr__(self, "inner", inner)
+        object.__setattr__(self, "record", record)
+
+    def __call__(self, *args, **kw):
+        self.record(self.inner, args, kw)
+        return self.inner(*args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.inner, name, value)
+
+
+class ExpandCapture:
+    """Swaps ``kernels.expand.ops``' two kernel wrappers for recorders that
+    also keep each launch's inputs (frontier and queries cloned; corpus and
+    adjacency, which the walk never writes, by reference) for a replay on
+    each route. They launch what they wrap, so the counts and routes move
+    as they would; used on the warm-up run only."""
+
+    NAMES = {"expand_cuda": 2, "expand_int8_cuda": 3}   # the frontier's position
+
+    def __init__(self):
+        from repro_torch.kernels.expand import ops
+        self.ops, self.kept = ops, []
+
+    def _record(self, inner, args, kw):
+        fi = self.NAMES[inner.__name__]
+        self.kept.append((inner, [a.clone() if i in (fi, fi + 1) else a
+                                  for i, a in enumerate(args)], dict(kw)))
+
+    def __enter__(self):
+        self.inner = {name: getattr(self.ops, name) for name in self.NAMES}
+        for name, fn in self.inner.items():
+            setattr(self.ops, name, _Recorder(fn, self._record))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.inner.items():
+            setattr(self.ops, name, fn)
+
+
+def served_replay(kept, name: str, row_bytes: int) -> dict:
+    """The launches one served batch made, replayed on each route in one
+    CUDA graph: every launch's outputs bit for bit equal on the two routes,
+    each route's summed device time, and the bound of the whole batch (each
+    launch's distinct kept rows, adjacency rows, inputs and outputs at the
+    card's memory rate). Returns the entry's served_* numbers."""
     import torch
-    engine.range(queries, r, cfg=cfg)                      # warm-up
+    if not kept:
+        raise AssertionError(f"{name}: no expand launch was captured")
+    kernel = kept[0][0]
+    n_bytes = 0
+    for fn, args, kw in kept:
+        got = fn(*args, **kw)
+        warp = fn(*args, **kw, route="warp")
+        torch.cuda.synchronize()
+        if not same_bits(got, warp):
+            raise AssertionError(f"{name}: a served launch differs between the routes")
+        n_bytes += expand_bytes(got[0], args[-2], args[-3], args[-1], row_bytes)
+    routes = dict(kernel.routes)
+    sums = {route: time_ms(lambda: [fn(*args, **kw, route=route) for fn, args, kw in kept],
+                           reps=3, repeats=3)
+            for route in ("bulk", "warp")}
+    moved = {r: kernel.routes[r] - routes[r] for r in routes}
+    if moved["bulk"] == 0 or moved["warp"] == 0:
+        raise AssertionError(f"{name}: the replay moved the routes {moved}")
+    n = len(kept)
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    lanes = np.array([[args[-2].shape[0], int(((args[-2] >= 0) & (args[-2] < args[-3].shape[0]))
+                                             .any(1).sum())] for _, args, _ in kept])
+    log(f"[served] {name}: lanes a launch median {np.median(lanes[:, 0]):.0f} (max "
+        f"{lanes[:, 0].max()}), live lanes median {np.median(lanes[:, 1]):.0f} (max "
+        f"{lanes[:, 1].max()}, all launches {lanes[:, 1].sum()})")
+    log(f"[served] {name}: {n} expand launches replayed in one CUDA graph: bulk "
+        f"{sums['bulk']:.4f} ms ({sums['bulk'] / n * 1e3:.2f} us a launch), warp "
+        f"{sums['warp']:.4f} ms ({sums['warp'] / n * 1e3:.2f} us a launch), "
+        f"bulk/warp {sums['bulk'] / sums['warp']:.3f}; bound {bound:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB); every launch bitwise equal on the two routes")
+    return dict(served_ms=sums["bulk"], served_warp_ms=sums["warp"],
+                served_launches=n, served_bound_ms=bound)
+
+
+def run_mode(engine, queries, r, cfg, kernels, profile: bool, name, capture=None):
+    """One main-path run of one mode, with every launch and route count set
+    to 0 just before and read just after; ``capture`` (a context) wraps the
+    warm-up run. Returns (result, wall seconds, counts, routes)."""
+    import torch
+    with capture or contextlib.nullcontext():
+        engine.range(queries, r, cfg=cfg)                  # warm-up
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
+        if hasattr(k, "routes"):
+            k.routes = dict.fromkeys(k.routes, 0)
     t0 = time.perf_counter()
     res = engine.range(queries, r, cfg=cfg, compacted=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {n: k.launches for n, k in kernels.items()}
+    routes = {n: dict(k.routes) for n, k in kernels.items() if hasattr(k, "routes")}
     if profile:
         profile_run(lambda: engine.range(queries, r, cfg=cfg), dt, name)
-    return res, dt, counts
+    return res, dt, counts, routes
 
 
-def scan_route(fn) -> str:
-    """Call ``fn`` (one rangescan_cuda call) and name the route it took."""
-    from repro_torch.kernels.rangescan import rangescan_cuda
-    before = dict(rangescan_cuda.routes)
+def check_bulk(routes: dict, counts: dict, name: str) -> None:
+    """Every expand launch of a served run took the bulk route."""
+    for k, by_route in routes.items():
+        if k.startswith("expand") and by_route != {"bulk": counts[k], "warp": 0}:
+            raise AssertionError(f"{name}: {k} routes {by_route} of {counts[k]} launches")
+
+
+def kernel_route(kernel, fn) -> str:
+    """Call ``fn`` (one call of ``kernel``'s wrapper) and name the route it
+    took, by the wrapper's route counts."""
+    before = dict(kernel.routes)
     fn()
-    moved = [r for r, n in rangescan_cuda.routes.items() if n != before[r]]
+    moved = [r for r, n in kernel.routes.items() if n != before[r]]
     if len(moved) != 1:
-        raise AssertionError(f"rangescan: one call moved the routes {moved}")
+        raise AssertionError(f"{kernel.__name__}: one call moved the routes {moved}")
     return moved[0]
 
 
@@ -591,7 +728,7 @@ def rangescan_checks(queries, q1, items, r, launches: int, routes: dict):
         for name, qq in ((f"Q={queries.shape[0]}", queries), ("Q=64", queries[:64]),
                          ("Q=1", q1)):
             got = []
-            route = scan_route(lambda: got.extend(rangescan_cuda(qq, items, r, k=k, metric="ip")))
+            route = kernel_route(rangescan_cuda, lambda: got.extend(rangescan_cuda(qq, items, r, k=k, metric="ip")))
             want = rangescan_ref(qq, items, r, k=k, metric="ip")
             dist = rangescan_dists(qq, items, "ip")
             torch.cuda.synchronize()
@@ -613,7 +750,7 @@ def rangescan_checks(queries, q1, items, r, launches: int, routes: dict):
                launches=launches, max_abs_err=max_err)
     for qq, tag, reps in ((queries, "", 10), (q1, "q1_", 50)):
         qn = qq.shape[0]
-        route = scan_route(lambda: rangescan_cuda(qq, items, r, k=256, metric="ip"))
+        route = kernel_route(rangescan_cuda, lambda: rangescan_cuda(qq, items, r, k=256, metric="ip"))
         times = {k: time_ms(lambda: rangescan_cuda(qq, items, r, k=k, metric="ip"),
                             reps=reps, repeats=3) for k in (128, 256)}
         simt = time_ms(lambda: rangescan_cuda(qq, items, r, k=256, metric="ip", route="simt"),
@@ -794,7 +931,7 @@ def two_tower_phase(dev, kernels, ap_probes: bool = False, profile: bool = False
     routes = dict(scan.routes)
     if counts["rangescan"] != 1 or routes != {**dict.fromkeys(routes, 0), "wgmma": 1}:
         raise AssertionError(f"brute force: launches {counts}, routes {routes}")
-    q1_route = scan_route(lambda: brute(users["retrieval_cand"]))
+    q1_route = kernel_route(scan, lambda: brute(users["retrieval_cand"]))
     t0 = time.perf_counter()
     _, _, c_alone = rangescan(queries, items, r, k=k, metric="ip")
     torch.cuda.synchronize()
@@ -843,15 +980,19 @@ def two_tower_phase(dev, kernels, ap_probes: bool = False, profile: bool = False
 
     served(users["serve_p99"])
     torch.cuda.synchronize()
+    expand = kernels["expand"]
     for kern in kernels.values():
         kern.launches = 0
+    expand.routes = dict.fromkeys(expand.routes, 0)
     t0 = time.perf_counter()
     res = served(users["serve_p99"])
     torch.cuda.synchronize()
     dt_g = time.perf_counter() - t0
     g_counts = {n: kern.launches for n, kern in kernels.items()}
+    g_routes = dict(expand.routes)
     if min(g_counts["expand"], g_counts["gatherdist"]) == 0:
         raise AssertionError(f"graph engine: launches {g_counts}")
+    check_bulk({"expand": g_routes}, g_counts, "two-tower graph engine")
     lane, slot = _check_shapes(res, n_req, cfg_r.result_cap, "two-tower graph")
     exact = point_dist(items[res.ids[lane, slot].long()], queries[lane], "ip")
     if not (exact <= r + RANGESCAN_TOL).all():
@@ -866,7 +1007,8 @@ def two_tower_phase(dev, kernels, ap_probes: bool = False, profile: bool = False
         f"QPS={n_req / dt_g:.1f} ({dt_g * 1e3:.2f} ms for {n_req} requests, user "
         f"tower included; search alone {dt_alone * 1e3:.2f} ms), AP={ap_g:.4f}, "
         f"mean n_dist {float(res.n_dist.float().mean()):.0f} vs {n_items:,} brute, "
-        f"overflowed lanes={int(res.overflow.sum())}, launches={g_counts}")
+        f"overflowed lanes={int(res.overflow.sum())}, launches={g_counts}, "
+        f"expand routes {g_routes}")
     # expand and gatherdist against their plain versions at this path's
     # shapes (ip, d=256, 512 requests, R=32, E=4, S=4) on this corpus
     kernel_checks(items, graph.neighbors, queries,
@@ -952,18 +1094,6 @@ def sdpa_library(q, k, v, kw):
         q, k, v, scale=kw["scale"], enable_gqa=True, **how)
 
 
-def call_route(fn) -> str:
-    """The flashattn route one call of ``fn`` took (by the wrapper's route
-    counts)."""
-    from repro_torch.kernels.flashattn import flash_attention_cuda
-    before = dict(flash_attention_cuda.routes)
-    fn()
-    moved = [r for r, n in flash_attention_cuda.routes.items() if n != before[r]]
-    if len(moved) != 1:
-        raise AssertionError(f"flashattn: one call moved the routes {moved}")
-    return moved[0]
-
-
 def flash_checks(captured: dict, dev) -> dict:
     """flashattn against its plain version at the JAX tests' shapes (f32 and
     bf16) and on the captured inputs of the LM path (one global and one
@@ -982,7 +1112,7 @@ def flash_checks(captured: dict, dev) -> dict:
         for dtype in ("float32", "bfloat16"):
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
                        for shape in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh)))
-            route = call_route(lambda: flash_attention_cuda(q, k, v, **kw))
+            route = kernel_route(flash_attention_cuda, lambda: flash_attention_cuda(q, k, v, **kw))
             got = flash_attention_cuda(q, k, v, **kw)
             want = flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -996,7 +1126,7 @@ def flash_checks(captured: dict, dev) -> dict:
                  decode_source="src/repro_torch/kernels/flashattn/csrc/flashattn.cu",
                  replaces="src/repro/kernels/flashattn/kernel.py:33")
     for tag, (q, k, v, kw) in captured.items():
-        route = call_route(lambda: flash_attention_cuda(q, k, v, **kw))
+        route = kernel_route(flash_attention_cuda, lambda: flash_attention_cuda(q, k, v, **kw))
         got = flash_attention_cuda(q, k, v, **kw)
         want = flash_attention_ref(q, k, v, **kw)
         lib_fn = sdpa_library(q, k, v, kw)
@@ -1371,11 +1501,16 @@ def main() -> int:
     f32_kernels = {"expand": expand_cuda, "gatherdist": gatherdist_cuda}
     launches = {}
     aps = {}
+    captures = {}   # the expand launches of the greedy batches, for the replay
     for mode, cfg in cfgs.items():
-        res, dt, counts = run_mode(engine, queries, r, cfg, f32_kernels,
-                                   args.profile, mode)
+        cap = ExpandCapture() if mode == "greedy" else None
+        if cap:
+            captures["f32"] = cap
+        res, dt, counts, routes = run_mode(engine, queries, r, cfg, f32_kernels,
+                                           args.profile, mode, cap)
         if min(counts.values()) == 0:
             raise AssertionError(f"{mode}: a kernel was never launched {counts}")
+        check_bulk(routes, counts, mode)
         launches[mode] = counts
         check_result(res, points, queries, r, cfg.result_cap, mode)
         aps[mode] = ap_of(res)
@@ -1384,7 +1519,8 @@ def main() -> int:
             f"mean n_visited={float(res.n_visited.float().mean()):.1f}, "
             f"phase-2 share={float(res.phase2.float().mean()):.4f}, "
             f"overflowed lanes={int(res.overflow.sum())}, "
-            f"launches={counts}, results {match_histogram(res.count.cpu().numpy())}")
+            f"launches={counts}, expand routes {routes['expand']}, "
+            f"results {match_histogram(res.count.cpu().numpy())}")
 
     # -- 6. the int8 main path -----------------------------------------------
     t0 = time.perf_counter()
@@ -1405,8 +1541,12 @@ def main() -> int:
             q_cfgs["greedy f32-query"].search, use_expand_kernel=True))
     q_launches = {}
     for name, cfg in q_cfgs.items():
-        res, dt, counts = run_mode(engine_q, queries, r, cfg, int8_kernels,
-                                   args.profile, f"int8 {name}")
+        cap = ExpandCapture() if name.startswith("greedy") else None
+        if cap:
+            captures[name] = cap
+        res, dt, counts, routes = run_mode(engine_q, queries, r, cfg, int8_kernels,
+                                           args.profile, f"int8 {name}", cap)
+        check_bulk(routes, counts, f"int8 {name}")
         band = int(res.n_rerank.sum())
         # expand-int8 runs every iteration and gatherdist-int8 seeds every
         # lane; rerank_fetch launches once for a batch with a band, and a
@@ -1427,11 +1567,22 @@ def main() -> int:
             f"mean n_visited={float(res.n_visited.float().mean()):.1f}, "
             f"phase-2 share={float(res.phase2.float().mean()):.4f}, "
             f"overflowed lanes={int(res.overflow.sum())}, "
-            f"launches={counts}, no false positive, "
-            f"results {match_histogram(res.count.cpu().numpy())}")
+            f"launches={counts}, expand routes {routes['expand_int8']}, no false "
+            f"positive, results {match_histogram(res.count.cpu().numpy())}")
     entries["rerank_fetch"] = rerank_at_band(
         engine_q, queries, r, q_cfgs["greedy f32-query"],
         q_launches["greedy f32-query"]["rerank_fetch"])
+
+    # the expand launches the greedy batches made, replayed on each route
+    dim = points.shape[1]
+    entries["expand"].update(served_replay(captures.pop("f32").kept, "greedy f32",
+                                           4 * dim))
+    entries["expand_int8"].update(served_replay(
+        captures.pop("greedy f32-query").kept, "greedy int8 f32-query", dim + 12))
+    entries["expand_int8"].update({f"int8_query_{k}": v for k, v in served_replay(
+        captures.pop("greedy int8-query").kept, "greedy int8 int8-query",
+        dim + 12).items()})
+    torch.cuda.empty_cache()
 
     # -- 7. the guard-band contract ------------------------------------------
     sub = queries[:256]
@@ -1468,7 +1619,10 @@ def main() -> int:
     log(f"[main] peak device memory of the engine phases "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(card_line())
-    extra = ("form", "int8_query_ms", "scan_route", "simt_ms", "f32_bound_ms", "q1_ms",
+    extra = ("form", "int8_query_ms", "expand_route", "warp_ms", "served_ms",
+             "served_warp_ms", "served_launches", "served_bound_ms",
+             "int8_query_warp_ms", "int8_query_served_ms", "int8_query_served_warp_ms",
+             "int8_query_served_launches", "int8_query_served_bound_ms", "scan_route", "simt_ms", "f32_bound_ms", "q1_ms",
              "q1_plain_ms", "q1_bound_ms", "q1_bound_by", "q1_library_ms", "q1_scan_route",
              "q1_simt_ms", "q1_f32_bound_ms", "routes", "prefill_route", "local_ms",
              "local_bound_ms", "local_library_ms", "decode_source", "decode_route",

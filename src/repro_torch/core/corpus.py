@@ -36,7 +36,7 @@ from typing import Optional, Union
 
 import torch
 
-from ..dist.compression import GUARD_SLACK as _SLACK, quantize_int8_rows
+from ..dist.compression import GUARD_SLACK as _SLACK, absmax_scale, quantize_int8_rows
 
 CORPUS_DTYPES = ("float32", "bfloat16", "int8")
 
@@ -147,7 +147,7 @@ def quantize_queries(q: torch.Tensor):
     ``(codes (..., d) f32-valued in [-127, 127], scale (...,), err (...,),
     |q_hat|^2 (...,))``; ``err`` is the exact ``||q - q_hat||``."""
     qf = q.float()
-    scale = torch.clamp(torch.amax(torch.abs(qf), dim=-1), min=1e-12) / 127.0
+    scale = absmax_scale(torch.amax(torch.abs(qf), dim=-1))
     codes = torch.clamp(torch.round(qf / scale[..., None]), -127, 127)
     q_hat = codes * scale[..., None]
     err = torch.sqrt(torch.sum((qf - q_hat) ** 2, dim=-1))

@@ -19,10 +19,17 @@ import torch
 GUARD_SLACK = 1e-4
 
 
+def absmax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-12) / 127 as a true f32 division on every device: CUDA
+    divides by a Python scalar as a product with its rounded reciprocal,
+    which can be 1 ulp off and move a code that sits on a .5 boundary."""
+    amax = torch.clamp(amax, min=1e-12)
+    return amax / torch.full_like(amax, 127.0)
+
+
 def quantize_int8(x: torch.Tensor):
     """(q int8, scale) with one absmax scale for the whole tensor."""
-    amax = torch.max(torch.abs(x))
-    scale = torch.clamp(amax, min=1e-12) / 127.0
+    scale = absmax_scale(torch.max(torch.abs(x)))
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -31,8 +38,7 @@ def quantize_int8_rows(x: torch.Tensor):
     """(q (N, d) int8, scales (N,) f32): one absmax scale per row, so the
     element-wise error is at most ``scales[i] / 2``; ``scale = amax / 127``
     means no value clips."""
-    amax = torch.amax(torch.abs(x), dim=-1)
-    scales = torch.clamp(amax, min=1e-12) / 127.0
+    scales = absmax_scale(torch.amax(torch.abs(x), dim=-1))
     q = torch.clamp(torch.round(x / scales[..., None]), -127, 127).to(torch.int8)
     return q, scales
 

@@ -6,10 +6,11 @@ interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -I kernels/csrc -o build/repro_torch/<name>-<hash>.so <name>.cu
 
-``kernels/csrc/common.cuh`` holds the device helpers the kernels share.
-Libraries go to ``build/repro_torch/`` at the root of the checkout, named
-by a hash of their source and the shared header, so an edit rebuilds and
-an unchanged source is reused. The build runs at first use, never at
+``kernels/csrc/common.cuh`` holds the device helpers the kernels share; a
+source may include headers of its own directory (``expand/csrc/
+expand_bulk.cuh``). Libraries go to ``build/repro_torch/`` at the root of
+the checkout, named by a hash of their source, the headers beside it and
+the shared header, so an edit rebuilds and an unchanged source is reused. The build runs at first use, never at
 import time.
 """
 from __future__ import annotations
@@ -52,8 +53,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + COMMON.read_bytes()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, the headers
+    beside it and the shared header."""
+    src = SOURCES[name]
+    parts = [src, *sorted(src.parent.glob("*.cuh")), COMMON]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,8 +1,10 @@
 // Device helpers shared by the port's CUDA kernels: 16-byte row loads of
 // f32 or bf16 storage into f32 registers, a row-vs-query distance share,
 // warp-wide reductions, the int8 corpus's query quantization, row reads
-// (8 lanes a row), certified lower bound and bounds loop, and Hopper's
-// mbarriers, TMA loads, wgmma fences and the host's tensor-map encoder.
+// (8 lanes a row), certified lower bound and bounds loops (over rows in
+// device memory or in a shared-memory copy), and Hopper's mbarriers, TMA
+// and 1-D bulk copies, cp.async, wgmma fences and the host's tensor-map
+// encoder.
 #pragma once
 
 #include <cuda.h>
@@ -25,13 +27,18 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// 16 bytes at p (16-byte aligned) as f32 values
+// 16 bytes at p (16-byte aligned) as f32 values: from device memory
+// through the read-only path, or (kShared) from a shared-memory copy
+template <bool kShared = false>
 __device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  const float4* v4 = reinterpret_cast<const float4*>(p);
+  const float4 v = kShared ? *v4 : __ldg(v4);
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
+template <bool kShared = false>
 __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint4* u4 = reinterpret_cast<const uint4*>(p);
+  const uint4 v = kShared ? *u4 : __ldg(u4);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -202,7 +209,8 @@ __device__ __forceinline__ int group_dot_i8(const int8_t* __restrict__ row,
   } else if (vec == 4) {
     const int* r4 = reinterpret_cast<const int*>(row);
     const int* q4 = reinterpret_cast<const int*>(qc);
-    for (int c = part; c < d / 4; c += GROUP) acc = __dp4a(__ldg(r4 + c), q4[c], acc);
+    for (int c = part; c < d / 4; c += GROUP)
+      acc = __dp4a(__ldg(r4 + c), q4[c], acc);
   } else {
     for (int i = part; i < d; i += GROUP)
       acc += static_cast<int>(__ldg(row + i)) * static_cast<int>(qc[i]);
@@ -222,15 +230,21 @@ __device__ __forceinline__ float deq_term(int code, float scale, float qv,
   return __fmaf_rn(x, qv, acc);
 }
 
-// One 4-byte code word against 4 query values at q (16-byte aligned).
+// One 4-byte code word against 4 query values v.
 template <bool L2>
-__device__ __forceinline__ float deq_word(int w, float scale, const float* q,
+__device__ __forceinline__ float deq_word(int w, float scale, float4 v,
                                           float acc) {
-  const float4 v = *reinterpret_cast<const float4*>(q);
   acc = deq_term<L2>(static_cast<int8_t>(w), scale, v.x, acc);
   acc = deq_term<L2>(static_cast<int8_t>(w >> 8), scale, v.y, acc);
   acc = deq_term<L2>(static_cast<int8_t>(w >> 16), scale, v.z, acc);
   return deq_term<L2>(static_cast<int8_t>(w >> 24), scale, v.w, acc);
+}
+
+// The same against 4 query values at q (16-byte aligned).
+template <bool L2>
+__device__ __forceinline__ float deq_word(int w, float scale, const float* q,
+                                          float acc) {
+  return deq_word<L2>(w, scale, *reinterpret_cast<const float4*>(q), acc);
 }
 
 // This lane's share of sum((codes * scale - q)^2) (L2) or
@@ -294,6 +308,33 @@ __device__ __forceinline__ float lower_bound(float d_hat, float err,
   return __fsub_rn(d_hat, eps);
 }
 
+// The last step of a bounds pass: each group's sums reduced, and its first
+// lane writing the bound, the id and the dot of its row.
+template <bool L2, bool kQuantQuery, int U>
+__device__ __forceinline__ void int_bounds_out(
+    const int* id, const float* scale, const float* sqn, const float* err,
+    const float* accf, const int* acci, int j0, int cnt, const QueryQuant& qq,
+    float slack, int g, int part, int* oid, float* od, int* odot) {
+  constexpr int ROWS = 32 / GROUP;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = j0 + ROWS * u + g;
+    const int si = kQuantQuery ? group_sum_int(acci[u]) : 0;
+    const float sf = kQuantQuery ? 0.f : group_sum(accf[u]);
+    if (part == 0 && j < cnt) {
+      float dist = INFINITY;
+      if (id[u] != INVALID_ID) {
+        const float d_hat = kQuantQuery ? int8_dhat<L2>(si, scale[u], sqn[u], qq)
+                                        : (L2 ? sf : -sf);
+        dist = lower_bound<L2>(d_hat, err[u], sqn[u], qq, slack);
+      }
+      if (oid) oid[j] = id[u];
+      od[j] = dist;
+      if (odot) odot[j] = id[u] == INVALID_ID ? 0 : si;
+    }
+  }
+}
+
 // The certified lower bounds of one query against cnt candidate ids, by
 // one warp: a group of 8 lanes a row, four rows per warp load, U such loads
 // in flight (U * 4 rows a pass). Each group's first lane writes its row's
@@ -339,23 +380,69 @@ __device__ __forceinline__ void warp_int8_bounds(
           accf[u] = group_partial_deq<L2>(row, scale[u], qs, d, part, vec);
       }
     }
+    int_bounds_out<L2, kQuantQuery, U>(id, scale, sqn, err, accf, acci, j0, cnt,
+                                       qq, slack, g, part, oid, od, odot);
+  }
+}
+
+// The same over a shared-memory copy of the candidates' rows: slot j's code
+// row at rows + j * d and metadata at meta + 3 * j, ids INVALID where a slot
+// holds no candidate, d % 16 == 0 (16 bytes a lane). Each lane's query
+// chunk is loaded once for the U rows, and the rows are read whatever
+// their id (a slot whose id was dropped holds stale bytes; a slot past cnt
+// stands in for the last), so the loads overlap; the sums run in the order
+// group_partial_deq / group_dot_i8 take at vec = 16, so the bits are
+// warp_int8_bounds'.
+template <bool L2, bool kQuantQuery, int U>
+__device__ __forceinline__ void shared_int8_bounds(
+    const int8_t* rows, const float* meta, int d, const int* ids, int cnt,
+    const float* qs, const int8_t* qc, const QueryQuant& qq, float slack,
+    int lane, int* oid, float* od, int* odot) {
+  const int g = lane / GROUP, part = lane % GROUP;
+  constexpr int ROWS = 32 / GROUP;
+  for (int j0 = 0; j0 < cnt; j0 += ROWS * U) {
+    int id[U], js[U];
+    float scale[U], sqn[U], err[U], accf[U];
+    int acci[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = j0 + ROWS * u + g;
-      const int si = kQuantQuery ? group_sum_int(acci[u]) : 0;
-      const float sf = kQuantQuery ? 0.f : group_sum(accf[u]);
-      if (part == 0 && j < cnt) {
-        float dist = INFINITY;
-        if (id[u] != INVALID_ID) {
-          const float d_hat = kQuantQuery ? int8_dhat<L2>(si, scale[u], sqn[u], qq)
-                                          : (L2 ? sf : -sf);
-          dist = lower_bound<L2>(d_hat, err[u], sqn[u], qq, slack);
+      js[u] = min(j, cnt - 1);
+      id[u] = j < cnt ? ids[j] : INVALID_ID;
+      scale[u] = meta[3 * js[u]];
+      sqn[u] = meta[3 * js[u] + 1];
+      err[u] = meta[3 * js[u] + 2];
+      accf[u] = 0.f;
+      acci[u] = 0;
+    }
+    const int4* row16 = reinterpret_cast<const int4*>(rows);
+    const int d16 = d / 16;  // a row's 16-byte chunks
+    for (int c = part; c < d16; c += GROUP) {
+      if (kQuantQuery) {
+        const int4 x = reinterpret_cast<const int4*>(qc)[c];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int4 w = row16[js[u] * d16 + c];
+          acci[u] = __dp4a(w.x, x.x, acci[u]);
+          acci[u] = __dp4a(w.y, x.y, acci[u]);
+          acci[u] = __dp4a(w.z, x.z, acci[u]);
+          acci[u] = __dp4a(w.w, x.w, acci[u]);
         }
-        if (oid) oid[j] = id[u];
-        od[j] = dist;
-        if (odot) odot[j] = si;
+      } else {
+        const float4* q4 = reinterpret_cast<const float4*>(qs + 16 * c);
+        const float4 q0 = q4[0], q1 = q4[1], q2 = q4[2], q3 = q4[3];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int4 w = row16[js[u] * d16 + c];
+          accf[u] = deq_word<L2>(w.x, scale[u], q0, accf[u]);
+          accf[u] = deq_word<L2>(w.y, scale[u], q1, accf[u]);
+          accf[u] = deq_word<L2>(w.z, scale[u], q2, accf[u]);
+          accf[u] = deq_word<L2>(w.w, scale[u], q3, accf[u]);
+        }
       }
     }
+    int_bounds_out<L2, kQuantQuery, U>(id, scale, sqn, err, accf, acci, j0, cnt,
+                                       qq, slack, g, part, oid, od, odot);
   }
 }
 
@@ -432,6 +519,45 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One contiguous span of ``bytes`` (a multiple of 16; both addresses
+// 16-byte aligned) from device memory into shared memory, completing on
+// bar: the 1-D bulk copy, one instruction from one thread.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Four bytes from device memory into shared memory, asynchronously
+// (cp.async): completed by cp_async_wait, or tracked by an mbarrier
+// through cp_async_mbar_arrive.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// bar's current phase completes only after every cp.async this thread has
+// started so far (the pending count is raised by one, then lowered when
+// they land).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // A shared-memory matrix descriptor with the 128-byte swizzle. A K-major

@@ -1,6 +1,6 @@
 // Fused frontier expansion for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/expand/kernel.py
+// Replaces the Pallas TPU kernel src/repro/kernels/expand/kernel.py:49
 // (_expand_kernel, via expand_pallas). It computes what the plain version,
 // src/repro_torch/kernels/expand/ref.py::expand_frontier_ref, computes:
 // for each query and each of its E frontier nodes, gather the node's
@@ -10,35 +10,48 @@
 // the valid adjacency entries before dedup. Invalid or out-of-range
 // frontier entries give all-INVALID rows and count 0.
 //
-// Design: one block per query, one warp per frontier slot e (E warps).
-//   1. each lane reads one adjacency entry at a time into a shared-memory
-//      tile of E*R ids; a ballot counts the valid ones;
-//   2. each thread tests its tile entries against every earlier entry of
-//      the tile (first occurrence wins);
-//   3. for every surviving id the warp reads the row coalesced, 16 bytes a
-//      lane, against the query held in shared memory, and finishes the sum
-//      with a warp shuffle. U rows are in flight at once per warp.
-// Any R and any d work: the vector body covers d when rows are 16-byte
-// aligned, the scalar loop covers the rest (the whole row otherwise).
-//
 // What bounds it: the gathered row bytes. At Q=4096, E=4, R=32, d=128 f32
-// that is at most 4096*128*512 B = 268 MB of row gathers, about 80 us at
-// 3.35 TB/s; the adjacency rows, the query and the outputs are small beside
-// it. Later work: cp.async/TMA gathers to keep more bytes in flight, and
-// keeping the SMs busy past queries whose lanes are frozen (their frontier
-// is all INVALID, so their blocks exit after the adjacency step).
+// the distinct kept rows come to ~190 MB, ~59 us at 3.35 TB/s; adjacency
+// rows, queries and outputs are small beside them. Each row hangs off two
+// dependent reads (frontier -> adjacency row -> row), so the card reaches
+// its bandwidth only with ~100 KB of rows in flight on every SM.
+//
+// Two routes, chosen by ops.py::plan from the shape, dtype and alignment:
+//
+// * `bulk` (expand_bulk.cuh): rows that are whole 16-byte spans on a
+//   16-byte base (d % 4 == 0 f32, d % 8 == 0 bf16), R % 4 == 0. Persistent
+//   one-warp blocks: each prefetches frontier and adjacency rows queries
+//   ahead, deduplicates each tile in one linear pass
+//   before any row is copied, and gathers each kept row with one 1-D bulk
+//   copy into a stage in shared memory, then takes the distances there (16
+//   rows at once, loaded whatever their id, so the loads overlap). A launch
+//   with fewer queries than warps splits each query over up to E warps. A
+//   frozen lane costs its frontier read and its writes; the rows in flight
+//   cost no registers.
+// * `warp`: every other shape. One block per query, one warp per frontier
+//   slot: adjacency row into a shared tile, a first-occurrence dedup
+//   against all earlier entries, then U = 4 rows in flight per warp, read
+//   16 bytes a lane (or element by element when rows are not 16-byte
+//   aligned).
+//
+// Both routes take a row's distance the same way (lane c takes 16-byte
+// chunks c, c + 32, ..., fmaf in element order, then the warp_sum
+// butterfly), the bulk route from the shared-memory copy, so the two give
+// the same bits.
 #include <math.h>
 
 #include "common.cuh"
+#include "expand_bulk.cuh"
 
 namespace {
 
 using namespace repro_torch;
 
-constexpr int U = 4;  // rows in flight per warp
+constexpr int U = 4;  // rows in flight per warp (warp route)
 
-// this lane's share of sum((x - q)^2) (L2) or x.q (ip) over one row
-template <typename T, bool L2>
+// this lane's share of sum((x - q)^2) (L2) or x.q (ip) over one row, from
+// device memory or (kShared) from its shared-memory copy
+template <typename T, bool L2, bool kShared = false>
 __device__ __forceinline__ float row_partial(const T* __restrict__ row,
                                              const float* __restrict__ qs,
                                              int d, int nvec, int lane) {
@@ -46,7 +59,7 @@ __device__ __forceinline__ float row_partial(const T* __restrict__ row,
   float acc = 0.f;
   for (int c = lane; c < nvec; c += 32) {
     float x[V];
-    load16(row + c * V, x);
+    load16<kShared>(row + c * V, x);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const float qv = qs[c * V + k];
@@ -150,6 +163,87 @@ __global__ void expand_kernel(const T* __restrict__ points,
   }
 }
 
+// The bulk route: one warp a block (expand_bulk.cuh).
+template <typename T, bool L2>
+__global__ void __launch_bounds__(32)
+expand_bulk_kernel(const T* __restrict__ points, const int* __restrict__ nbrs,
+                   const int* __restrict__ frontier,
+                   const float* __restrict__ queries, const bulk::Outputs o,
+                   int qn, int n, int split, const __grid_constant__ bulk::Geometry g) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  const int lane = threadIdx.x;
+  const bulk::Warp w(ring_smem, g);
+  w.init(lane);
+  const int d = g.d, r = g.r;
+  constexpr int V = Vec<T>::N;
+  constexpr int UB = V == 4 ? 16 : 8;  // rows summed at once: 64 row values a lane
+  const int nvec = d / V;  // the bulk route takes whole 16-byte chunks only
+  auto body = [&](const bulk::Stage& st, int qi, int e) {
+    const T* rows = reinterpret_cast<const T*>(st.rows);
+    const size_t base = (size_t)qi * g.t + e * r;
+    for (int j0 = 0; j0 < r; j0 += 32) {
+      const int nrow = min(32, r - j0);
+      float mine = INFINITY;  // the distance of row j0 + lane
+      for (int u0 = 0; u0 < nrow; u0 += UB) {
+        // UB rows at once, loaded whatever their id: a slot whose id was
+        // dropped holds stale bytes, and a row past R stands in for the
+        // last; their sums are never written
+        float acc[UB];
+#pragma unroll
+        for (int u = 0; u < UB; ++u) acc[u] = 0.f;
+        for (int c = lane; c < nvec; c += 32) {
+          float qv[V];
+#pragma unroll
+          for (int k = 0; k < V; k += 4) load16<true>(st.q + c * V + k, qv + k);
+#pragma unroll
+          for (int u = 0; u < UB; ++u) {
+            const int j = min(j0 + u0 + u, r - 1);
+            float x[V];
+            load16<true>(rows + (size_t)j * d + c * V, x);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              if (L2) {
+                const float t = x[k] - qv[k];
+                acc[u] = fmaf(t, t, acc[u]);
+              } else {
+                acc[u] = fmaf(x[k], qv[k], acc[u]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < UB; ++u) {
+          const float s = warp_sum(acc[u]);
+          if (lane == u0 + u) mine = L2 ? s : -s;
+        }
+      }
+      const int j = j0 + lane;
+      if (j < r) {
+        const int id = st.ids[j];
+        o.ids[base + j] = id;
+        o.dists[base + j] = id == INVALID_ID ? INFINITY : mine;
+      }
+    }
+  };
+  bulk::expand_warp<false>(w, reinterpret_cast<const unsigned char*>(points),
+                           nullptr, nbrs, frontier, queries, o, qn, n, split, lane,
+                           body);
+}
+
+template <typename T, bool L2>
+int launch_bulk(const void* points, const int* nbrs, const int* frontier,
+                const float* queries, const bulk::Outputs& o, int q, int n,
+                const bulk::Geometry& g, int blocks, int split,
+                cudaStream_t stream) {
+  static int smem_set = 0;
+  auto kernel = expand_bulk_kernel<T, L2>;
+  const cudaError_t e = bulk::allow_smem(kernel, g.total, &smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<blocks, 32, g.total, stream>>>(static_cast<const T*>(points), nbrs,
+                                          frontier, queries, o, q, n, split, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 void launch(const void* points, const int* nbrs, const int* frontier,
             const float* queries, int* out_ids, float* out_dists,
@@ -171,8 +265,8 @@ void launch(const void* points, const int* nbrs, const int* frontier,
 
 extern "C" {
 
-// dtype: 0 = float32 rows, 1 = bfloat16 rows. metric: 1 = l2, 0 = ip.
-// Returns the CUDA error code of the launch (0 on success).
+// The warp route. dtype: 0 = float32 rows, 1 = bfloat16 rows. metric: 1 =
+// l2, 0 = ip. Returns the CUDA error code of the launch (0 on success).
 int expand_launch(const void* points, int dtype, const void* nbrs,
                   const void* frontier, const void* queries, void* out_ids,
                   void* out_dists, void* out_ndist, int q, int n, int d, int r,
@@ -191,6 +285,37 @@ int expand_launch(const void* points, int dtype, const void* nbrs,
     launch<__nv_bfloat16>(points, nb, fr, qs, oi, od, on, q, n, d, r, e, l2,
                           use_vec, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bulk route's dynamic shared memory for one block (ops.py checks its
+// own bulk_smem against it).
+int expand_bulk_smem(int e, int r, int d, int row_bytes, int int8, int stages) {
+  return bulk::geometry(e, r, d, row_bytes, int8 != 0, stages).total;
+}
+
+// The bulk route: ``blocks`` persistent one-warp blocks, ``stages`` ring
+// stages each, ``split`` warps a query (1 <= split <= e). Returns the CUDA
+// error code of the launch (0 on success).
+int expand_bulk_launch(const void* points, int dtype, const void* nbrs,
+                       const void* frontier, const void* queries,
+                       void* out_ids, void* out_dists, void* out_ndist, int q,
+                       int n, int d, int r, int e, int l2, int blocks,
+                       int stages, int split, void* stream) {
+  if (stages < 1 || split < 1 || split > e)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int row_bytes = d * (dtype == 0 ? 4 : 2);
+  const bulk::Geometry g = bulk::geometry(e, r, d, row_bytes, false, stages);
+  const bulk::Outputs o{static_cast<int*>(out_ids), static_cast<float*>(out_dists),
+                        static_cast<int*>(out_ndist), nullptr};
+  const int* nb = static_cast<const int*>(nbrs);
+  const int* fr = static_cast<const int*>(frontier);
+  const float* qs = static_cast<const float*>(queries);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return l2 ? launch_bulk<float, true>(points, nb, fr, qs, o, q, n, g, blocks, split, s)
+              : launch_bulk<float, false>(points, nb, fr, qs, o, q, n, g, blocks, split, s);
+  return l2 ? launch_bulk<__nv_bfloat16, true>(points, nb, fr, qs, o, q, n, g, blocks, split, s)
+            : launch_bulk<__nv_bfloat16, false>(points, nb, fr, qs, o, q, n, g, blocks, split, s);
 }
 
 const char* expand_error_string(int code) {

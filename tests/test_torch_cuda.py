@@ -9,7 +9,9 @@ Tolerance: ids, counts and int32 dots equal; distances ``allclose(rtol=
 1e-5, atol=1e-5)`` for l2, and for ip ``atol = 1e-6 * max|x| * max|q|`` —
 the kernel sums the d terms in another order than PyTorch, and a reordered
 dot product errs in proportion to its terms, not to its value. The two int8
-kernels share their arithmetic and must agree bit for bit.
+kernels share their arithmetic and must agree bit for bit. expand's two
+routes (bulk, warp) take each row's sum in the same order, so their outputs
+must agree bit for bit too; each such case asserts the route it took.
 
 flashattn is held to its plain version with ``allclose(rtol=2e-4,
 atol=2e-4)`` in f32 (the kernel scales q before the product and sums
@@ -290,6 +292,28 @@ def test_rerank_fetch_kernel_matches_ref(cuda_device, metric, p, d):
 
 
 @pytest.mark.cuda
+def test_int8_scales_are_true_divisions_on_the_card(cuda_device):
+    """max|x| / 127 as an IEEE f32 division, as the kernels and the
+    reference divide. (CUDA divides a tensor by a Python scalar as a
+    product with the scalar's rounded reciprocal: 1 ulp off for many rows,
+    and a query code on a .5 boundary then moved, so the plain int8-query
+    form's dots and bounds parted from the kernels' on one query of 512.)"""
+    from repro_torch.core.corpus import quantize_queries
+    from repro_torch.dist.compression import quantize_int8_rows
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(4096, 128, generator=g)
+    amax = x.abs().amax(dim=1).numpy()
+    want = torch.from_numpy(np.maximum(amax, np.float32(1e-12)) / np.float32(127.0))
+    xd = x.to(cuda_device)
+    _, scale, _, _ = quantize_queries(xd)
+    _, scales = quantize_int8_rows(xd)
+    assert torch.equal(scale.cpu(), want) and torch.equal(scales.cpu(), want)
+    codes = torch.from_numpy(np.clip(np.rint(x.numpy() / want.numpy()[:, None]),
+                                     -127, 127))
+    assert torch.equal(quantize_queries(xd)[0].cpu(), codes)
+
+
+@pytest.mark.cuda
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     pts, adj, fr, qs = _expand_inputs(64, 8, 16, 4, 2, cuda_device)
     qc = quantize_corpus(pts)
@@ -347,6 +371,194 @@ def test_int8_engine_kernel_path_matches_plain_path(cuda_device, mode,
     exact = ((eng.points.raw[a.ids[ok].long()]
               - qs[torch.nonzero(ok)[:, 0]]) ** 2).sum(-1)
     assert (exact <= r + 1e-5).all()          # no false positive
+
+
+# ---------------------------------------------------------------------------
+# expand's two routes: bulk (persistent blocks, bulk copies into shared
+# memory, linear dedup) against the plain version and, bit for bit, against
+# the warp route on the same inputs; each call's route asserted
+# ---------------------------------------------------------------------------
+
+def _on_route(fn, want, *args, **kw):
+    """Call ``fn`` (expand_cuda or expand_int8_cuda) and assert that the
+    call launched once, on route ``want``."""
+    before = dict(fn.routes)
+    out = fn(*args, **kw)
+    moved = {r: fn.routes[r] - before[r] for r in before}
+    assert moved == {r: int(r == want) for r in before}, moved
+    return out
+
+
+def _bulk_case(case, dev, d=128, seed=0):
+    """(points f32, adjacency, frontier, queries) of one stress case."""
+    g = torch.Generator().manual_seed(seed)
+    n, r, q, e = 2000, 32, 512, 4
+    if case == "r100":
+        r = 100
+    if case == "one_live":
+        q = 4096
+    elif case == "q400":       # on an H100 at d=128: three warps a query
+        q = 400
+    pts = torch.randn(n, d, generator=g)
+    adj = torch.randint(0, n, (n, r), generator=g, dtype=torch.int32)
+    adj[:, -(r // 4):] = INVALID_ID
+    adj[:, 1] = adj[:, 0]                          # in-row duplicates
+    fr = torch.randint(0, n, (q, e), generator=g, dtype=torch.int32)
+    fr[::8, 3] = INVALID_ID                        # exhausted slots
+    fr[::16, 1] = fr[::16, 0]                      # repeated frontier nodes
+    if case == "frozen":
+        fr[:] = INVALID_ID
+    elif case == "one_live":
+        live = fr[1234].clone()
+        fr[:] = INVALID_ID
+        fr[1234] = live
+    elif case == "duplicates":
+        adj[:] = adj[7]                            # every adjacency row the same
+        adj[:, 1::2] = adj[:, 0::2]
+        fr[: q // 2] = fr[: q // 2, :1]            # E equal frontier nodes
+    elif case == "out_of_range":
+        fr[::3, 0] = n + 3
+        fr[1::3, 2] = -5
+        fr[2::5] = n
+        adj[:, 2] = n + 7
+        adj[:, 3] = -2
+    qs = torch.randn(q, d, generator=g)
+    return [x.to(dev) for x in (pts, adj, fr, qs)]
+
+
+BULK_CASES = ["main", "frozen", "one_live", "duplicates", "out_of_range", "r100",
+              "q400"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("case", BULK_CASES)
+def test_expand_bulk_route_matches_ref_and_warp(cuda_device, metric, case):
+    pts, adj, fr, qs = _bulk_case(case, cuda_device)
+    got = _on_route(expand_cuda, "bulk", pts, adj, fr, qs, metric=metric)
+    warp = _on_route(expand_cuda, "warp", pts, adj, fr, qs, metric=metric,
+                     route="warp")
+    want = expand_frontier_ref(pts, adj, fr, qs, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    _assert_dists(got[1], want[1], _tol(metric, pts, qs))
+    for a, b in zip(got, warp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if case == "frozen":
+        assert (got[0] == INVALID_ID).all() and (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 128), ("float32", 256)])
+def test_expand_bulk_route_bf16_and_two_tower_width(cuda_device, metric, dtype, d):
+    """bf16 rows at d=128 (256-byte rows) and f32 at d=256 (the two-tower
+    graph half's 1 KB rows)."""
+    pts, adj, fr, qs = _bulk_case("main", cuda_device, d=d, seed=5)
+    pts = pts.to(DTYPES[dtype])
+    got = _on_route(expand_cuda, "bulk", pts, adj, fr, qs, metric=metric)
+    warp = _on_route(expand_cuda, "warp", pts, adj, fr, qs, metric=metric,
+                     route="warp")
+    want = expand_frontier_ref(pts, adj, fr, qs, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    _assert_dists(got[1], want[1], _tol(metric, pts, qs))
+    for a, b in zip(got, warp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantize_query", [False, True])
+@pytest.mark.parametrize("d,case", [(128, "main"), (128, "duplicates"),
+                                    (128, "one_live"), (128, "out_of_range"),
+                                    (256, "main"), (128, "r100")])
+def test_expand_int8_bulk_route_matches_ref_and_warp(cuda_device, metric,
+                                                     quantize_query, d, case):
+    """Both forms: ids, n_dist and dots equal to the plain version, bounds
+    within its tolerance; every output bit for bit the warp route's; and
+    gatherdist-int8 bit for bit on the candidates the two share."""
+    pts, adj, fr, qs = _bulk_case(case, cuda_device, d=d, seed=6)
+    qc = quantize_corpus(pts)
+    kw = dict(metric=metric, quantize_query=quantize_query,
+              return_dots=quantize_query)
+    args = (qc.codes, qc.meta, adj, fr, qs)
+    got = _on_route(expand_int8_cuda, "bulk", *args, **kw)
+    warp = _on_route(expand_int8_cuda, "warp", *args, **kw, route="warp")
+    want = expand_frontier_int8_ref(qc, adj, fr, qs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    _assert_dists(got[1], want[1], _tol(metric, pts, qs))
+    if quantize_query:
+        assert torch.equal(got[3], want[3])
+    for a, b in zip(got, warp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ids, dd = got[0], got[1]
+    gd = gatherdist_int8_cuda(qc.codes, qc.meta, ids, qs, metric=metric,
+                              quantize_query=quantize_query)
+    torch.cuda.synchronize()
+    keep = ids != INVALID_ID
+    assert keep.any()
+    assert torch.equal(gd[keep].view(torch.int32), dd[keep].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,r,d", [
+    ("float32", 64, 8, 17),      # rows not a whole number of 16-byte spans
+    ("bfloat16", 64, 8, 20),
+    ("int8", 120, 8, 20),
+    ("float32", 500, 100, 130),
+    ("float32", 64, 5, 32),      # R % 4 != 0: adjacency rows not 16-byte spans
+    ("misaligned", 64, 8, 32),   # a base 4 bytes past a 16-byte boundary
+])
+def test_expand_warp_route_takes_what_bulk_cannot(cuda_device, dtype, n, r, d):
+    pts, adj, fr, qs = _expand_inputs(n, r, d, 6, 3, cuda_device)
+    if dtype == "misaligned":
+        buf = torch.empty(n * d + 1, device=cuda_device)
+        buf[1:] = pts.flatten()
+        pts = buf[1:].view(n, d)
+    if dtype == "int8":
+        qc = quantize_corpus(pts)
+        for quant in (False, True):
+            got = _on_route(expand_int8_cuda, "warp", qc.codes, qc.meta, adj, fr,
+                            qs, quantize_query=quant)
+            want = expand_frontier_int8_ref(qc, adj, fr, qs, quantize_query=quant)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            _assert_dists(got[1], want[1], _tol("l2", pts, qs))
+        with pytest.raises(ValueError):
+            expand_int8_cuda(qc.codes, qc.meta, adj, fr, qs, route="bulk")
+        return
+    if dtype == "bfloat16":
+        pts = pts.to(torch.bfloat16)
+    got = _on_route(expand_cuda, "warp", pts, adj, fr, qs)
+    want = expand_frontier_ref(pts, adj, fr, qs)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    _assert_dists(got[1], want[1], _tol("l2", pts, qs))
+    with pytest.raises(ValueError):
+        expand_cuda(pts, adj, fr, qs, route="bulk")
+
+
+@pytest.mark.cuda
+def test_expand_bulk_route_in_a_cuda_graph(cuda_device):
+    """Replayed from a CUDA graph, as chip_smoke.py times it: the same
+    outputs as the direct call."""
+    pts, adj, fr, qs = _bulk_case("main", cuda_device, seed=9)
+    want = expand_cuda(pts, adj, fr, qs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        expand_cuda(pts, adj, fr, qs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = expand_cuda(pts, adj, fr, qs)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _int_rig(q, n, d, dev, seed=0, dtype=torch.float32):
