@@ -16,9 +16,13 @@ Phases, each printed as it ends:
      shapes of the main path (time, bound, plain version's time): expand
      and gatherdist (f32/bf16), expand-int8 and gatherdist-int8 in both
      arithmetic forms (int32 dots equal; the two kernels bit for bit on
-     shared candidates), rerank_fetch at P in {1, 17, 4096, 65536}; expand
-     and expand-int8 on the route their plan takes (bulk) and on the warp
-     route, bit for bit equal, each timed;
+     shared candidates, on every route of each), rerank_fetch at P in {1,
+     17, 4096, 16384, 24576, 32768, 65536}; expand and expand-int8 on the
+     route their plan takes (bulk) and on the warp route, bit for bit
+     equal, each timed; gatherdist-int8 at random start points and at the
+     main path's 4 shared ones, and rerank_fetch, on both routes (regs and
+     the first kernel, warp), beside an empty kernel on the planned grid
+     (the launch floor);
   4. the radius, chosen the paper's way (sweep + select_radius) on a
      256-query sample, for half the queries to answer empty;
   5. the f32 main path: ``RangeSearchEngine.range(compacted=True)`` on all
@@ -28,8 +32,10 @@ Phases, each printed as it ends:
   6. the int8 main path: ``from_graph(corpus_dtype="int8")`` on the same
      graph and radius, greedy/beam/doubling in the f32-query form and
      greedy in the int8-query form (QPS, AP, AP against f32, mean n_rerank,
-     band size P, launches and routes; no false positive); rerank_fetch at
-     the band the greedy run produced; the expand launches of the greedy
+     band size P, launches and routes, each kernel's redesigned route
+     asserted; no false positive); rerank_fetch at the band the greedy run
+     produced on each route (regs, warp), warm and with L2 flushed before
+     each launch; the expand launches of the greedy
      f32, int8 f32-query and int8 int8-query batches (kept on their
      warm-up runs) replayed in one CUDA graph on each route ([served]:
      sum, mean a launch, count, bound; every launch bit for bit equal on
@@ -92,6 +98,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -126,6 +133,9 @@ FLASH_CASES = [   # tests/test_kernels.py's five: b, hq, hkv, sq, skv, dh, causa
     (2, 2, 1, 33, 65, 64, False, 0, 0.0, 0),
     (1, 6, 3, 128, 128, 64, True, 32, 30.0, 0),
 ]
+PORT_KERNELS = ("expand", "gatherdist", "rerank_fetch", "rangescan", "flash")
+GRAPH_CALLS = 20            # calls a graph when timing kernels of a few us
+TRACE_PAUSE_S = 0.05        # host pause between the trace's start and the traced run
 ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -141,10 +151,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, repeats: int = 5, graph: bool = True) -> float:
-    """Device time of one call: ``fn`` is captured once in a CUDA graph and
-    replayed ``reps`` times between two CUDA events, so the host's launch
-    overhead is not counted; the median over ``repeats`` such runs. With
+def time_ms(fn, reps: int = 20, repeats: int = 5, graph: bool = True,
+            calls: int = 1) -> float:
+    """Device time of one call: ``fn`` is captured ``calls`` times in one
+    CUDA graph and the graph replayed ``reps`` times between two CUDA
+    events, so the host's launch overhead is not counted; the median over
+    ``repeats`` such runs. A kernel of a few microseconds takes ``calls``
+    > 1: one replay a call would time the host's replay rate (the
+    ``[kernel] gatherdist-int8 launch floor`` line times an empty kernel
+    both ways). With
     ``graph=False`` the calls themselves run between the events (for
     plain versions whose launches are few against their device time)."""
     import torch
@@ -169,7 +184,8 @@ def time_ms(fn, reps: int = 20, repeats: int = 5, graph: bool = True) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     times = []
     for _ in range(repeats):
@@ -180,7 +196,39 @@ def time_ms(fn, reps: int = 20, repeats: int = 5, graph: bool = True) -> float:
             graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
+        times.append(a.elapsed_time(b) / (reps * calls))
+    return float(np.median(times))
+
+
+FLUSH_BYTES = 128 * 2**20   # more than the H100's 50 MB L2
+
+
+def cold_ms(fn, flush, reps: int = 20) -> float:
+    """Device time of one call that finds L2 holding none of its inputs:
+    ``fn`` is captured once in a CUDA graph, and each of ``reps`` replays
+    runs between two CUDA events right after a write of ``flush`` (a
+    tensor of FLUSH_BYTES); the median. The write keeps the card busy while
+    the host enqueues the events and the replay, so the host's launch
+    overhead is not counted."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
     return float(np.median(times))
 
 
@@ -295,7 +343,7 @@ def kernel_checks(points, nbrs, queries, gen, dtypes=("float32", "bfloat16"),
                 torch.cuda.synchronize()
                 err = check_close(f"gatherdist {dtype} {metric} S={s}", got,
                                   want, DIST_TOL[dtype])
-                ms = time_ms(lambda: gatherdist_cuda(*args, metric=metric))
+                ms = time_ms(lambda: gatherdist_cuda(*args, metric=metric), calls=GRAPH_CALLS)
                 plain = time_ms(lambda: gatherdist_ref(*args, metric=metric))
                 ok = ids[(ids >= 0) & (ids < n)]
                 n_bytes = (torch.unique(ok).numel() * d * pts.element_size()
@@ -318,15 +366,23 @@ def kernel_checks(points, nbrs, queries, gen, dtypes=("float32", "bfloat16"),
 def int8_kernel_checks(qc, nbrs, queries, gen):
     """expand-int8 and gatherdist-int8 in both forms against their plain
     versions at the main path's shapes (int32 dots equal in the int8-query
-    form), and against each other bit for bit on the candidates they share;
-    rerank_fetch at P in {1, 17, 4096, 65536}. Returns the JSON entries of
-    the form the main path runs by default (f32-query, l2; ``form`` says
-    so), each with the int8-query form's time beside it."""
+    form), and against each other bit for bit on the candidates they share,
+    every route of each; gatherdist-int8 at random start points and at the
+    main path's 4 shared ones, on its planned route and the first kernel
+    (bit for bit equal), beside an empty kernel on its grid; rerank_fetch
+    at P in {1, 17, 4096, 16384, 24576, 32768, 65536} on both routes (regs
+    and warp, which the plan takes below REGS_MIN_PAIRS), on random lanes
+    and lane-major ones (the band's order, timed).
+    Returns the JSON entries of the form the main path runs by default
+    (f32-query, l2; ``form`` says so), each with the int8-query form's
+    times beside it."""
     import torch
+    from repro_torch.kernels._launch import empty_launch
     from repro_torch.kernels.expand import expand_frontier_int8_ref, expand_int8_cuda
     from repro_torch.kernels.gatherdist import gatherdist_int8_cuda, gatherdist_int8_ref
     from repro_torch.kernels.rerank_fetch import fetch_rerank_pairs_ref, rerank_fetch_cuda
     from repro_torch.utils import INVALID_ID
+    gather_ops = sys.modules["repro_torch.kernels.gatherdist.ops"]
     n, d = qc.shape
     r = nbrs.shape[1]
     qn, e = queries.shape[0], 4
@@ -335,10 +391,24 @@ def int8_kernel_checks(qc, nbrs, queries, gen):
     starts = torch.randint(0, n, (qn, 4), generator=gen, device=dev,
                            dtype=torch.int32)
     starts[::5, -1] = INVALID_ID
+    # the main path's start points: engine.start_ids (S,) expanded to (Q, S)
+    # by init_state, made contiguous by gather_dist
+    shared = torch.randint(0, n, (4,), generator=gen, device=dev,
+                           dtype=torch.int32).expand(qn, -1).contiguous()
+    gp = gather_ops.plan(qn, d)
+    def empty():
+        empty_launch(gp.blocks, gp.threads, dev)
+
+    floor = time_ms(empty, calls=GRAPH_CALLS)
+    log(f"[kernel] gatherdist-int8 launch floor: the empty kernel on its grid "
+        f"({gp.blocks} blocks of {gp.threads} threads) ms={floor:.4f} at "
+        f"{GRAPH_CALLS} launches a graph, {time_ms(empty):.4f} at one a graph "
+        f"(the host's replay rate)")
     tol = DIST_TOL["float32"]
     entries = {}
     for quant in (False, True):
         form = "int8-query" if quant else "f32-query"
+        pre = "int8_query_" if quant else ""
         for metric in ("l2", "ip"):
             kw = dict(metric=metric, quantize_query=quant)
             args = (qc.codes, qc.meta, nbrs, frontier, queries)
@@ -357,17 +427,19 @@ def int8_kernel_checks(qc, nbrs, queries, gen):
             if not same_bits(got, warp):
                 raise AssertionError(f"expand-int8 {form} {metric}: the {route} and "
                                      "warp routes differ")
-            # the two int8 kernels on the candidates they share: same bits
-            g = gatherdist_int8_cuda(qc.codes, qc.meta, ids, queries, **kw,
-                                     return_dots=quant)
-            torch.cuda.synchronize()
-            gd = g[0] if quant else g
+            # the two int8 kernels on the candidates they share: same bits,
+            # on each of gatherdist-int8's routes
             keep = ids != INVALID_ID
-            if not torch.equal(gd[keep].view(torch.int32), dd[keep].view(torch.int32)):
-                raise AssertionError(f"{form} {metric}: gatherdist-int8 and "
-                                     "expand-int8 differ on shared candidates")
-            if quant and not torch.equal(g[1][keep], got[3][keep]):
-                raise AssertionError(f"{form} {metric}: the two kernels' dots differ")
+            for g_route in (None, "warp"):
+                g = gatherdist_int8_cuda(qc.codes, qc.meta, ids, queries, **kw,
+                                         return_dots=quant, route=g_route)
+                torch.cuda.synchronize()
+                gd = g[0] if quant else g
+                if not torch.equal(gd[keep].view(torch.int32), dd[keep].view(torch.int32)):
+                    raise AssertionError(f"{form} {metric}: gatherdist-int8 ({g_route or 'planned'} "
+                                         "route) and expand-int8 differ on shared candidates")
+                if quant and not torch.equal(g[1][keep], got[3][keep]):
+                    raise AssertionError(f"{form} {metric}: the two kernels' dots differ")
             ms = time_ms(lambda: expand_int8_cuda(*args, **kw))
             warp_ms = time_ms(lambda: expand_int8_cuda(*args, **kw, route="warp"))
             plain = time_ms(lambda: expand_frontier_int8_ref(
@@ -382,7 +454,7 @@ def int8_kernel_checks(qc, nbrs, queries, gen):
                 f"of the bound), warp route ms={warp_ms:.4f} ({b_ms / warp_ms:.1%}), "
                 f"bitwise equal; plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}, "
                 f"{n_bytes / 1e6:.1f} MB), gathered rows={n_kept}; gatherdist-int8 "
-                f"on the same {n_kept} candidates: bitwise equal")
+                f"on the same {n_kept} candidates, both routes: bitwise equal")
             if (quant, metric) == (False, "l2"):
                 entries["expand_int8"] = dict(
                     name="expand_int8", route="cuda",
@@ -394,61 +466,108 @@ def int8_kernel_checks(qc, nbrs, queries, gen):
             elif metric == "l2":
                 entries["expand_int8"].update(int8_query_ms=ms,
                                               int8_query_warp_ms=warp_ms)
-            # gatherdist-int8 at the start points' shape (S=4)
-            got = gatherdist_int8_cuda(qc.codes, qc.meta, starts, queries, **kw,
-                                       return_dots=quant)
-            want = gatherdist_int8_ref(qc, starts, queries, **kw, return_dots=quant)
-            torch.cuda.synchronize()
-            if quant and not torch.equal(got[1], want[1]):
-                raise AssertionError(f"gatherdist-int8 {form} {metric}: dots differ")
-            err = check_close(f"gatherdist-int8 {form} {metric}",
-                              got[0] if quant else got, want[0] if quant else want,
-                              tol)
-            sargs = (qc.codes, qc.meta, starts, queries)
-            ms = time_ms(lambda: gatherdist_int8_cuda(*sargs, **kw))
-            plain = time_ms(lambda: gatherdist_int8_ref(qc, starts, queries, **kw))
-            ok = starts[(starts >= 0) & (starts < n)]
-            n_bytes = (torch.unique(ok).numel() * (d + 12) + starts.numel() * 8
-                       + queries.numel() * 4)
-            ops = ok.numel() * d * (2 if quant else (4 if metric == "l2" else 3))
-            b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS if quant else F32_FLOPS)
-            log(f"[kernel] gatherdist-int8 {form} {metric} Q={qn} S=4 d={d}: "
-                f"{'dots equal, ' if quant else ''}max_abs_err={err:.3g}, "
-                f"ms={ms:.4f}, plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by})")
-            if (quant, metric) == (False, "l2"):
+            # gatherdist-int8 at the start points' shape (S=4): random starts
+            # (the table's shape) and the main path's 4 shared starts
+            gather = {}
+            for shape, sids in (("random", starts), ("shared", shared)):
+                sargs = (qc.codes, qc.meta, sids, queries)
+                g_route = kernel_route(gatherdist_int8_cuda,
+                                       lambda: gatherdist_int8_cuda(*sargs, **kw))
+                got = gatherdist_int8_cuda(*sargs, **kw, return_dots=quant)
+                old = gatherdist_int8_cuda(*sargs, **kw, return_dots=quant, route="warp")
+                want = gatherdist_int8_ref(qc, sids, queries, **kw, return_dots=quant)
+                torch.cuda.synchronize()
+                got, old, want = [x if quant else (x,) for x in (got, old, want)]
+                if quant and not torch.equal(got[1], want[1]):
+                    raise AssertionError(f"gatherdist-int8 {form} {metric}: dots differ")
+                if not same_bits(got, old):
+                    raise AssertionError(f"gatherdist-int8 {form} {metric} {shape}: the "
+                                         f"{g_route} and warp routes differ")
+                err = check_close(f"gatherdist-int8 {form} {metric} {shape}",
+                                  got[0], want[0], tol)
+                ms = time_ms(lambda: gatherdist_int8_cuda(*sargs, **kw), calls=GRAPH_CALLS)
+                old_ms = ms if g_route == "warp" else time_ms(
+                    lambda: gatherdist_int8_cuda(*sargs, **kw, route="warp"),
+                    calls=GRAPH_CALLS)
+                plain = time_ms(lambda: gatherdist_int8_ref(qc, sids, queries, **kw))
+                ok = sids[(sids >= 0) & (sids < n)]
+                n_bytes = (torch.unique(ok).numel() * (d + 12) + sids.numel() * 8
+                           + queries.numel() * 4)
+                ops = ok.numel() * d * (2 if quant else (4 if metric == "l2" else 3))
+                b_ms, b_by = bound_ms(n_bytes, ops, INT8_OPS if quant else F32_FLOPS)
+                gather[shape] = dict(err=err, ms=ms, old_ms=old_ms, plain=plain,
+                                     b_ms=b_ms, b_by=b_by, route=g_route)
+                log(f"[kernel] gatherdist-int8 {form} {metric} Q={qn} S=4 d={d}, {shape} "
+                    f"starts ({torch.unique(ok).numel()} distinct rows): "
+                    f"{'dots equal, ' if quant else ''}max_abs_err={err:.3g}, route "
+                    f"{g_route}: ms={ms:.4f} ({b_ms / ms:.1%} of the bound), "
+                    f"{'planned' if g_route == 'warp' else f'warp route ms={old_ms:.4f}'}"
+                    f", bitwise equal; floor {floor:.4f}, "
+                    f"plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}, "
+                    f"{n_bytes / 1e6:.2f} MB)")
+            if metric != "l2":
+                continue
+            g, m = gather["random"], gather["shared"]
+            if not quant:
                 entries["gatherdist_int8"] = dict(
                     name="gatherdist_int8", route="cuda",
                     source="src/repro_torch/kernels/gatherdist/csrc/gatherdist_int8.cu",
                     replaces="src/repro/kernels/gatherdist/kernel.py:50",
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None, form=form)
-            elif metric == "l2":
-                entries["gatherdist_int8"]["int8_query_ms"] = ms
+                    max_abs_err=max(g["err"], m["err"]), ms=g["ms"], plain_ms=g["plain"],
+                    bound_ms=g["b_ms"], bound_by=g["b_by"], library_ms=None, form=form,
+                    gather_route=g["route"], floor_ms=floor)
+            entries["gatherdist_int8"].update({
+                f"{pre}ms": g["ms"], f"{pre}main_shape_ms": m["ms"],
+                f"{pre}main_shape_bound_ms": m["b_ms"]})
+            if g["route"] != "warp":
+                entries["gatherdist_int8"].update({
+                    f"{pre}old_route_ms": g["old_ms"],
+                    f"{pre}main_shape_old_route_ms": m["old_ms"]})
+            else:
+                entries["gatherdist_int8"][f"{pre}gather_route"] = "warp"
     raw = qc.raw
-    for p in (1, 17, 4096, 65536):
+    for p in (1, 17, 4096, 16384, 24576, 32768, 65536):
         ids = torch.randint(0, n, (p,), generator=gen, device=dev, dtype=torch.int32)
         lanes = torch.randint(0, qn, (p,), generator=gen, device=dev,
                               dtype=torch.int32)
+        major = torch.sort(lanes).values     # lane-major, as the band arrives
         for metric in ("l2", "ip"):
-            got = rerank_fetch_cuda(raw, queries, ids, lanes, metric=metric)
-            want = fetch_rerank_pairs_ref(raw, queries, ids, lanes, metric)
-            torch.cuda.synchronize()
-            err = check_close(f"rerank_fetch P={p} {metric}", got, want, tol)
-            ms = time_ms(lambda: rerank_fetch_cuda(raw, queries, ids, lanes,
-                                                   metric=metric))
-            log(f"[kernel] rerank_fetch {metric} P={p} d={d}: "
-                f"max_abs_err={err:.3g}, ms={ms:.4f}")
+            f_route = kernel_route(rerank_fetch_cuda, lambda: rerank_fetch_cuda(
+                raw, queries, ids, major, metric=metric))
+            errs, times = {}, {}
+            for order, ln in (("random", lanes), ("lane-major", major)):
+                fargs = (raw, queries, ids, ln)
+                want = fetch_rerank_pairs_ref(*fargs, metric)
+                for route in ("regs", "warp"):
+                    got = rerank_fetch_cuda(*fargs, metric=metric, route=route)
+                    torch.cuda.synchronize()
+                    errs[route] = max(errs.get(route, 0.0), check_close(
+                        f"rerank_fetch P={p} {metric} {order} {route}", got, want, tol))
+            for route in ("regs", "warp"):
+                times[route] = time_ms(lambda: rerank_fetch_cuda(
+                    raw, queries, ids, major, metric=metric, route=route),
+                    calls=GRAPH_CALLS)
+            log(f"[kernel] rerank_fetch {metric} P={p} d={d} (random and lane-major "
+                f"lanes; times lane-major): planned route {f_route}; regs "
+                f"max_abs_err={errs['regs']:.3g}, ms={times['regs']:.4f}; warp "
+                f"max_abs_err={errs['warp']:.3g}, ms={times['warp']:.4f}")
     return entries
 
 
 def rerank_at_band(eng_q, queries, r, cfg, launches: int):
     """rerank_fetch against its plain version on the very pairs one int8
     main-path batch sends it: the band, taken from the rerank-disabled
-    result as the result stage takes it. Returns its JSON entry."""
+    result as the result stage takes it. Each route (the planned one and
+    the other) within tolerance and timed warm (graph replays: the rows sit
+    in L2) and cold (L2 flushed before each launch, in turns), beside an
+    empty kernel on the planned grid.
+    Returns its JSON entry."""
     import torch
     from repro_torch.core import upper_bound_dists
+    from repro_torch.kernels._launch import empty_launch
     from repro_torch.kernels.rerank_fetch import fetch_rerank_pairs_ref, rerank_fetch_cuda
     from repro_torch.utils import INVALID_ID
+    fetch_ops = sys.modules["repro_torch.kernels.rerank_fetch.ops"]
     qc = eng_q.points
     pre = eng_q.range(queries, r, cfg=dataclasses.replace(cfg, rerank=False))
     valid = pre.ids != INVALID_ID
@@ -460,48 +579,113 @@ def rerank_at_band(eng_q, queries, r, cfg, launches: int):
     p = ids.numel()
     if p == 0:
         raise AssertionError("the greedy int8 batch has an empty band")
-    got = rerank_fetch_cuda(qc.raw, queries, ids, lanes)
-    want = fetch_rerank_pairs_ref(qc.raw, queries, ids, lanes)
-    torch.cuda.synchronize()
-    err = check_close("rerank_fetch at the band", got, want, DIST_TOL["float32"])
-    ms = time_ms(lambda: rerank_fetch_cuda(qc.raw, queries, ids, lanes))
-    plain = time_ms(lambda: fetch_rerank_pairs_ref(qc.raw, queries, ids, lanes))
+    args = (qc.raw, queries, ids, lanes)
+    route = kernel_route(rerank_fetch_cuda, lambda: rerank_fetch_cuda(*args))
+    routes = tuple(dict.fromkeys((route, "regs", "warp")))
+    want = fetch_rerank_pairs_ref(*args)
+    errs = {}
+    for rt in routes:
+        got = rerank_fetch_cuda(*args, route=rt)
+        torch.cuda.synchronize()
+        errs[rt] = check_close(f"rerank_fetch at the band, route {rt}", got, want,
+                               DIST_TOL["float32"])
+    warm = {rt: time_ms(lambda: rerank_fetch_cuda(*args, route=rt)) for rt in routes}
+    flush = torch.empty(FLUSH_BYTES // 4, device=qc.raw.device)
+    cold = dict.fromkeys(routes, 0.0)
+    for rt in routes + routes[::-1]:     # in turns: a, b, b, a
+        cold[rt] += cold_ms(lambda: rerank_fetch_cuda(*args, route=rt), flush) / 2
+    del flush
+    blocks, threads = fetch_ops.launch_grid(p, qc.shape[1], route, qc.raw.device)
+    floor = time_ms(lambda: empty_launch(blocks, threads, qc.raw.device),
+                    calls=GRAPH_CALLS)
+    plain = time_ms(lambda: fetch_rerank_pairs_ref(*args))
     d = qc.shape[1]
-    n_bytes = ((torch.unique(ids).numel() + torch.unique(lanes).numel()) * d * 4
-               + p * 12)
+    n_rows = torch.unique(ids).numel()
+    n_bytes = (n_rows + torch.unique(lanes).numel()) * d * 4 + p * 12
     b_ms, b_by = bound_ms(n_bytes, p * d * 3)
-    log(f"[kernel] rerank_fetch l2 at the greedy band P={p} "
-        f"({torch.unique(ids).numel()} distinct rows) d={d}: "
-        f"max_abs_err={err:.3g}, ms={ms:.4f}, plain_ms={plain:.4f}, "
-        f"bound_ms={b_ms:.4f} ({b_by})")
+    runs = torch.unique_consecutive(lanes).numel()
+    log(f"[kernel] rerank_fetch l2 at the greedy band P={p} ({n_rows} distinct rows, "
+        f"{runs} runs of one lane) d={d}: route {route}: max_abs_err={errs[route]:.3g}, "
+        f"ms={warm[route]:.4f} ({b_ms / warm[route]:.1%} of the bound), cold "
+        f"{cold[route]:.4f} ({b_ms / cold[route]:.1%}; L2 flushed before each "
+        f"launch); warp route ms={warm['warp']:.4f}, cold {cold['warp']:.4f}; "
+        f"floor {floor:.4f} ({blocks} blocks of {threads} threads); plain_ms={plain:.4f}, "
+        f"bound_ms={b_ms:.4f} ({b_by}); every pair's row read once: "
+        f"{p * d * 4 / 1e6:.1f} MB, {p * d * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return dict(name="rerank_fetch", route="cuda",
                 source="src/repro_torch/kernels/rerank_fetch/csrc/rerank_fetch.cu",
                 replaces="src/repro/kernels/rerank_fetch/kernel.py:31",
-                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                launches=launches, max_abs_err=errs[route], ms=warm[route],
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                fetch_route=route, old_route_ms=warm["warp"], floor_ms=floor,
+                cold_ms=cold[route], old_route_cold_ms=cold["warp"])
 
 
-def profile_run(fn, wall_s: float, name: str) -> None:
+def trace_launches(rows, names) -> dict:
+    """Launches of each of the port's kernels in a trace, by wrapper name
+    (``names``): a kernel belongs to the longest name its function's name
+    begins with (``gatherdist_int8_regs_kernel`` to ``gatherdist_int8``,
+    ``gatherdist_kernel`` to ``gatherdist``)."""
+    every = set(names) | set(PORT_KERNELS) | {"expand_int8", "gatherdist_int8"}
+    found = dict.fromkeys(names, 0)
+    for e in rows:
+        m = re.search(r"::(\w+)[<(]", e.key) or re.match(r"(\w+)", e.key)
+        fname = m.group(1) if m else ""
+        owner = max((n for n in every if fname.startswith(n + "_")), key=len,
+                    default=None)
+        if owner in found:
+            found[owner] += e.count
+    return found
+
+
+def profile_run(fn, wall_s: float, name: str, kernels=None) -> None:
     """Device time by kernel over one traced run of ``fn``, and the device's
-    busy share of ``wall_s``, the untraced run's wall time."""
+    busy share of ``wall_s``, the untraced run's wall time. ``fn`` runs
+    twice: once while the tracer warms up, then traced after a pause of
+    TRACE_PAUSE_S. A kernel that runs right at the start of a trace (the
+    search's first, gatherdist) was missing from some traces on an H100:
+    with no warm-up in 6 of 7 traced modes, with the warm-up alone in 1 of
+    8. With ``kernels`` (wrapper name to wrapper), the traced run's
+    launch counts must equal the trace's."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
-    # kernel rows only: the CPU-side op rows carry their kernels' time too
+        prof.step()
+        for k in (kernels or {}).values():
+            k.launches = 0
+        time.sleep(TRACE_PAUSE_S)
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    # kernel rows only: the CPU-side op rows carry their kernels' time too,
+    # and the schedule's ProfilerStep* row spans the whole step
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     if not rows:
         raise AssertionError(f"{name}: the profiler recorded no device time")
     total_us = sum(e.self_device_time_total for e in rows)
     log(f"[profile] {name}: device busy {total_us / 1e3:.2f} ms of "
         f"{wall_s * 1e3:.2f} ms wall ({total_us / 1e4 / wall_s:.1f}%), "
         f"{sum(e.count for e in rows)} kernels")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    # the eight largest, then the port's own kernels that are not among them
+    own = [e for e in rows[8:] if any(k in e.key for k in PORT_KERNELS)]
+    for e in rows[:8] + own:
         log(f"[profile] {name}:   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    if kernels:
+        counted = {n: k.launches for n, k in kernels.items()}
+        traced = trace_launches(rows, list(kernels))
+        log(f"[profile] {name}: the port's launches in the trace {traced}, by the "
+            f"wrappers' counts {counted}")
+        if traced != counted:
+            raise AssertionError(f"{name}: the trace holds launches {traced}, the "
+                                 f"wrappers counted {counted}")
 
 
 def _check_shapes(res, qn, cap, name):
@@ -688,14 +872,22 @@ def run_mode(engine, queries, r, cfg, kernels, profile: bool, name, capture=None
     counts = {n: k.launches for n, k in kernels.items()}
     routes = {n: dict(k.routes) for n, k in kernels.items() if hasattr(k, "routes")}
     if profile:
-        profile_run(lambda: engine.range(queries, r, cfg=cfg), dt, name)
+        profile_run(lambda: engine.range(queries, r, cfg=cfg), dt, name, kernels)
     return res, dt, counts, routes
 
 
-def check_bulk(routes: dict, counts: dict, name: str) -> None:
-    """Every expand launch of a served run took the bulk route."""
+SERVED_ROUTES = {"expand": "bulk", "expand_int8": "bulk", "gatherdist_int8": "regs",
+                 "rerank_fetch": "regs"}   # the route each kernel's served launches take
+
+
+def check_routes(routes: dict, counts: dict, name: str, expect=None) -> None:
+    """Every launch of a served run took the kernel's redesigned route
+    (``SERVED_ROUTES``: expand's bulk, gatherdist-int8's regs), or the one
+    ``expect`` names for it (rerank_fetch: its plan's for the band)."""
     for k, by_route in routes.items():
-        if k.startswith("expand") and by_route != {"bulk": counts[k], "warp": 0}:
+        served = (expect or {}).get(k, SERVED_ROUTES[k])
+        want = {rt: counts[k] if rt == served else 0 for rt in by_route}
+        if by_route != want:
             raise AssertionError(f"{name}: {k} routes {by_route} of {counts[k]} launches")
 
 
@@ -992,7 +1184,7 @@ def two_tower_phase(dev, kernels, ap_probes: bool = False, profile: bool = False
     g_routes = dict(expand.routes)
     if min(g_counts["expand"], g_counts["gatherdist"]) == 0:
         raise AssertionError(f"graph engine: launches {g_counts}")
-    check_bulk({"expand": g_routes}, g_counts, "two-tower graph engine")
+    check_routes({"expand": g_routes}, g_counts, "two-tower graph engine")
     lane, slot = _check_shapes(res, n_req, cfg_r.result_cap, "two-tower graph")
     exact = point_dist(items[res.ids[lane, slot].long()], queries[lane], "ip")
     if not (exact <= r + RANGESCAN_TOL).all():
@@ -1388,6 +1580,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    try:
+        import repro_torch  # noqa: F401
+    except ModuleNotFoundError:
+        print(f"chip_smoke: the port's package is not in {ROOT}/src: run this "
+              "script from a checkout of the repo", file=sys.stderr)
+        return 1
     from repro_torch.core import (
         RangeConfig, RangeSearchEngine, SearchConfig, average_precision,
         build_knn_graph, default_grid, exact_range_search, match_histogram,
@@ -1399,6 +1597,7 @@ def main() -> int:
     from repro_torch.kernels.gatherdist import gatherdist_cuda, gatherdist_int8_cuda
     from repro_torch.kernels.rangescan import rangescan_cuda
     from repro_torch.kernels.rerank_fetch import rerank_fetch_cuda
+    fetch_ops = sys.modules["repro_torch.kernels.rerank_fetch.ops"]
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1510,7 +1709,7 @@ def main() -> int:
                                            args.profile, mode, cap)
         if min(counts.values()) == 0:
             raise AssertionError(f"{mode}: a kernel was never launched {counts}")
-        check_bulk(routes, counts, mode)
+        check_routes(routes, counts, mode)
         launches[mode] = counts
         check_result(res, points, queries, r, cfg.result_cap, mode)
         aps[mode] = ap_of(res)
@@ -1546,8 +1745,9 @@ def main() -> int:
             captures[name] = cap
         res, dt, counts, routes = run_mode(engine_q, queries, r, cfg, int8_kernels,
                                            args.profile, f"int8 {name}", cap)
-        check_bulk(routes, counts, f"int8 {name}")
         band = int(res.n_rerank.sum())
+        check_routes(routes, counts, f"int8 {name}",
+                     {"rerank_fetch": fetch_ops.plan(band, points.shape[1])})
         # expand-int8 runs every iteration and gatherdist-int8 seeds every
         # lane; rerank_fetch launches once for a batch with a band, and a
         # batch whose every kept candidate is a sure member launches nothing
@@ -1567,7 +1767,7 @@ def main() -> int:
             f"mean n_visited={float(res.n_visited.float().mean()):.1f}, "
             f"phase-2 share={float(res.phase2.float().mean()):.4f}, "
             f"overflowed lanes={int(res.overflow.sum())}, "
-            f"launches={counts}, expand routes {routes['expand_int8']}, no false "
+            f"launches={counts}, routes {routes}, no false "
             f"positive, results {match_histogram(res.count.cpu().numpy())}")
     entries["rerank_fetch"] = rerank_at_band(
         engine_q, queries, r, q_cfgs["greedy f32-query"],
@@ -1628,7 +1828,12 @@ def main() -> int:
              "local_bound_ms", "local_library_ms", "decode_source", "decode_route",
              "decode_ms", "decode_plain_ms", "decode_bound_ms",
              "decode_bound_by", "decode_library_ms", "decode_local_ms",
-             "decode_local_bound_ms", "decode_local_library_ms")
+             "decode_local_bound_ms", "decode_local_library_ms", "gather_route",
+             "old_route_ms", "floor_ms", "main_shape_ms", "main_shape_old_route_ms",
+             "main_shape_bound_ms", "int8_query_gather_route", "int8_query_old_route_ms",
+             "int8_query_main_shape_ms", "int8_query_main_shape_old_route_ms",
+             "int8_query_main_shape_bound_ms", "fetch_route", "cold_ms",
+             "old_route_cold_ms")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

@@ -1,9 +1,13 @@
-"""Argument checks shared by the CUDA kernel wrappers."""
+"""Argument checks shared by the CUDA kernel wrappers, and the empty
+launch their times are read against."""
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..dist.compression import GUARD_SLACK
+from . import _build
 
 ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # 1 + GUARD_SLACK, the factor every lower-bound site applies; ctypes rounds
@@ -49,3 +53,19 @@ def code_vec(codes: torch.Tensor) -> int:
         if d % vec == 0 and ptr % vec == 0:
             return vec
     return 1
+
+
+def empty_launch(blocks: int, threads: int, device) -> None:
+    """Launch an empty kernel (``empty_launch`` in
+    ``gatherdist/csrc/gatherdist_int8.cu``) on ``blocks`` blocks of
+    ``threads`` threads, on the current stream of ``device``: the launch
+    floor of a route's grid, whichever kernel's. It counts as no launch of
+    any kernel."""
+    lib = _build.load("gatherdist_int8")
+    fn = lib.empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        rc = fn(blocks, threads, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "gatherdist_int8", rc)

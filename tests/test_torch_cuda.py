@@ -10,8 +10,10 @@ Tolerance: ids, counts and int32 dots equal; distances ``allclose(rtol=
 the kernel sums the d terms in another order than PyTorch, and a reordered
 dot product errs in proportion to its terms, not to its value. The two int8
 kernels share their arithmetic and must agree bit for bit. expand's two
-routes (bulk, warp) take each row's sum in the same order, so their outputs
-must agree bit for bit too; each such case asserts the route it took.
+routes (bulk, warp) and gatherdist-int8's (regs, warp) take each row's sum
+in the same order, so their outputs must agree bit for bit too;
+rerank_fetch's routes (regs, warp) sum in different orders and are each
+held to the plain version. Each such case asserts the route it took.
 
 flashattn is held to its plain version with ``allclose(rtol=2e-4,
 atol=2e-4)`` in f32 (the kernel scales q before the product and sums
@@ -28,6 +30,7 @@ cases (unit vectors, ip) are held by ``compare_scans``, which excuses only
 what f32 rounding can explain.
 """
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -51,6 +54,8 @@ from repro_torch.kernels.rerank_fetch import (
     fetch_rerank_dists, fetch_rerank_pairs, fetch_rerank_pairs_ref, rerank_fetch_cuda)
 from repro_torch.utils import INVALID_ID
 
+gather_ops = sys.modules["repro_torch.kernels.gatherdist.ops"]
+rerank_ops = sys.modules["repro_torch.kernels.rerank_fetch.ops"]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -356,11 +361,17 @@ def test_int8_engine_kernel_path_matches_plain_path(cuda_device, mode,
     kernels = (expand_int8_cuda, gatherdist_int8_cuda, rerank_fetch_cuda)
     for k in kernels:
         k.launches = 0
+        k.routes = dict.fromkeys(k.routes, 0)
     a = eng.range(qs, r, cfg=cfg)
     launched = tuple(k.launches for k in kernels)
     # the rerank launches once a batch, when the batch has a band at all
     band = int(a.n_rerank.sum())
     assert min(launched[:2]) > 0 and launched[2] == int(band > 0), launched
+    # every launch on the route its plan names (d = 32: whole 16-byte rows;
+    # a band this small runs rerank_fetch's warp route)
+    planned = ("bulk", "regs", rerank_ops.plan(band, 32))
+    for k, route, count in zip(kernels, planned, launched):
+        assert k.routes == {rt: count if rt == route else 0 for rt in k.routes}, k.routes
     if mode == "greedy":
         assert band > 0
     b = eng.range(qs, r, cfg=plain)
@@ -380,8 +391,8 @@ def test_int8_engine_kernel_path_matches_plain_path(cuda_device, mode,
 # ---------------------------------------------------------------------------
 
 def _on_route(fn, want, *args, **kw):
-    """Call ``fn`` (expand_cuda or expand_int8_cuda) and assert that the
-    call launched once, on route ``want``."""
+    """Call ``fn`` (a kernel wrapper that counts ``.routes``) and assert
+    that the call launched once, on route ``want``."""
     before = dict(fn.routes)
     out = fn(*args, **kw)
     moved = {r: fn.routes[r] - before[r] for r in before}
@@ -976,3 +987,185 @@ def test_lm_kernel_path_matches_plain_path(cuda_device):
     torch.cuda.synchronize()
     torch.testing.assert_close(runs[0], runs[1], rtol=1e-4, atol=1e-4)
     assert torch.equal(runs[0].argmax(-1), runs[1].argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# gatherdist-int8's two routes (regs, the f32-query form at l2: the rows'
+# loads issued before the query is read into registers; warp: the first
+# kernel, every other form) and rerank_fetch's two (regs: persistent
+# blocks, rows in registers; warp: the first kernel): gatherdist-int8's bit
+# for bit equal, rerank_fetch's within tolerance of the plain version; each
+# call's route asserted
+# ---------------------------------------------------------------------------
+
+def _gather_int8_case(n, d, q, s, dev, seed=8):
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.randn(n, d, generator=g).to(dev)
+    qs = torch.randn(q, d, generator=g).to(dev)
+    ids = torch.randint(0, n, (q, s), generator=g, dtype=torch.int32)
+    ids[0, -1] = INVALID_ID
+    ids[-1, 0] = n + 5
+    ids[q // 2, s // 2] = -4
+    return quantize_corpus(pts), ids.to(dev), qs, pts
+
+
+def _gather_route(q, d, metric, quantize_query):
+    """gatherdist-int8's plan for aligned rows, checked against the rule:
+    regs for the f32-query form at l2 (d % 16 == 0, d <= 256), else warp."""
+    route = gather_ops.plan(q, d, metric=metric, quantize_query=quantize_query).route
+    regs = metric == "l2" and not quantize_query and d % 16 == 0 and d <= 256
+    assert route == ("regs" if regs else "warp")
+    return route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantize_query", [False, True])
+@pytest.mark.parametrize("n,d,q,s", [
+    (4000, 128, 64, 4),       # the start points' S at the main path's d
+    (2000, 128, 300, 32),     # the E=1 steps: S = R, four rows a group a pass
+    (500, 256, 9, 33),        # two 16-byte chunks a lane, a ragged last pass
+    (300, 144, 7, 5),         # a ragged second chunk
+    (300, 16, 11, 1),
+])
+def test_gatherdist_int8_regs_route_matches_ref_and_warp(cuda_device, metric,
+                                                         quantize_query, n, d, q, s):
+    qc, ids, qs, pts = _gather_int8_case(n, d, q, s, cuda_device)
+    kw = dict(metric=metric, quantize_query=quantize_query,
+              return_dots=quantize_query)
+    args = (qc.codes, qc.meta, ids, qs)
+    planned = _gather_route(q, d, metric, quantize_query)
+    got = _on_route(gatherdist_int8_cuda, planned, *args, **kw)
+    old = _on_route(gatherdist_int8_cuda, "warp", *args, **kw, route="warp")
+    want = gatherdist_int8_ref(qc, ids, qs, **kw)
+    torch.cuda.synchronize()
+    got, old, want = [x if quantize_query else (x,) for x in (got, old, want)]
+    for a, b in zip(got, old):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    _assert_dists(got[0], want[0], _tol(metric, pts, qs))
+    if quantize_query:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantize_query", [False, True])
+def test_gatherdist_int8_main_path_shape(cuda_device, metric, quantize_query):
+    """4096 queries against the same 4 start ids, as init_state sends them
+    (engine.start_ids expanded, made contiguous by gather_dist)."""
+    g = torch.Generator().manual_seed(9)
+    n, d, qn = 20_000, 128, 4096
+    pts = torch.randn(n, d, generator=g).to(cuda_device)
+    qs = torch.randn(qn, d, generator=g).to(cuda_device)
+    qc = quantize_corpus(pts)
+    ids = torch.randint(0, n, (4,), generator=g, dtype=torch.int32).to(
+        cuda_device).expand(qn, -1).contiguous()
+    kw = dict(metric=metric, quantize_query=quantize_query,
+              return_dots=quantize_query)
+    planned = _gather_route(qn, d, metric, quantize_query)
+    got = _on_route(gatherdist_int8_cuda, planned, qc.codes, qc.meta, ids, qs, **kw)
+    old = _on_route(gatherdist_int8_cuda, "warp", qc.codes, qc.meta, ids, qs, **kw,
+                    route="warp")
+    want = gatherdist_int8_ref(qc, ids, qs, **kw)
+    torch.cuda.synchronize()
+    got, old, want = [x if quantize_query else (x,) for x in (got, old, want)]
+    for a, b in zip(got, old):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    _assert_dists(got[0], want[0], _tol(metric, pts, qs))
+    if quantize_query:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantize_query", [False, True])
+@pytest.mark.parametrize("expand_route", ["bulk", "warp"])
+def test_gatherdist_int8_routes_agree_with_expand_int8_routes(
+        cuda_device, metric, quantize_query, expand_route):
+    """Each route of gatherdist-int8 against each route of expand-int8 on
+    the candidates they share: the same bits, int32 dots too."""
+    pts, adj, fr, qs = _bulk_case("main", cuda_device, seed=10)
+    qc = quantize_corpus(pts)
+    kw = dict(metric=metric, quantize_query=quantize_query,
+              return_dots=quantize_query)
+    ex = _on_route(expand_int8_cuda, expand_route, qc.codes, qc.meta, adj, fr, qs,
+                   **kw, **({"route": "warp"} if expand_route == "warp" else {}))
+    ids, dd = ex[0], ex[1]
+    keep = ids != INVALID_ID
+    assert keep.any()
+    planned = _gather_route(ids.shape[0], qc.shape[1], metric, quantize_query)
+    for route in dict.fromkeys((planned, "warp")):
+        g = _on_route(gatherdist_int8_cuda, route, qc.codes, qc.meta, ids, qs, **kw,
+                      **({"route": "warp"} if route == "warp" else {}))
+        torch.cuda.synchronize()
+        gd = g[0] if quantize_query else g
+        assert torch.equal(gd[keep].view(torch.int32), dd[keep].view(torch.int32))
+        assert torch.isinf(gd[~keep]).all()
+        if quantize_query:
+            assert torch.equal(g[1][keep], ex[3][keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,misaligned", [(120, False), (272, False), (20, False),
+                                          (128, True)])
+def test_gatherdist_int8_warp_route_takes_what_regs_cannot(cuda_device, d, misaligned):
+    qc, ids, qs, pts = _gather_int8_case(300, d, 6, 5, cuda_device)
+    codes = qc.codes
+    if misaligned:  # a base 4 bytes past a 16-byte boundary
+        buf = torch.empty(codes.numel() + 4, dtype=torch.int8, device=cuda_device)
+        buf[4:] = codes.flatten()
+        codes = buf[4:].view(codes.shape)
+    for quant in (False, True):
+        got = _on_route(gatherdist_int8_cuda, "warp", codes, qc.meta, ids, qs,
+                        quantize_query=quant)
+        want = gatherdist_int8_ref(qc, ids, qs, quantize_query=quant)
+        torch.cuda.synchronize()
+        _assert_dists(got, want, _tol("l2", pts, qs))
+    with pytest.raises(ValueError):
+        gatherdist_int8_cuda(codes, qc.meta, ids, qs, route="regs")
+
+
+def _fetch_case(p, d, order, dev, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    n, nq = (100_000 if p > 4096 else 2000), 64
+    raw = torch.randn(n, d, generator=g).to(dev)
+    queries = torch.randn(nq, d, generator=g).to(dev)
+    ids = torch.randint(0, n, (p,), generator=g, dtype=torch.int32)
+    lanes = torch.randint(0, nq, (p,), generator=g, dtype=torch.int32)
+    if order == "lane_major":     # as torch.nonzero gives the band
+        lanes = torch.sort(lanes).values
+    elif order == "one_lane":
+        lanes[:] = 5
+    ids[0] = n + 7                # clipped, as the reference clips
+    if p > 1:
+        ids[1] = -3
+        lanes[-1] = nq + 2        # a lane out of range: clipped too
+    return raw, queries, ids.to(dev), lanes.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("order", ["lane_major", "shuffled", "one_lane"])
+@pytest.mark.parametrize("p", [1, 17, 65536])
+@pytest.mark.parametrize("d", [17, 128, 130])
+def test_rerank_fetch_routes_match_ref(cuda_device, metric, order, p, d):
+    raw, queries, ids, lanes = _fetch_case(p, d, order, cuda_device)
+    args = (raw, queries, ids, lanes)
+    want = fetch_rerank_pairs_ref(*args, metric)
+    tol = _tol(metric, raw, queries)
+    planned = rerank_ops.plan(p, d)
+    assert planned == ("regs" if d == 128 and p >= rerank_ops.REGS_MIN_PAIRS else "warp")
+    got = _on_route(rerank_fetch_cuda, planned, *args, metric=metric)
+    torch.cuda.synchronize()
+    _assert_dists(got, want, tol)
+    if d == 128:      # both routes on the same pairs
+        for route in ("regs", "warp"):
+            out = _on_route(rerank_fetch_cuda, route, *args, metric=metric, route=route)
+            torch.cuda.synchronize()
+            _assert_dists(out, want, tol)
+    else:             # rows the persistent routes cannot take
+        old = _on_route(rerank_fetch_cuda, "warp", *args, metric=metric, route="warp")
+        torch.cuda.synchronize()
+        _assert_dists(old, want, tol)
+        with pytest.raises(ValueError):
+            rerank_fetch_cuda(*args, metric=metric, route="regs")
