@@ -44,6 +44,28 @@ Phases, each printed as it ends:
      rerank-disabled set filtered by the exact distances;
   8. the kernel path against the plain path through the same engines on a
      256-query subset (AP within 0.01), f32 and int8;
+ 11. [tier]: ``from_graph(corpus_dtype="int8", tier=True)`` on the k-NN
+     graph (raw rows in pinned host memory), greedy int8, two calls (cold,
+     warm) at the default cache (n/8 rows) and at a third of the band's
+     distinct rows (evicting): ids, dists, count and n_rerank bit for bit
+     the resident int8 engine's in every call, the same rerank_fetch route;
+     the counters (pairs, rows, hits, misses, MB fetched, evictions), the
+     device bytes against the resident corpus's, QPS against resident;
+ 12. [vamana]: ``build_vamana`` on the card (R=32, beam 64, alpha 1.2,
+     batches up to 1024; the reference's serve CLI settings): build time
+     and its split (search, prune, reverse edges), expand and gatherdist
+     launches and routes, every row checked (no id out of range, no self
+     loop, no duplicate), degrees and the share reachable from the medoid;
+     greedy f32 and int8 on it beside the k-NN graph's QPS and AP, the
+     kernel path against the plain path (AP within 0.01), the guard band;
+ 13. [filtered]: benchmarks/run.py's filtered workload on the Vamana engine
+     (16 labels, 1-2 a point; 128 queries alternating one-label AND and
+     four-label OR; the radius of ~128 mean matches): unfiltered and
+     filtered QPS and AP (against the post-filtered oracle; the gap <=
+     0.01), then the selective lanes on the fallback scan (every lane
+     n_visited == 0, answers equal to the post-filtered oracle as sets up to
+     pairs within 1e-5 of r), its QPS against the walk's, and its
+     rerank_fetch launch and route;
   9. [two_tower], run right after the build so its 43 GB tables find the
      card empty: the two-tower-retrieval model at full width (16 + 16
      fields, vocab 10,485,760, d_embed 64, towers 1024-1024-512-256, both
@@ -82,10 +104,11 @@ Phases, each printed as it ends:
      scaled_dot_product_attention call (and the ratio to it).
 
 The search configuration is the repo's single-shard deployment,
-``EngineDeployConfig`` in src/repro/configs/range_engine.py: 1M points per
-shard, d=128, R=32, l2, beam=64, visit_cap=256, E=4, greedy,
-result_cap=1024, frontier_rounds=2048, 4096-query batches; f32 and its
-production int8 setting. The two-tower phase serves the configuration of
+``EngineDeployConfig()`` (src/repro_torch/configs/range_engine.py, the
+reference's): 1M points per shard, d=128, R=32, l2, beam=64,
+visit_cap=256, E=4, greedy, result_cap=1024, frontier_rounds=2048,
+4096-query batches; f32 and its production int8 setting; the other modes
+and the filtered workload through ``overrides()``. The two-tower phase serves the configuration of
 src/repro_torch/configs/two_tower_retrieval.py with the search settings of
 examples/two_tower_range.py (k=256; beam=32, visit_cap=128, greedy,
 result_cap=512); the LM phase serves src/repro_torch/configs/gemma3_27b.py.
@@ -135,7 +158,7 @@ FLASH_CASES = [   # tests/test_kernels.py's five: b, hq, hkv, sq, skv, dh, causa
 ]
 PORT_KERNELS = ("expand", "gatherdist", "rerank_fetch", "rangescan", "flash")
 GRAPH_CALLS = 20            # calls a graph when timing kernels of a few us
-TRACE_PAUSE_S = 0.05        # host pause between the trace's start and the traced run
+TRACE_PAUSE_S = 0.05        # host pause on each side of the step into the traced run
 ENTRY_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -641,12 +664,15 @@ def trace_launches(rows, names) -> dict:
 def profile_run(fn, wall_s: float, name: str, kernels=None) -> None:
     """Device time by kernel over one traced run of ``fn``, and the device's
     busy share of ``wall_s``, the untraced run's wall time. ``fn`` runs
-    twice: once while the tracer warms up, then traced after a pause of
-    TRACE_PAUSE_S. A kernel that runs right at the start of a trace (the
-    search's first, gatherdist) was missing from some traces on an H100:
-    with no warm-up in 6 of 7 traced modes, with the warm-up alone in 1 of
-    8. With ``kernels`` (wrapper name to wrapper), the traced run's
-    launch counts must equal the trace's."""
+    twice: once while the tracer warms up, then traced, with a pause of
+    TRACE_PAUSE_S on each side of the step between them. A kernel that runs
+    right at the start of a trace (the search's first, gatherdist) was
+    missing from some traces on an H100: with no warm-up in 6 of 7 traced
+    modes, with the warm-up alone in 1 of 8; with the pause after the step
+    alone, the warm-up's last kernels (3 expand-int8 launches and its
+    rerank_fetch) landed in the traced window once. With ``kernels``
+    (wrapper name to wrapper), the traced run's launch counts must equal
+    the trace's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -654,6 +680,7 @@ def profile_run(fn, wall_s: float, name: str, kernels=None) -> None:
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAUSE_S)
         prof.step()
         for k in (kernels or {}).values():
             k.launches = 0
@@ -1563,6 +1590,315 @@ def lm_phase(dev, kernels, profile: bool = False) -> dict:
     return entry
 
 
+def graph_checks(nbrs, start) -> dict:
+    """A built graph's rows on the device: no id out of range, no self
+    loop, no duplicate within a row (fails otherwise); its degrees, and the
+    share of nodes reachable from ``start`` (breadth first)."""
+    import torch
+    from repro_torch.utils import INVALID_ID
+    n = nbrs.shape[0]
+    valid = nbrs != INVALID_ID
+    rows = torch.arange(n, device=nbrs.device)[:, None]
+    srt = torch.sort(nbrs, dim=1).values
+    bad = {"out of range": int((valid & ((nbrs < 0) | (nbrs >= n))).sum()),
+           "self loops": int((nbrs == rows).sum()),
+           "duplicates": int(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] != INVALID_ID)).sum())}
+    if any(bad.values()):
+        raise AssertionError(f"the built graph has bad entries {bad}")
+    seen = torch.zeros(n, dtype=torch.bool, device=nbrs.device)
+    seen[start] = True
+    frontier, depth = start.reshape(1).long(), 0
+    while frontier.numel():
+        nb = nbrs[frontier].flatten()
+        nb = torch.unique(nb[nb != INVALID_ID]).long()
+        frontier = nb[~seen[nb]]
+        seen[frontier] = True
+        depth += 1
+    deg = valid.sum(1)
+    return dict(min=int(deg.min()), mean=float(deg.float().mean()), max=int(deg.max()),
+                reachable=float(seen.float().mean()), depth=depth - 1)
+
+
+def reset_counts(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
+        if hasattr(k, "routes"):
+            k.routes = dict.fromkeys(k.routes, 0)
+
+
+def read_counts(kernels: dict) -> tuple[dict, dict]:
+    return ({n: k.launches for n, k in kernels.items()},
+            {n: dict(k.routes) for n, k in kernels.items() if hasattr(k, "routes")})
+
+
+def vamana_phase(points, queries, r, cfg, q_cfg, ap_of, knn, kernels, profile):
+    """[vamana]: the Vamana graph built on the card (the reference's serve
+    CLI settings: R=32, beam 64, alpha 1.2, batches up to 1024, one pass),
+    its build time and split, its launches, a check of every row, its
+    degrees and reachability; then greedy f32 and int8 on it at the main
+    path's settings beside the k-NN graph's QPS and AP, the kernel path against
+    the plain path and the int8 guard-band contract. Returns (the f32
+    engine, the build's launches)."""
+    import torch
+    from repro_torch.core import BuildConfig, RangeSearchEngine, build_vamana
+    bcfg = BuildConfig(max_degree=32, beam=64, alpha=1.2, insert_batch=1024, metric="l2")
+    build_kernels = {"expand": kernels["expand"], "gatherdist": kernels["gatherdist"]}
+    reset_counts(build_kernels)
+    split: dict = {}
+    t0 = time.perf_counter()
+    graph = build_vamana(points, bcfg, seed=SEED, device=points.device, timings=split)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, routes = read_counts(build_kernels)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"[vamana] the build launched no kernel of {counts}")
+    check_routes(routes, counts, "vamana build")
+    engine = RangeSearchEngine.from_graph(points, graph, metric="l2", n_starts=4,
+                                          device=points.device)
+    g = graph_checks(graph.neighbors, engine.start_ids[0])
+    if profile:    # one full-width insert batch into the built graph, traced
+        from repro_torch.core import insert_batch_step
+        from repro_torch.core.graph import medoid
+        batch = torch.from_numpy(np.random.default_rng(SEED).permutation(
+            points.shape[0])[:bcfg.insert_batch].astype(np.int32)).to(points.device)
+        start = medoid(points)[None]
+        step = lambda: insert_batch_step(points, graph.neighbors, batch, start, bcfg,  # noqa: E731
+                                         bcfg.alpha)
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        profile_run(step, time.perf_counter() - t0, "vamana insert batch", build_kernels)
+    log(f"[vamana] build_vamana n={points.shape[0]} R={bcfg.max_degree} "
+        f"beam={bcfg.beam} alpha={bcfg.alpha} insert_batch={bcfg.insert_batch} "
+        f"seed={SEED} on the card in {dt:.2f} s: search {split['search']:.2f} s, "
+        f"prune {split['prune']:.2f} s, reverse edges {split['reverse']:.2f} s; "
+        f"launches {counts}, routes {routes}")
+    log(f"[vamana] graph: no id out of range, no self loop, no duplicate in a row; "
+        f"degree min {g['min']} mean {g['mean']:.2f} max {g['max']}; reachable from "
+        f"the medoid {g['reachable']:.6f} (depth {g['depth']})")
+    engine_q = RangeSearchEngine.from_graph(points, graph, metric="l2", n_starts=4,
+                                            corpus_dtype="int8", device=points.device)
+    sub = queries[:256]
+    f32_k = {k: kernels[k] for k in ("expand", "gatherdist")}
+    q_k = {k: kernels[k] for k in ("expand_int8", "gatherdist_int8", "rerank_fetch")}
+    for name, eng, c, kern in (("greedy f32", engine, cfg, f32_k),
+                               ("greedy int8 f32-query", engine_q, q_cfg, q_k)):
+        res, wall, cnt, rts = run_mode(eng, queries, r, c, kern, profile, f"vamana {name}")
+        if min(cnt.values()) == 0:
+            raise AssertionError(f"[vamana] {name}: a kernel was never launched {cnt}")
+        check_routes(rts, cnt, f"vamana {name}", {"rerank_fetch": sys.modules[
+            "repro_torch.kernels.rerank_fetch.ops"].plan(int(res.n_rerank.sum()),
+                                                         points.shape[1])})
+        if eng is engine:
+            check_result(res, points, queries, r, c.result_cap, f"vamana {name}")
+        else:
+            check_result_int8(res, points, queries, r, c.result_cap, f"vamana {name}")
+        ap = ap_of(res)
+        plain = dataclasses.replace(c, search=dataclasses.replace(c.search, use_kernels=False))
+        ap_k, ap_p = ap_of(eng.range(sub, r, cfg=c), 256), ap_of(eng.range(sub, r, cfg=plain), 256)
+        if abs(ap_k - ap_p) > 0.01:
+            raise AssertionError(f"[vamana] {name}: kernel and plain AP differ by "
+                                 f"{abs(ap_k - ap_p):.4f}")
+        log(f"[vamana] {name}: QPS={N_QUERIES / wall:.1f} ({wall * 1e3:.1f} ms), "
+            f"AP={ap:.4f} (the k-NN graph's in this call: QPS={knn[name][1]:.1f}, "
+            f"AP={knn[name][0]:.4f}), mean "
+            f"n_visited={float(res.n_visited.float().mean()):.1f}, mean n_dist="
+            f"{float(res.n_dist.float().mean()):.1f}, phase-2 share="
+            f"{float(res.phase2.float().mean()):.4f}, overflowed lanes="
+            f"{int(res.overflow.sum())}, launches={cnt}, routes {rts}; on 256 queries "
+            f"AP kernel={ap_k:.4f} plain={ap_p:.4f}")
+        if eng is engine_q:
+            n_ok, n_tie = check_guard_band(engine_q, points, sub, r, c, f"vamana {name}")
+            log(f"[guard] vamana int8 {name} on 256 queries: post-rerank set == "
+                f"rerank-disabled set filtered by the exact distances on {n_ok} lanes; "
+                f"{n_tie} pairs within 1e-6 of r")
+    del engine_q
+    return engine, counts
+
+
+FILTER_LABELS = 16          # benchmarks/run.py's filtered row: 16 labels, 1-2 a point
+FILTER_QUERIES = 128
+FILTER_SEED = 17
+MAX_FILTERED_AP_GAP = 0.01  # benchmarks/run.py's gate
+
+
+def filtered_phase(engine, points, queries, prof, deploy, fetch_kernel):
+    """[filtered]: the reference benchmark's filtered workload
+    (benchmarks/run.py:420-505) at full size on the Vamana engine: 16
+    labels, 1-2 a point (seed 17, drawn as one vectorized pair a point:
+    the same distribution as the reference's per-point draws, another
+    sequence); 128 queries whose lanes alternate one-label AND (~9 % of the
+    corpus) and four-label OR (~35 %); the radius whose mean match count on
+    the sweep sample is nearest 128. Unfiltered and filtered QPS and AP (the
+    latter against the post-filtered oracle; gap <= 0.01); then the
+    selective lanes again with filter_threshold at 1.5x their largest
+    selectivity: every lane on the fallback scan (n_visited == 0), its
+    answers equal to the post-filtered oracle as sets but for pairs within
+    1e-5 relative of r. Returns the fallback run's rerank_fetch launches."""
+    import torch
+    from repro_torch.core import (
+        average_precision, exact_range_search, label_match_counts, labels_match,
+        make_label_filter, pack_labels, point_dist)
+    from repro_torch.utils import INVALID_ID
+    dev = points.device
+    n = points.shape[0]
+    rng = np.random.default_rng(FILTER_SEED)
+    k = rng.integers(1, 3, n)
+    first = rng.integers(0, FILTER_LABELS, n)
+    second = (first + rng.integers(1, FILTER_LABELS, n)) % FILTER_LABELS
+    member = np.zeros((n, FILTER_LABELS), bool)
+    member[np.arange(n), first] = True
+    member[np.arange(n)[k == 2], second[k == 2]] = True
+    eng = dataclasses.replace(engine, labels=torch.from_numpy(
+        pack_labels(member, FILTER_LABELS).view(np.int32)).to(dev))
+    qs = queries[:FILTER_QUERIES]
+    entries = [[q % FILTER_LABELS] if q % 2 == 0
+               else [(q + j) % FILTER_LABELS for j in range(4)] for q in range(FILTER_QUERIES)]
+    modes = ["and" if q % 2 == 0 else "or" for q in range(FILTER_QUERIES)]
+    filt = make_label_filter(entries, FILTER_LABELS, modes=modes)
+    mean_counts = prof.counts.mean(axis=0)
+    r = float(prof.radii[int(np.argmin(np.abs(mean_counts - 128.0)))])
+    cfg = deploy.overrides(beam=32, max_beam=32, visit_cap=128).range_cfg
+    gt_ids, gt_d, gt_counts = exact_range_search(points, qs, r, cap=16384, device=dev)
+    if int(gt_counts.max()) > gt_ids.shape[1]:
+        raise AssertionError("[filtered] the oracle's cap is below a lane's count")
+    valid = gt_ids != INVALID_ID
+    ok = valid & labels_match(eng.labels[torch.where(valid, gt_ids, 0).long()],
+                              filt.masks.to(dev)[:, None, :], filt.is_and.to(dev)[:, None])
+    order = torch.sort((~ok).to(torch.int8), dim=1, stable=True).indices
+    gt_f = torch.gather(torch.where(ok, gt_ids, INVALID_ID), 1, order).cpu().numpy()
+    gt_f_counts = ok.sum(1).cpu().numpy()
+    gt_np, gt_counts_np = gt_ids.cpu().numpy(), gt_counts.cpu().numpy()
+    sel_frac = label_match_counts(eng.labels, filt).cpu().numpy() / n
+
+    def timed(q, c, f=None):
+        eng.range(q, r, cfg=c, filter=f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.range(q, r, cfg=c, filter=f)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    res_u, t_u = timed(qs, cfg)
+    res_f, t_f = timed(qs, cfg, filt)
+    ap_u = average_precision(gt_np, gt_counts_np, res_u.ids.cpu().numpy(),
+                             res_u.count.cpu().numpy())
+    ap_f = average_precision(gt_f, gt_f_counts, res_f.ids.cpu().numpy(),
+                             res_f.count.cpu().numpy())
+    log(f"[filtered] {FILTER_QUERIES} queries, r={r:.6g} (mean matches "
+        f"{float(gt_counts.float().mean()):.1f}, filtered {gt_f_counts.mean():.1f}); "
+        f"selectivity AND lanes {sel_frac[::2].mean():.4f}, OR lanes "
+        f"{sel_frac[1::2].mean():.4f}: unfiltered QPS={FILTER_QUERIES / t_u:.1f} "
+        f"AP={ap_u:.4f}; filtered QPS={FILTER_QUERIES / t_f:.1f} AP={ap_f:.4f} "
+        f"(post-filtered oracle), gap {ap_u - ap_f:+.4f} (limit {MAX_FILTERED_AP_GAP})")
+    if ap_u - ap_f > MAX_FILTERED_AP_GAP:
+        raise AssertionError(f"[filtered] filtered AP trails unfiltered by {ap_u - ap_f:.4f}")
+
+    sel = np.arange(0, FILTER_QUERIES, 2)
+    qs_sel = qs[torch.from_numpy(sel).to(dev)]
+    filt_sel = make_label_filter([entries[i] for i in sel], FILTER_LABELS, modes="and")
+    thr = min(0.999, float(sel_frac[::2].max()) * 1.5)
+    res_w, t_w = timed(qs_sel, cfg, filt_sel)
+    fb_cfg = dataclasses.replace(cfg, filter_threshold=thr)
+    eng.range(qs_sel, r, cfg=fb_cfg, filter=filt_sel)
+    torch.cuda.synchronize()
+    reset_counts({"rerank_fetch": fetch_kernel})
+    t0 = time.perf_counter()
+    res_fb = eng.range(qs_sel, r, cfg=fb_cfg, filter=filt_sel)
+    torch.cuda.synchronize()
+    t_fb = time.perf_counter() - t0
+    launches, routes = read_counts({"rerank_fetch": fetch_kernel})
+    if not bool((res_fb.n_visited == 0).all()) or launches["rerank_fetch"] != 1:
+        raise AssertionError(f"[filtered] fallback: n_visited "
+                             f"{res_fb.n_visited.tolist()}, launches {launches}")
+    excused, pairs = 0, int(res_fb.n_dist.sum())
+    ids_fb = res_fb.ids.cpu().numpy()
+    for j, lane in enumerate(sel):
+        got = set(ids_fb[j][ids_fb[j] != INVALID_ID].tolist())
+        want = set(gt_f[lane][:gt_f_counts[lane]].tolist())
+        for i in got ^ want:
+            d = float(point_dist(points[i], qs[lane], "l2"))
+            if abs(d - r) > 1e-5 * abs(r):
+                raise AssertionError(f"[filtered] fallback lane {lane}: id {i} at "
+                                     f"{d:.8g} against r={r:.8g}")
+            excused += 1
+    log(f"[filtered] fallback on the {sel.size} selective lanes, filter_threshold="
+        f"{thr:.4f}: every lane n_visited == 0, answers equal to the post-filtered "
+        f"oracle as sets on every lane ({excused} pairs within 1e-5 of r excused); "
+        f"QPS={sel.size / t_fb:.1f} against the walk's {sel.size / t_w:.1f} on the same "
+        f"lanes ({t_w / t_fb:.2f}x); {pairs} exact pairs in {launches['rerank_fetch']} "
+        f"rerank_fetch launch, route {[k for k, v in routes['rerank_fetch'].items() if v]}")
+    return launches["rerank_fetch"]
+
+
+def tier_phase(engine_q, points, graph, queries, r, q_cfg, fetch_kernel):
+    """[tier]: ``from_graph(corpus_dtype="int8", tier=True)`` on the same
+    graph under the greedy int8 setting, 4096 queries, two calls (cold, then
+    warm), at the default cache (n/8 rows) and at a cache of a third of the
+    greedy band's distinct rows (so that it evicts): ids, dists, count and
+    n_rerank equal to the resident int8 engine's bit for bit in every call,
+    each rerank on the resident call's route. Returns the tier's
+    rerank_fetch launches."""
+    import torch
+    from repro_torch.core import RangeSearchEngine
+    before = dict(fetch_kernel.routes)
+    want = engine_q.range(queries, r, cfg=q_cfg)
+    torch.cuda.synchronize()
+    resident_route = {k: fetch_kernel.routes[k] - before[k] for k in before}
+    t0 = time.perf_counter()
+    engine_q.range(queries, r, cfg=q_cfg)
+    torch.cuda.synchronize()
+    t_res = time.perf_counter() - t0
+    resident = engine_q.points
+    res_bytes = sum(t.numel() * t.element_size() for t in (resident.codes, resident.meta,
+                                                           resident.raw))
+    launches, band_rows = 0, None
+    for small in (False, True):
+        # the second tier's cache holds a third of the band's distinct rows
+        mb = band_rows * points.shape[1] * 4 / 3 / 2**20 if small else None
+        label = f"resident_mb={mb:.2f}" if small else "default cache (n/8 rows)"
+        t0 = time.perf_counter()
+        eng_t = RangeSearchEngine.from_graph(points, graph, metric="l2", n_starts=4,
+                                             corpus_dtype="int8", tier=True,
+                                             resident_mb=mb, device=points.device)
+        torch.cuda.synchronize()
+        t_make = time.perf_counter() - t0
+        tier = eng_t.points
+        for call in ("cold", "warm"):
+            before = dict(fetch_kernel.routes)
+            t0 = time.perf_counter()
+            got = eng_t.range(queries, r, cfg=q_cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            moved = {k: fetch_kernel.routes[k] - before[k] for k in before}
+            launches += sum(moved.values())
+            if moved != resident_route:
+                raise AssertionError(f"[tier] {label} {call}: rerank routes {moved}, "
+                                     f"the resident call's {resident_route}")
+            for f in ("ids", "dists", "count", "n_rerank"):
+                if not torch.equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"[tier] {label} {call}: {f} differs from the "
+                                         "resident int8 engine's")
+            c = tier.counters.as_dict()
+            band_rows = band_rows or c["unique_rows"]
+            log(f"[tier] {label} {call}: ids, dists, count, n_rerank bit for bit the "
+                f"resident engine's; QPS={N_QUERIES / dt:.1f} against resident "
+                f"{N_QUERIES / t_res:.1f}; rerank route {moved}; counters so far: "
+                f"pairs {c['pairs']}, unique rows {c['unique_rows']}, hits "
+                f"{c['cache_hits']}, misses {c['cache_misses']}, fetched "
+                f"{c['fetched_bytes'] / 1e6:.1f} MB in {c['fetch_batches']} buckets, "
+                f"evictions {c['cache_evictions']}")
+        b = tier.budget()
+        log(f"[tier] {label}: made in {t_make:.2f} s; cache {tier.cache.capacity} rows; "
+            f"device {b.device_total / 1e6:.1f} MB ({b.device}) against the resident "
+            f"corpus's {res_bytes / 1e6:.1f} MB; host store {b.host_total / 1e6:.1f} MB "
+            f"(pinned {tier.store.pinned})")
+        if mb is not None and tier.counters.cache_evictions == 0:
+            raise AssertionError("[tier] the small cache never evicted")
+        del eng_t, tier
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
@@ -1586,10 +1922,10 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not in {ROOT}/src: run this "
               "script from a checkout of the repo", file=sys.stderr)
         return 1
+    from repro_torch.configs.range_engine import EngineDeployConfig
     from repro_torch.core import (
-        RangeConfig, RangeSearchEngine, SearchConfig, average_precision,
-        build_knn_graph, default_grid, exact_range_search, match_histogram,
-        quantize_corpus, select_radius, sweep)
+        RangeSearchEngine, average_precision, build_knn_graph, default_grid,
+        exact_range_search, match_histogram, quantize_corpus, select_radius, sweep)
     from repro_torch.data import make_corpus
     from repro_torch.kernels import _build
     from repro_torch.kernels.expand import expand_cuda, expand_int8_cuda
@@ -1688,18 +2024,12 @@ def main() -> int:
     # -- 5. the f32 main path ------------------------------------------------
     engine = RangeSearchEngine.from_graph(points, graph, metric="l2",
                                           n_starts=4, device=dev)
-    search = SearchConfig(beam=64, max_beam=64, visit_cap=256, expand_width=4)
-    cfgs = {
-        "greedy": RangeConfig(search=search, mode="greedy",
-                              result_cap=args.result_cap, frontier_rounds=2048),
-        "beam": RangeConfig(search=search, mode="beam", result_cap=args.result_cap),
-        "doubling": RangeConfig(search=SearchConfig(
-            beam=64, max_beam=256, visit_cap=256, expand_width=4),
-            mode="doubling", result_cap=args.result_cap),
-    }
+    deploy = EngineDeployConfig().overrides(result_cap=args.result_cap)
+    cfgs = {"greedy": deploy.range_cfg,
+            "beam": deploy.overrides(mode="beam").range_cfg,
+            "doubling": deploy.overrides(mode="doubling", max_beam=256).range_cfg}
     f32_kernels = {"expand": expand_cuda, "gatherdist": gatherdist_cuda}
-    launches = {}
-    aps = {}
+    launches, aps, qps = {}, {}, {}
     captures = {}   # the expand launches of the greedy batches, for the replay
     for mode, cfg in cfgs.items():
         cap = ExpandCapture() if mode == "greedy" else None
@@ -1713,6 +2043,7 @@ def main() -> int:
         launches[mode] = counts
         check_result(res, points, queries, r, cfg.result_cap, mode)
         aps[mode] = ap_of(res)
+        qps[mode] = N_QUERIES / dt
         log(f"[main] {mode}: QPS={N_QUERIES / dt:.1f} ({dt * 1e3:.1f} ms for "
             f"{N_QUERIES} queries), AP={aps[mode]:.4f}, "
             f"mean n_visited={float(res.n_visited.float().mean()):.1f}, "
@@ -1734,11 +2065,12 @@ def main() -> int:
     int8_kernels = {"expand_int8": expand_int8_cuda,
                     "gatherdist_int8": gatherdist_int8_cuda,
                     "rerank_fetch": rerank_fetch_cuda}
-    q_cfgs = {f"{m} f32-query": c for m, c in cfgs.items()}
-    q_cfgs["greedy int8-query"] = dataclasses.replace(
-        q_cfgs["greedy f32-query"], search=dataclasses.replace(
-            q_cfgs["greedy f32-query"].search, use_expand_kernel=True))
-    q_launches = {}
+    deploy_q = deploy.overrides(corpus_dtype="int8")
+    q_cfgs = {"greedy f32-query": deploy_q.range_cfg,
+              "beam f32-query": deploy_q.overrides(mode="beam").range_cfg,
+              "doubling f32-query": deploy_q.overrides(mode="doubling", max_beam=256).range_cfg,
+              "greedy int8-query": deploy_q.overrides(use_expand_kernel=True).range_cfg}
+    q_launches, q_aps = {}, {}
     for name, cfg in q_cfgs.items():
         cap = ExpandCapture() if name.startswith("greedy") else None
         if cap:
@@ -1758,7 +2090,8 @@ def main() -> int:
                                  f"of {band} pairs")
         q_launches[name] = counts
         check_result_int8(res, points, queries, r, cfg.result_cap, f"int8 {name}")
-        ap = ap_of(res)
+        ap = q_aps[name] = ap_of(res)
+        qps[f"int8 {name}"] = N_QUERIES / dt
         f32_ap = aps[name.split()[0]]
         log(f"[main] int8 {name}: QPS={N_QUERIES / dt:.1f} ({dt * 1e3:.1f} ms for "
             f"{N_QUERIES} queries), AP={ap:.4f} (f32 {f32_ap:.4f}, gap "
@@ -1810,8 +2143,31 @@ def main() -> int:
             raise AssertionError(f"{name}: kernel and plain AP differ by "
                                  f"{abs(ap_k - ap_p):.4f}")
 
+    # -- 11. the tiered corpus on the k-NN graph against the resident one ----
+    tier_launches = tier_phase(engine_q, points, graph, queries, r,
+                               q_cfgs["greedy f32-query"], rerank_fetch_cuda)
+    knn = {"greedy f32": (aps["greedy"], qps["greedy"]),
+           "greedy int8 f32-query": (q_aps["greedy f32-query"],
+                                     qps["int8 greedy f32-query"])}
+    del engine, engine_q
+    torch.cuda.empty_cache()
+
+    # -- 12. the Vamana graph built on the card, and searched ----------------
+    kernels = {**f32_kernels, **int8_kernels}
+    engine_v, build_launches = vamana_phase(
+        points, queries, r, cfgs["greedy"], q_cfgs["greedy f32-query"], ap_of, knn,
+        kernels, args.profile)
+
+    # -- 13. filtered range search on the Vamana graph -------------------------
+    fallback_launches = filtered_phase(engine_v, points, queries, prof, deploy,
+                                       rerank_fetch_cuda)
+    del engine_v
+
     for name in ("expand", "gatherdist"):
         entries[name]["launches"] = launches["greedy"][name]
+        entries[name]["build_launches"] = build_launches[name]
+    entries["rerank_fetch"]["fallback_launches"] = fallback_launches
+    entries["rerank_fetch"]["tier_launches"] = tier_launches
     for name in ("expand_int8", "gatherdist_int8"):
         entries[name]["launches"] = q_launches["greedy f32-query"][name]
     entries["rangescan"] = tt_entry
@@ -1833,7 +2189,7 @@ def main() -> int:
              "main_shape_bound_ms", "int8_query_gather_route", "int8_query_old_route_ms",
              "int8_query_main_shape_ms", "int8_query_main_shape_old_route_ms",
              "int8_query_main_shape_bound_ms", "fetch_route", "cold_ms",
-             "old_route_cold_ms")
+             "old_route_cold_ms", "build_launches", "fallback_launches", "tier_launches")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

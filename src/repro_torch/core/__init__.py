@@ -11,7 +11,7 @@ from .beam_search import (
     broadcast_radius,
     topk_from_state,
 )
-from .build import build_knn_graph
+from .build import BuildConfig, build_knn_graph, build_vamana, insert_batch_step, robust_prune
 from .corpus import (
     CORPUS_DTYPES,
     META_BYTES,
@@ -22,6 +22,7 @@ from .corpus import (
     corpus_dtype_name,
     corpus_raw,
     corpus_size,
+    hot_arm,
     lower_bound_dists,
     quantize_corpus,
     quantize_rows,
@@ -32,13 +33,26 @@ from .corpus import (
 from .distances import gather_dist, pairwise_dist, point_dist
 from .engine import RangeSearchEngine
 from .graph import Graph, medoid, start_points
+from .labels import (
+    LabelFilter,
+    all_pass_filter,
+    label_match_counts,
+    label_match_matrix,
+    labels_match,
+    make_label_filter,
+    make_mask,
+    num_label_words,
+    pack_labels,
+)
 from .ground_truth import exact_range_search, exact_topk, range_counts_at
 from .metrics import average_precision, recall_at_k, zero_result_accuracy
 from .radius import RadiusProfile, default_grid, match_histogram, select_radius, sweep
 from .range_search import (
+    ENTRY_SEED_FRAC,
     GreedyState,
     RangeConfig,
     RangeResult,
+    filter_labeled,
     filter_tombstoned,
     finalize_results,
     greedy_search,

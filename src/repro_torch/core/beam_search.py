@@ -43,7 +43,7 @@ from .bitset import (
     bitset_num_words,
     first_slot_occurrence,
 )
-from .corpus import corpus_size
+from .corpus import CORPUS_DTYPES, corpus_size
 from .distances import gather_dist
 from .graph import Graph
 
@@ -79,6 +79,10 @@ class SearchConfig:
     # False runs their plain PyTorch versions on the same device, for checks
     # and timing
     use_kernels: bool = True
+    # declared corpus storage dtype: "float32" | "bfloat16" | "int8". The
+    # search dispatches on the corpus value (tensor or QuantizedCorpus); this
+    # is what deploy configs and engine constructors consult to make the corpus
+    corpus_dtype: str = "float32"
 
     def __post_init__(self):
         if self.beam < 1 or self.max_beam < self.beam:
@@ -89,6 +93,8 @@ class SearchConfig:
             raise ValueError("expand_width must be >= 1")
         if self.bitset_cap_bits < 32:
             raise ValueError("bitset_cap_bits must be >= 32")
+        if self.corpus_dtype not in CORPUS_DTYPES:
+            raise ValueError(f"corpus_dtype must be one of {CORPUS_DTYPES}")
 
     @property
     def eff_expand_width(self) -> int:

@@ -111,22 +111,31 @@ def corpus_cast(points: torch.Tensor, corpus_dtype: str) -> Corpus:
     return points.to(_STORAGE[corpus_dtype]).contiguous()
 
 
+def hot_arm(points):
+    """What the search loop reads: a ``TieredCorpus``'s device arm (duck
+    typed on its ``is_tiered`` marker; core never imports ``tier``), else
+    the corpus itself."""
+    return points.device if getattr(points, "is_tiered", False) else points
+
+
 def corpus_dtype_name(points: Corpus) -> str:
+    points = hot_arm(points)
     if isinstance(points, QuantizedCorpus):
         return "int8"
     return str(points.dtype).removeprefix("torch.")
 
 
 def corpus_size(points: Corpus) -> int:
-    return points.shape[0]
+    return hot_arm(points).shape[0]
 
 
 def corpus_dim(points: Corpus) -> int:
-    return points.shape[-1]
+    return hot_arm(points).shape[-1]
 
 
 def bytes_per_vector(points: Corpus) -> int:
     """Bytes the search loop gathers per distance."""
+    points = hot_arm(points)
     if isinstance(points, QuantizedCorpus):
         return corpus_dim(points) + META_BYTES
     return corpus_dim(points) * points.element_size()

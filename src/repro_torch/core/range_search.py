@@ -12,12 +12,17 @@ Three modes, matching the paper:
 batch, phase 2 only over the lanes that need it. ``range_search_fused``
 runs phase 2 masked over every lane instead. Both take an f32/bf16 corpus
 or an int8 ``QuantizedCorpus``; the latter searches on certified lower
-bounds and ends in the guard-band rerank. Labels and the resumable
-``greedy_*_batch`` API are later slices (ROADMAP.md §1, item 4).
+bounds and ends in the guard-band rerank. A ``TieredCorpus`` (``tier``)
+walks on its device arm and serves the rerank's exact rows from host
+memory. Label predicates gate the result stage; on the compacted path a
+lane whose predicate is selective enough skips the graph and scans its
+posting list exactly. The resumable ``greedy_*_batch`` API is a later
+slice (ROADMAP.md §1, item 2).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,12 +48,14 @@ from .bitset import (
     bitset_num_words,
     first_slot_occurrence,
 )
-from .corpus import QuantizedCorpus, corpus_size, upper_bound_dists
+from .corpus import QuantizedCorpus, corpus_raw, corpus_size, hot_arm, upper_bound_dists
 from .distances import gather_dist
 from .graph import Graph
+from .labels import LabelFilter, as_label_rows, label_match_counts, labels_match
 
-_LATER = ("is not ported yet: labels and the resumable greedy API are later "
-          "slices of the port (ROADMAP.md §1)")
+_LATER = ("is not ported yet: the resumable greedy API comes with serving, a "
+          "later slice of the port (ROADMAP.md §1, item 2: resumable greedy "
+          "API and serving)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,12 +70,18 @@ class RangeConfig:
     # int8 corpus: exact-rerank the guard band after the approximate search
     # (the corpus must carry raw rows). False keeps the certified superset.
     rerank: bool = True
+    # filtered search: a lane whose predicate matches fewer than this
+    # fraction of the corpus scans its posting list exactly instead of
+    # walking (compacted path only; 0 disables the fallback)
+    filter_threshold: float = 0.0
 
     def __post_init__(self):
         if self.mode not in ("beam", "doubling", "greedy"):
             raise ValueError(f"bad mode {self.mode!r}")
         if self.mode == "doubling" and self.search.max_beam <= self.search.beam:
             raise ValueError("doubling mode needs search.max_beam > search.beam")
+        if not 0.0 <= self.filter_threshold <= 1.0:
+            raise ValueError("filter_threshold must be in [0, 1]")
 
 
 @dataclasses.dataclass
@@ -313,8 +326,9 @@ def _result(st: BeamState, r, cap: int, phase2=None) -> RangeResult:
 def range_phase1(corpus, graph: Graph, queries, start_ids, r, cfg: RangeConfig,
                  es_radius=None):
     """Phase 1 for a batch: ``(beam_state, beam_result, needs_phase2)``."""
-    rj = broadcast_radius(r, queries.shape[0], device=corpus.device)
-    st = beam_search_batch(corpus, graph, queries, start_ids, rj, cfg.search,
+    points = hot_arm(corpus)
+    rj = broadcast_radius(r, queries.shape[0], device=points.device)
+    st = beam_search_batch(points, graph, queries, start_ids, rj, cfg.search,
                            es_radius)
     need = (_needs_phase2(st, rj, cfg.lam) if cfg.mode == "greedy"
             else torch.zeros_like(st.done))
@@ -322,17 +336,17 @@ def range_phase1(corpus, graph: Graph, queries, start_ids, r, cfg: RangeConfig,
 
 
 # ---------------------------------------------------------------------------
-# Tombstone filtering (live indices) and the result stage
+# Result-stage drops: tombstones (live indices) and label predicates
 # ---------------------------------------------------------------------------
+#
+# Both follow one template: a dropped point keeps its vector and edges, so
+# the walk routes through it unchanged; only the result buffer loses it
+# (stable left-compaction) and the count is recomputed. ``overflow`` is left
+# as it is: the buffer pressure happened during the search.
 
-def _drop_dead_lane(tombstones: torch.Tensor, ids: torch.Tensor,
-                    dists: torch.Tensor):
-    """Drop tombstoned ids from each lane's result buffer (stable
-    left-compaction). ``tombstones`` is a shared (W,) int32 bitset."""
+def _compact_kept(keep: torch.Tensor, ids: torch.Tensor, dists: torch.Tensor):
+    """Stable left-compaction of the kept slots of each lane's buffer."""
     k = ids.shape[1]
-    valid = ids != INVALID_ID
-    dead = bitset_contains(tombstones, torch.where(valid, ids, 0)) & valid
-    keep = valid & ~dead
     pos = torch.cumsum(keep, dim=1, dtype=torch.int32) - 1
     wp = torch.where(keep, pos, k)
     out_ids = _append(torch.full_like(ids, INVALID_ID), wp, ids)
@@ -340,20 +354,38 @@ def _drop_dead_lane(tombstones: torch.Tensor, ids: torch.Tensor,
     return out_ids, out_d, torch.sum(keep, dim=1, dtype=torch.int32)
 
 
-def filter_tombstoned(tombstones: torch.Tensor, res: RangeResult) -> RangeResult:
+def _as_words(words, device) -> torch.Tensor:
+    """A packed bitset (uint32 numpy or an int32 tensor) as int32 words."""
+    if not isinstance(words, torch.Tensor):
+        words = torch.from_numpy(np.array(words).view(np.int32))
+    return words.to(device=device, dtype=torch.int32)
+
+
+def filter_tombstoned(tombstones, res: RangeResult) -> RangeResult:
     """Remove tombstoned ids from a batched ``RangeResult`` and recount.
-    ``tombstones`` must be an exact bitset over corpus slots; ``overflow``
-    is left as-is."""
-    if not isinstance(tombstones, torch.Tensor):  # uint32 words from numpy
-        tombstones = torch.from_numpy(
-            np.ascontiguousarray(tombstones).view(np.int32))
-    tomb = tombstones.to(device=res.ids.device, dtype=torch.int32)
-    ids, dists, count = _drop_dead_lane(tomb, res.ids, res.dists)
+    ``tombstones`` must be an exact bitset over corpus slots."""
+    tomb = _as_words(tombstones, res.ids.device)
+    valid = res.ids != INVALID_ID
+    dead = bitset_contains(tomb, torch.where(valid, res.ids, 0)) & valid
+    ids, dists, count = _compact_kept(valid & ~dead, res.ids, res.dists)
+    return dataclasses.replace(res, ids=ids, dists=dists, count=count)
+
+
+def filter_labeled(labels, filt: LabelFilter, res: RangeResult) -> RangeResult:
+    """Drop results failing each lane's label predicate and recount.
+    ``labels`` are the (N, W) packed label rows (``core.labels``), ``filt``
+    the batched predicate."""
+    dev = res.ids.device
+    labels, filt = as_label_rows(labels, dev), filt.to(dev)
+    valid = res.ids != INVALID_ID
+    rows = labels[torch.where(valid, res.ids, 0).long()]           # (Q, K, W)
+    keep = valid & labels_match(rows, filt.masks[:, None, :], filt.is_and[:, None])
+    ids, dists, count = _compact_kept(keep, res.ids, res.dists)
     return dataclasses.replace(res, ids=ids, dists=dists, count=count)
 
 
 # ---------------------------------------------------------------------------
-# Int8 corpus: the guard-band rerank
+# Exact pair distances and the int8 guard-band rerank
 # ---------------------------------------------------------------------------
 #
 # An int8 corpus searches on certified lower bounds (core.corpus), so the
@@ -361,6 +393,40 @@ def filter_tombstoned(tombstones: torch.Tensor, res: RangeResult) -> RangeResult
 # caller's radius. Here each kept candidate's upper bound is recovered:
 # ``ub <= r`` proves membership, the rest (the ambiguous band) get their
 # exact f32 distance from the raw rows and the exact test.
+
+def _tier_of(points):
+    """The ``TieredCorpus``, if ``points`` is one (duck typed on the
+    ``is_tiered`` marker: core never imports ``tier``)."""
+    return points if getattr(points, "is_tiered", False) else None
+
+
+def exact_pair_dists(raw, queries, ids, lanes, metric: str,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """(P,) exact f32 distances between raw[ids[p]] and queries[lanes[p]]:
+    one rerank_fetch launch on f32 rows; rows stored in another dtype are
+    gathered and widened first (the kernel reads f32)."""
+    ids = ids.to(torch.int32).contiguous()
+    lanes = lanes.to(torch.int32).contiguous()
+    if raw.dtype != torch.float32:
+        raw = raw[ids.long()].float().contiguous()
+        ids = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
+    return fetch_rerank_pairs(raw, queries, ids, lanes, metric=metric,
+                              use_kernel=use_kernel)
+
+
+def _exact_pairs_for(points, queries, ids_p, lanes_p, metric: str,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """Exact f32 pair distances for any corpus that holds exact rows: the
+    resident rows through ``exact_pair_dists``; a tiered corpus plans and
+    fetches its host rows (``TieredCorpus.exact_pairs``, the same kernel on
+    the same pairs, so the same bits)."""
+    tier = _tier_of(points)
+    if tier is not None:
+        return tier.exact_pairs(queries, ids_p, lanes_p, metric,
+                                use_kernel=use_kernel)
+    return exact_pair_dists(corpus_raw(points), queries, ids_p, lanes_p, metric,
+                            use_kernel)
+
 
 def _rerank_band(points, queries, rj, res: RangeResult,
                  cfg: RangeConfig) -> RangeResult:
@@ -372,23 +438,26 @@ def _rerank_band(points, queries, rj, res: RangeResult,
     an empty band launches nothing. ``ub > r`` marks the band, a band entry
     is kept when its exact distance is within r and then takes it,
     survivors are stably compacted to the left, and ``n_rerank`` and
-    ``n_dist`` grow by the band size."""
-    if not (isinstance(points, QuantizedCorpus) and cfg.rerank
-            and points.raw is not None):
+    ``n_dist`` grow by the band size. A tiered corpus serves the band's
+    rows from its host store."""
+    tier = _tier_of(points)
+    qc = hot_arm(points)
+    if not (isinstance(qc, QuantizedCorpus) and cfg.rerank
+            and (tier is not None or qc.raw is not None)):
         return res
     metric = cfg.search.metric
     ids, dists = res.ids, res.dists
     valid = ids != INVALID_ID
-    ub = upper_bound_dists(points, torch.where(valid, ids, 0), dists, queries,
+    ub = upper_bound_dists(qc, torch.where(valid, ids, 0), dists, queries,
                            metric)
     amb = valid & (ub > rj[:, None])
     lanes_p, slots_p = torch.nonzero(amb, as_tuple=True)  # syncs on the band
     if lanes_p.numel() == 0:
         return res
     exact = torch.full_like(dists, torch.inf)
-    exact[lanes_p, slots_p] = fetch_rerank_pairs(
-        points.raw, queries, ids[lanes_p, slots_p], lanes_p.to(torch.int32),
-        metric=metric, use_kernel=cfg.search.use_kernels)
+    exact[lanes_p, slots_p] = _exact_pairs_for(
+        points, queries, ids[lanes_p, slots_p], lanes_p, metric,
+        cfg.search.use_kernels)
     keep = valid & torch.where(amb, exact <= rj[:, None], True)
     new_d = torch.where(amb & keep, exact, dists)
     order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
@@ -403,13 +472,16 @@ def _rerank_band(points, queries, rj, res: RangeResult,
 
 
 def finalize_results(corpus, queries, r, res: RangeResult, cfg: RangeConfig,
-                     tombstones=None) -> RangeResult:
+                     tombstones=None, labels=None,
+                     label_filter: Optional[LabelFilter] = None) -> RangeResult:
     """Result-stage post-processing of both paths, in the reference's
-    order: the tombstone drop, (the label drop, a later slice,) then the
-    int8 guard-band rerank, so the exact pass never spends gathers on
-    candidates the filters already removed. ``r`` is the (Q,) radius."""
+    order: the tombstone drop, the label drop, then the int8 guard-band
+    rerank, so the exact pass never spends gathers on candidates the
+    filters already removed. ``r`` is the (Q,) radius."""
     if tombstones is not None:
         res = filter_tombstoned(tombstones, res)
+    if labels is not None and label_filter is not None:
+        res = filter_labeled(labels, label_filter, res)
     return _rerank_band(corpus, queries, r, res, cfg)
 
 
@@ -418,11 +490,12 @@ def finalize_results(corpus, queries, r, res: RangeResult, cfg: RangeConfig,
 # ---------------------------------------------------------------------------
 
 def _range_search_fused(corpus, graph: Graph, queries, start_ids, r,
-                        cfg: RangeConfig, es_radius=None,
-                        tombstones=None) -> RangeResult:
-    r = broadcast_radius(r, queries.shape[0], device=corpus.device)
-    queries = queries.to(device=corpus.device, dtype=torch.float32).contiguous()
-    st = beam_search_batch(corpus, graph, queries, start_ids, r, cfg.search,
+                        cfg: RangeConfig, es_radius=None, tombstones=None,
+                        labels=None, label_filter=None) -> RangeResult:
+    points = hot_arm(corpus)
+    r = broadcast_radius(r, queries.shape[0], device=points.device)
+    queries = queries.to(device=points.device, dtype=torch.float32).contiguous()
+    st = beam_search_batch(points, graph, queries, start_ids, r, cfg.search,
                            es_radius)
     if cfg.mode in ("beam", "doubling"):
         phase2 = (st.active_width > cfg.search.beam if cfg.mode == "doubling"
@@ -430,7 +503,7 @@ def _range_search_fused(corpus, graph: Graph, queries, start_ids, r,
         res = _result(st, r, cfg.result_cap, phase2)
     else:
         active = _needs_phase2(st, r, cfg.lam)
-        gs = greedy_search(corpus, graph, queries, r, st, cfg.result_cap,
+        gs = greedy_search(points, graph, queries, r, st, cfg.result_cap,
                            cfg.frontier_rounds, cfg.search, active)
         base = _result(st, r, cfg.result_cap, active)
         a2 = active[:, None]
@@ -441,7 +514,8 @@ def _range_search_fused(corpus, graph: Graph, queries, start_ids, r,
             count=torch.where(active, gs.res_count, base.count),
             overflow=torch.where(active, gs.overflow, base.overflow),
             n_dist=st.n_dist + torch.where(active, gs.n_dist, 0))
-    return finalize_results(corpus, queries, r, res, cfg, tombstones)
+    return finalize_results(corpus, queries, r, res, cfg, tombstones, labels,
+                            label_filter)
 
 
 # ---------------------------------------------------------------------------
@@ -449,39 +523,45 @@ def _range_search_fused(corpus, graph: Graph, queries, start_ids, r,
 # ---------------------------------------------------------------------------
 
 def _walk_compacted(corpus, graph: Graph, queries, start_ids, r,
-                    cfg: RangeConfig, es_radius=None,
-                    tombstones=None) -> RangeResult:
-    dev = corpus.device
+                    cfg: RangeConfig, es_radius=None, tombstones=None,
+                    labels=None, label_filter=None) -> RangeResult:
+    # a tiered corpus walks on its device arm; only the rerank sees the tier
+    points = hot_arm(corpus)
+    dev = points.device
     queries = queries.to(device=dev, dtype=torch.float32).contiguous()
     rj = broadcast_radius(r, queries.shape[0], device=dev)
     esj = None if es_radius is None else broadcast_radius(
         es_radius, queries.shape[0], device=dev)
+
+    def finish(res: RangeResult) -> RangeResult:
+        return finalize_results(corpus, queries, rj, res, cfg, tombstones,
+                                labels, label_filter)
 
     # phase 1 runs at the BASE beam for every mode; doubling restarts only
     # its survivors with widening enabled (paper Alg. 5)
     p1_search = cfg.search if cfg.mode != "doubling" else dataclasses.replace(
         cfg.search, max_beam=cfg.search.beam,
         visit_cap=min(cfg.search.visit_cap, 4 * cfg.search.beam))
-    st = beam_search_batch(corpus, graph, queries, start_ids, rj, p1_search, esj)
+    st = beam_search_batch(points, graph, queries, start_ids, rj, p1_search, esj)
     base = _result(st, rj, cfg.result_cap)
     if cfg.mode == "beam":
-        return finalize_results(corpus, queries, rj, base, cfg, tombstones)
+        return finish(base)
 
     active = _needs_phase2(st, rj, cfg.lam)
     sel = torch.nonzero(active).flatten()
     if sel.numel() == 0:
-        return finalize_results(corpus, queries, rj, base, cfg, tombstones)
+        return finish(base)
     # The reference pads the survivors to a power of two to bound its jit
     # variants; eager PyTorch needs no padding and the lanes are independent.
     sub_q, sub_r = queries[sel], rj[sel]
     if cfg.mode == "doubling":
         sub_starts = start_ids if start_ids.dim() == 1 else start_ids[sel]
-        st2 = beam_search_batch(corpus, graph, sub_q, sub_starts, sub_r,
+        st2 = beam_search_batch(points, graph, sub_q, sub_starts, sub_r,
                                 cfg.search, None if esj is None else esj[sel])
         ids, dists, count, over = _beam_results(st2, sub_r, cfg.result_cap)
         nd = st2.n_dist
     else:
-        gs = greedy_search(corpus, graph, sub_q, sub_r, st.select(sel),
+        gs = greedy_search(points, graph, sub_q, sub_r, st.select(sel),
                            cfg.result_cap, cfg.frontier_rounds, cfg.search)
         ids, dists, count, over, nd = (gs.res_ids, gs.res_dists, gs.res_count,
                                        gs.overflow, gs.n_dist)
@@ -493,35 +573,189 @@ def _walk_compacted(corpus, graph: Graph, queries, start_ids, r,
         overflow=base.overflow.index_copy(0, sel, over),
         n_dist=base.n_dist.index_add(0, sel, nd),
         phase2=active)
-    return finalize_results(corpus, queries, rj, merged, cfg, tombstones)
+    return finish(merged)
+
+
+# Below this fraction of the corpus, a filtered walk lane gets its default
+# entry points augmented with members of its own posting list (the beam
+# then starts inside the predicate's region instead of routing to it).
+# Lanes at or above it keep the shared defaults untouched, so broad and
+# all-pass predicates stay bitwise identical to the unfiltered program.
+ENTRY_SEED_FRAC = 0.25
+
+
+class _Postings:
+    """Each lane's posting list (the corpus ids its predicate matches, in
+    ascending order), computed once a distinct predicate: lanes that share
+    a predicate share its list, count, seeds and fallback decision. The
+    reference builds a host (Q, N) match matrix (4 GB at 4096 x 1M); this
+    keeps one (G, N) block of the G distinct predicates at a time."""
+
+    def __init__(self, labels: torch.Tensor, filt: LabelFilter):
+        key = torch.cat([filt.masks, filt.is_and[:, None].to(torch.int32)], 1)
+        uniq, inv = torch.unique(key, dim=0, return_inverse=True)
+        self.labels = labels
+        self.groups = LabelFilter(masks=uniq[:, :-1].contiguous(),
+                                  is_and=uniq[:, -1].bool())
+        self.group = inv.cpu().numpy()                                  # (Q,)
+        self.counts = label_match_counts(labels, self.groups).cpu().numpy()[self.group]
+        self._lists: dict = {}
+
+    def of_lane(self, lane: int) -> torch.Tensor:
+        g = int(self.group[lane])
+        if g not in self._lists:
+            m = labels_match(self.labels, self.groups.masks[g], self.groups.is_and[g])
+            self._lists[g] = torch.nonzero(m).flatten().to(torch.int32)
+        return self._lists[g]
+
+
+def _fallback_scan(points, queries, rj, tombstones, postings: _Postings,
+                   fb_sel: np.ndarray, cap: int, metric: str,
+                   use_kernel: bool = True):
+    """Exact scan of each fallback lane's posting list. ``points`` is any
+    corpus that holds exact rows (an f32/bf16 tensor, a quantized corpus
+    with raw rows, or a tiered corpus). Tombstoned ids are dropped first;
+    every lane's pairs go through one ``_exact_pairs_for`` call (the same
+    rerank_fetch path as the guard band), and each lane keeps its ``d <= r``
+    pairs in ascending distance, ties to the lower id: the post-filtered
+    oracle's answer by construction. Returns (ids, dists, count, overflow,
+    n_dist) of the ``fb_sel`` lanes."""
+    dev = queries.device
+    m = len(fb_sel)
+    per = [postings.of_lane(int(lane)) for lane in fb_sel]
+    ids_p = torch.cat(per) if per else torch.zeros(0, dtype=torch.int32, device=dev)
+    local = torch.repeat_interleave(
+        torch.arange(m, device=dev),
+        torch.tensor([p.numel() for p in per], dtype=torch.long, device=dev))
+    if tombstones is not None and ids_p.numel():
+        live = ~bitset_contains(_as_words(tombstones, dev), ids_p)
+        ids_p, local = ids_p[live], local[live]
+    ndist = torch.bincount(local, minlength=m).to(torch.int32)
+    out_ids = torch.full((m, cap), INVALID_ID, dtype=torch.int32, device=dev)
+    out_d = torch.full((m, cap), torch.inf, device=dev)
+    lanes = torch.as_tensor(fb_sel, dtype=torch.long, device=dev)
+    if ids_p.numel() == 0:
+        zero = torch.zeros(m, dtype=torch.int32, device=dev)
+        return out_ids, out_d, zero, zero.bool(), ndist
+    d = _exact_pairs_for(points, queries, ids_p, lanes[local], metric, use_kernel)
+    keep = d <= rj[lanes][local]
+    kid, kd, kl = ids_p[keep], d[keep], local[keep]
+    # by lane, then ascending distance, then id (the lists are ascending);
+    # + 0.0 makes -0.0 equal to 0.0, as the reference's numpy sort has it
+    order = torch.sort(kd + 0.0, stable=True).indices
+    order = order[torch.sort(kl[order], stable=True).indices]
+    kid, kd, kl = kid[order], kd[order], kl[order]
+    kept = torch.bincount(kl, minlength=m)
+    pos = torch.arange(kl.numel(), device=dev) - (torch.cumsum(kept, 0) - kept)[kl]
+    fit = pos < cap
+    out_ids[kl[fit], pos[fit]] = kid[fit]
+    out_d[kl[fit], pos[fit]] = kd[fit]
+    return (out_ids, out_d, torch.clamp(kept, max=cap).to(torch.int32),
+            kept > cap, ndist)
+
+
+def _range_search_compacted(corpus, graph: Graph, queries, start_ids, r,
+                            cfg: RangeConfig, es_radius=None, tombstones=None,
+                            labels=None, label_filter=None) -> RangeResult:
+    """Compacted-path front door: per-lane selectivity dispatch. A filtered
+    batch first counts each lane's posting list: lanes below
+    ``cfg.filter_threshold`` of the corpus skip the graph and scan their
+    list exactly (``_fallback_scan``); walk lanes below ``ENTRY_SEED_FRAC``
+    start from the default entry points plus an evenly spaced sample of
+    their list; one batch mixes both paths. The fallback needs exact rows
+    (an int8 corpus without raw rows walks every lane)."""
+    if labels is None or label_filter is None:
+        return _walk_compacted(corpus, graph, queries, start_ids, r, cfg,
+                               es_radius, tombstones)
+    points = hot_arm(corpus)
+    dev = points.device
+    queries = queries.to(device=dev, dtype=torch.float32).contiguous()
+    n_q = queries.shape[0]
+    rj = broadcast_radius(r, n_q, device=dev)
+    esj = None if es_radius is None else broadcast_radius(es_radius, n_q, device=dev)
+    labels, label_filter = as_label_rows(labels, dev), label_filter.to(dev)
+    n_corpus = corpus_size(points)
+    postings = _Postings(labels, label_filter)
+    counts = postings.counts
+    has_exact = (_tier_of(corpus) is not None
+                 or not isinstance(points, QuantizedCorpus) or points.raw is not None)
+    fb = (counts < cfg.filter_threshold * n_corpus
+          if cfg.filter_threshold > 0.0 and has_exact else np.zeros(n_q, bool))
+
+    # filter-aware entry points: selective walk lanes also start from an
+    # evenly spaced sample of their list (INVALID padding and init_state's
+    # duplicate collapse keep unseeded lanes equal to the shared starts)
+    seed = ~fb & (counts > 0) & (counts < ENTRY_SEED_FRAC * n_corpus)
+    walk_starts = start_ids
+    if seed.any():
+        s0 = start_ids.to(device=dev, dtype=torch.int32)
+        n_seed = s0.shape[-1]
+        walk_starts = torch.cat(
+            [s0.expand(n_q, n_seed),
+             torch.full((n_q, n_seed), INVALID_ID, dtype=torch.int32, device=dev)], 1)
+        for lane in np.nonzero(seed)[0]:
+            pid = postings.of_lane(int(lane))
+            pick = np.linspace(0, pid.numel() - 1,
+                               min(n_seed, pid.numel())).astype(np.int64)
+            walk_starts[lane, n_seed:n_seed + pick.size] = pid[torch.from_numpy(pick).to(dev)]
+
+    if not fb.any():
+        return _walk_compacted(corpus, graph, queries, walk_starts, rj, cfg, esj,
+                               tombstones, labels, label_filter)
+
+    cap = cfg.result_cap
+    fb_sel, w_sel = np.nonzero(fb)[0], np.nonzero(~fb)[0]
+    f_ids, f_d, f_cnt, f_over, f_nd = _fallback_scan(
+        corpus, queries, rj, tombstones, postings, fb_sel, cap,
+        cfg.search.metric, cfg.search.use_kernels)
+    zi = torch.zeros(n_q, dtype=torch.int32, device=dev)
+    out = RangeResult(
+        ids=torch.full((n_q, cap), INVALID_ID, dtype=torch.int32, device=dev),
+        dists=torch.full((n_q, cap), torch.inf, device=dev),
+        count=zi, overflow=zi.bool(), n_visited=zi.clone(), n_dist=zi.clone(),
+        es_stopped=zi.bool(), phase2=zi.bool(), n_rerank=zi.clone())
+    fb_t = torch.from_numpy(fb_sel).to(dev)
+    out.ids[fb_t], out.dists[fb_t], out.count[fb_t] = f_ids, f_d, f_cnt
+    out.overflow[fb_t], out.n_dist[fb_t] = f_over, f_nd
+    if w_sel.size:
+        w_t = torch.from_numpy(w_sel).to(dev)
+        wres = _walk_compacted(
+            corpus, graph, queries[w_t],
+            walk_starts if walk_starts.dim() == 1 else walk_starts[w_t],
+            rj[w_t], cfg, None if esj is None else esj[w_t], tombstones, labels,
+            label_filter.select(w_t))
+        for f in dataclasses.fields(RangeResult):
+            getattr(out, f.name)[w_t] = getattr(wres, f.name)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Public entry points — keyword-only, the reference's parameter order
 # ---------------------------------------------------------------------------
 
-def _check_unported(corpus, labels, label_filter):
-    if labels is not None or label_filter is not None:
-        raise NotImplementedError("filtered range search " + _LATER)
-    if isinstance(corpus, QuantizedCorpus):
+def _check_corpus(corpus):
+    points = hot_arm(corpus)
+    if isinstance(points, QuantizedCorpus):
         return
-    if not isinstance(corpus, torch.Tensor) or corpus.dtype not in (
+    if not isinstance(points, torch.Tensor) or points.dtype not in (
             torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            "a corpus other than an f32/bf16 tensor or a QuantizedCorpus "
-            "(the tiered corpus is a later slice of the port, ROADMAP.md §1)")
+            "a corpus other than an f32/bf16 tensor, a QuantizedCorpus or a "
+            "TieredCorpus over one")
 
 
 def range_search_fused(*, corpus, graph, queries, start_ids, r, cfg,
                        es_radius=None, tombstones=None, labels=None,
                        label_filter=None) -> RangeResult:
     """Batched range search with phase 2 masked (not compacted) over every
-    lane, then the result stage (tombstones, then the int8 guard-band
-    rerank). ``r``/``es_radius`` are a scalar or per-query ``(Q,)``
-    radii."""
-    _check_unported(corpus, labels, label_filter)
+    lane, then the result stage (tombstones, labels, then the int8
+    guard-band rerank). ``r``/``es_radius`` are a scalar or per-query
+    ``(Q,)`` radii; ``labels``/``label_filter`` the (N, W) packed label rows
+    and the batched predicate. The fused path always walks: the
+    selectivity fallback lives on the compacted path."""
+    _check_corpus(corpus)
     return _range_search_fused(corpus, graph, queries, start_ids, r, cfg,
-                               es_radius, tombstones)
+                               es_radius, tombstones, labels, label_filter)
 
 
 def range_search_compacted(*, corpus, graph, queries, start_ids, r, cfg,
@@ -529,8 +763,11 @@ def range_search_compacted(*, corpus, graph, queries, start_ids, r, cfg,
                            label_filter=None) -> RangeResult:
     """Two-phase batched range search (the QPS path): phase 1 over the
     whole batch, phase 2 over the survivor lanes only, each at its own
-    radius, then the result stage (tombstones, then the int8 guard-band
-    rerank)."""
-    _check_unported(corpus, labels, label_filter)
-    return _walk_compacted(corpus, graph, queries, start_ids, r, cfg,
-                           es_radius, tombstones)
+    radius, then the result stage (tombstones, labels, then the int8
+    guard-band rerank). With ``labels``/``label_filter``, lanes whose
+    predicate matches fewer than ``cfg.filter_threshold`` of the corpus
+    scan their posting list instead of walking, and selective walk lanes
+    get entry points inside their list."""
+    _check_corpus(corpus)
+    return _range_search_compacted(corpus, graph, queries, start_ids, r, cfg,
+                                   es_radius, tombstones, labels, label_filter)

@@ -2,7 +2,7 @@
 SwiGLU / GeGLU or the classic two-matrix FFN) and the recsys towers' plain
 dense stack (``init_dense_stack`` / ``dense_stack`` of the reference, with
 ReLU, the towers' activation; the reference's other activations and
-``final_act`` serve models not ported yet, ROADMAP.md §1 item 16)."""
+``final_act`` serve models not ported yet, ROADMAP.md §1 item 9)."""
 from __future__ import annotations
 
 import dataclasses

@@ -35,8 +35,8 @@ from ..layers.mlp import MLP, MLPConfig, init_mlp, mlp
 from ..layers.norm import rms_norm
 from ..utils import resolve_device
 
-_MOE_MLA = "ROADMAP.md §1 item 14 (MoE and MLA: qwen2-moe, deepseek-v2)"
-_TRAINING = "ROADMAP.md §1 item 14 (training)"
+_MOE_MLA = "ROADMAP.md §1 item 7 (MoE and MLA: qwen2-moe, deepseek-v2)"
+_TRAINING = "ROADMAP.md §1 item 7 (training)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1169,3 +1169,122 @@ def test_rerank_fetch_routes_match_ref(cuda_device, metric, order, p, d):
         _assert_dists(old, want, tol)
         with pytest.raises(ValueError):
             rerank_fetch_cuda(*args, metric=metric, route="regs")
+
+
+# ---------------------------------------------------------------------------
+# the engine's own surface on the card: the Vamana build, filtered search,
+# the tiered corpus. Integer coordinates keep every distance exact, so the
+# card's answers must equal the CPU path's bit for bit.
+# ---------------------------------------------------------------------------
+
+def _integer_rig(n, d, seed):
+    return np.random.default_rng(seed).integers(-8, 9, (n, d)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_vamana_build_on_the_card_equals_cpu(cuda_device, metric):
+    from repro_torch.core import BuildConfig, build_vamana
+    pts = _integer_rig(2000, 16, 0)
+    cfg = BuildConfig(max_degree=16, beam=32, insert_batch=256, metric=metric)
+    want = build_vamana(pts, cfg, device="cpu").neighbors
+    launches = (expand_cuda.launches, gatherdist_cuda.launches)
+    got = build_vamana(pts, cfg, device=cuda_device).neighbors
+    torch.cuda.synchronize()
+    assert expand_cuda.launches > launches[0] and gatherdist_cuda.launches > launches[1]
+    assert torch.equal(got.cpu(), want)
+
+
+def _labeled_engines(dev, corpus_dtype=None):
+    from repro_torch.core import Graph, build_vamana, pack_labels
+    from repro_torch.core import BuildConfig
+    pts = _integer_rig(3000, 16, 1)
+    graph = build_vamana(pts, BuildConfig(max_degree=16, beam=32, insert_batch=256),
+                         device="cpu")
+    rng = np.random.default_rng(17)
+    labels = pack_labels([rng.choice(16, int(rng.integers(1, 3)), replace=False)
+                          for _ in range(pts.shape[0])], 16)
+    return pts, [RangeSearchEngine.from_graph(pts, Graph(graph.neighbors), labels=labels,
+                                              corpus_dtype=corpus_dtype, device=d)
+                 for d in ("cpu", dev)]
+
+
+def _filtered_case():
+    from repro_torch.core import make_label_filter
+    filt = make_label_filter([[q % 16] if q % 2 == 0 else [q % 16, (q + 5) % 16, 1, 2]
+                              for q in range(64)], 16,
+                             modes=["and" if q % 2 == 0 else "or" for q in range(64)])
+    return filt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.0, 0.2])
+@pytest.mark.parametrize("compacted", [True, False])
+def test_filtered_search_on_the_card_equals_cpu(cuda_device, threshold, compacted):
+    """f32 corpus: every lane and field equal (walk, seeded walk and
+    fallback lanes)."""
+    pts, (cpu, card) = _labeled_engines(cuda_device)
+    qs = pts[:64] + 0.5
+    r = float(np.quantile(((pts[None, :200] - qs[:, None]) ** 2).sum(-1), 0.3))
+    filt = _filtered_case()
+    cfg = RangeConfig(search=SearchConfig(beam=32, max_beam=32, visit_cap=128),
+                      result_cap=512, filter_threshold=threshold)
+    launches = rerank_fetch_cuda.launches
+    want = cpu.range(qs, r, cfg=cfg, compacted=compacted, filter=filt)
+    got = card.range(qs, r, cfg=cfg, compacted=compacted, filter=filt)
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(want):
+        assert torch.equal(getattr(got, f.name).cpu(), getattr(want, f.name)), f.name
+    if threshold and compacted:
+        assert (got.n_visited[::2] == 0).all() and (got.n_visited[1::2] > 0).all()
+        assert rerank_fetch_cuda.launches > launches    # the fallback's exact scan
+
+
+@pytest.mark.cuda
+def test_fallback_lanes_on_the_card_equal_cpu_int8(cuda_device):
+    """int8 corpus: the fallback lanes read exact rows only, so they equal
+    the CPU path bit for bit (the walk lanes' bounds may round otherwise)."""
+    pts, (cpu, card) = _labeled_engines(cuda_device, "int8")
+    qs = pts[:64] + 0.5
+    r = float(np.quantile(((pts[None, :200] - qs[:, None]) ** 2).sum(-1), 0.3))
+    cfg = RangeConfig(search=SearchConfig(beam=32, max_beam=32, visit_cap=128),
+                      result_cap=512, filter_threshold=0.2)
+    want = cpu.range(qs, r, cfg=cfg, filter=_filtered_case())
+    got = card.range(qs, r, cfg=cfg, filter=_filtered_case())
+    torch.cuda.synchronize()
+    assert (got.n_visited[::2] == 0).all()
+    for f in ("ids", "dists", "count", "overflow", "n_visited", "n_dist"):
+        assert torch.equal(getattr(got, f)[::2].cpu(), getattr(want, f)[::2]), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_queries", [64, 2048])
+def test_tiered_rerank_on_the_card_is_bitwise_resident(cuda_device, n_queries):
+    """Five repeats with a cache that evicts: every call bit for bit the
+    resident int8 engine's, each rerank on the same route."""
+    from repro_torch.tier import tiered_corpus
+    g = torch.Generator().manual_seed(3)
+    pts = torch.randn(20000, 32, generator=g)
+    qs = pts[:n_queries] + 0.1 * torch.randn(n_queries, 32, generator=g)
+    graph = build_knn_graph(pts, k=16, device=cuda_device)
+    eng = RangeSearchEngine.from_graph(pts, graph, corpus_dtype="int8", device=cuda_device)
+    tier = tiered_corpus(eng.points, cache_rows=512, fetch_bucket=256, device=cuda_device)
+    eng_t = dataclasses.replace(eng, points=tier)
+    r = float(torch.quantile(((pts[:500, None] - qs[None, :64]) ** 2).sum(-1), 0.01))
+    cfg = RangeConfig(search=SearchConfig(beam=32, max_beam=32, visit_cap=128),
+                      result_cap=256)
+    for _ in range(5):
+        routes = [dict(rerank_fetch_cuda.routes)]
+        res = eng.range(qs, r, cfg=cfg)
+        routes.append(dict(rerank_fetch_cuda.routes))
+        res_t = eng_t.range(qs, r, cfg=cfg)
+        routes.append(dict(rerank_fetch_cuda.routes))
+        torch.cuda.synchronize()
+        moved = [{k: b[k] - a[k] for k in a} for a, b in zip(routes, routes[1:])]
+        assert moved[0] == moved[1] and sum(moved[0].values()) == 1, moved
+        p = int(res.n_rerank.sum())
+        assert moved[0][rerank_ops.plan(p, 32)] == 1
+        for f in ("ids", "dists", "count", "n_rerank"):
+            assert torch.equal(getattr(res, f), getattr(res_t, f)), f
+    c = tier.counters
+    assert c.cache_evictions > 0 and c.fetch_batches > 5 and c.cache_hits > 0

@@ -19,7 +19,7 @@ from repro_torch.convert import engine_from_arrays
 from repro_torch.core import (
     Graph, RangeConfig, RangeSearchEngine, SearchConfig, average_precision,
     build_knn_graph, default_grid, exact_range_search, exact_topk,
-    match_histogram, range_counts_at, range_search_compacted, recall_at_k,
+    make_label_filter, match_histogram, range_counts_at, recall_at_k,
     select_radius, start_points, sweep, zero_result_accuracy)
 from repro_torch.utils import INVALID_ID
 
@@ -153,16 +153,19 @@ def test_from_graph_and_bf16_corpus_match_jax(metric):
 
 
 def test_unported_options_raise():
-    pts, _, teng, qs, radii = _rig("l2")
-    with pytest.raises(NotImplementedError):
-        teng.range(qs, radii, filter=object())
-    with pytest.raises(NotImplementedError):
-        range_search_compacted(corpus=teng.points, graph=teng.graph,
-                               queries=torch.from_numpy(qs),
-                               start_ids=teng.start_ids, r=radii,
-                               cfg=RangeConfig(),
-                               labels=torch.zeros((pts.shape[0], 1),
-                                                  dtype=torch.int32))
+    """The resumable greedy API waits for the serving slice and raises,
+    naming its ROADMAP item; a filter on an engine without labels raises
+    ``ValueError``, as the reference's does."""
+    from repro_torch.core.range_search import greedy_resume_batch, greedy_seed_batch
+    _, jeng, teng, qs, radii = _rig("l2")
+    for fn in (greedy_seed_batch, greedy_resume_batch):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1, item 2"):
+            fn()
+    jfilt = J.make_label_filter([[0]] * qs.shape[0], 4)
+    with pytest.raises(ValueError, match="no labels"):
+        jeng.range(jnp.asarray(qs), jnp.asarray(radii), filter=jfilt)
+    with pytest.raises(ValueError, match="no labels"):
+        teng.range(qs, radii, filter=make_label_filter([[0]] * qs.shape[0], 4))
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,15 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 """
+
+# modules each slice added, imported here by name so that a rename shows
+NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
+         "repro_torch.configs.range_engine", "repro_torch.tier",
+         "repro_torch.tier.budget", "repro_torch.tier.cache",
+         "repro_torch.tier.corpus", "repro_torch.tier.planner",
+         "repro_torch.tier.store")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -32,9 +39,10 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(" ", 1)
+    n_modules, bad, names = out.stdout.split(" ", 2)
     assert int(n_modules) >= 50
     assert bad.strip() == "[]"
+    assert set(NAMED) <= set(names.split())
 
 
 @pytest.fixture
@@ -53,8 +61,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         GQAConfig, MLPConfig, init_dense_stack, init_gqa, init_mlp, init_token_embedding)
     from repro_torch.models import init_cache, init_recsys, init_tower, init_transformer
     from repro_torch.core import (
-        Graph, RangeSearchEngine, build_knn_graph, exact_range_search,
+        Graph, RangeSearchEngine, build_knn_graph, build_vamana, exact_range_search,
         exact_topk, range_counts_at, sweep)
+    from repro_torch.tier import tiered_corpus
 
     pts = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     nbrs = np.zeros((64, 4), np.int32)
@@ -86,6 +95,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: init_mlp(MLPConfig(d_model=8, d_ff=16)),
         lambda: init_gqa(GQAConfig(d_model=8, n_heads=2, n_kv=1, d_head=4)),
         lambda: init_token_embedding(16, 8),
+        lambda: build_vamana(pts),
+        lambda: RangeSearchEngine.build(pts),
+        lambda: tiered_corpus(pts),
+        lambda: RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
+                                             tier=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -97,6 +111,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     eng = RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
                                        corpus_dtype="int8", device="cpu")
     assert eng.device.type == "cpu" and eng.stats()["corpus_dtype"] == "int8"
+    assert tiered_corpus(pts, device="cpu").device.codes.device.type == "cpu"
     assert init_recsys(reduced(), device="cpu").user.tables.device.type == "cpu"
     assert recsys_params_from_jax(params, reduced(), device="cpu").item.tables.shape == (4, 1000, 16)
     assert rangescan(pts[:4], pts, 1.0, k=8, device="cpu")[0].device.type == "cpu"

@@ -59,7 +59,7 @@ def _ids(rng, b, f, vocab):
 
 def test_configs_match_the_reference():
     """Every field the port keeps holds the reference's value; the fields it
-    leaves out are the other kinds' (ROADMAP.md §1 item 16)."""
+    leaves out are the other kinds' (ROADMAP.md §1 item 9)."""
     kept = [f.name for f in dataclasses.fields(reduced()) if f.name != "dtype"]
     assert set(kept) <= set(vars(jax_reduced()))
     assert set(vars(jax_reduced())) - set(kept) - {"dtype"} == {
@@ -149,10 +149,10 @@ def test_full_width_shapes_on_meta_match_jax():
 
 
 def test_unported_kinds_and_losses_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 9 "):
         init_recsys(reduced().__class__(kind="dlrm"), device="cpu")
     for fn in (bce_loss, two_tower_loss, recsys_loss):
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 7 "):
             fn(None, {}, reduced())
 
 
