@@ -66,6 +66,20 @@ Phases, each printed as it ends:
      n_visited == 0, answers equal to the post-filtered oracle as sets up to
      pairs within 1e-5 of r), its QPS against the walk's, and its
      rerank_fetch launch and route;
+ 14. [serve]: the serving layer (``RangeServer``) on the Vamana engine,
+     with the reference serve CLI's settings (max_batch 128, 32 lanes, 8
+     rounds a slice, the effort regressor fitted on the card on 256
+     calibration requests with their exact counts): lockstep, f32 and
+     int8, on the 4,096 queries at r, every response equal to its lane of
+     ``engine.range`` (f32: the distances' bits too), requests/s beside
+     engine.range's QPS and exact p50/p99; benchmarks/run.py's tail
+     workload (1,024 requests, every 16th at the radius of ~512 mean
+     matches, the rest at ~4) in lockstep and continuously, each after a
+     warm-up pass, f32 and int8: continuous equal to lockstep per request,
+     AP of both, point p50/p99, heavy p99, the point-p99 ratio, the pool
+     counters; a 256-request continuous pass on the plain path (AP within
+     0.01 of the kernel path); every path kernel launched through the
+     server (``serve_launches`` in the kernels line);
   9. [two_tower], run right after the build so its 43 GB tables find the
      card empty: the two-tower-retrieval model at full width (16 + 16
      fields, vocab 10,485,760, d_embed 64, towers 1024-1024-512-256, both
@@ -1899,6 +1913,238 @@ def tier_phase(engine_q, points, graph, queries, r, q_cfg, fetch_kernel):
     return launches
 
 
+SERVE_MAX_BATCH = 128       # the reference serve CLI's defaults (src/repro/launch/serve.py)
+SERVE_LANES = 32
+SERVE_SLICE_ROUNDS = 8
+SERVE_CALIBRATION = 256     # the CLI fits the effort regressor on 256 requests
+TAIL_REQUESTS = 1024        # benchmarks/run.py's tail row: one heavy lane in 16
+TAIL_HEAVY_EVERY = 16
+TAIL_POINT_MATCHES = 4.0
+TAIL_HEAVY_MATCHES = 512.0
+SERVE_PLAIN_REQUESTS = 256
+MAX_SERVE_AP_GAP = 0.01     # kernel path against plain path, as [plain]
+
+
+def drive_server(server, queries_np, radii):
+    """Submit every request (backing off on queue_full by serving a step,
+    as the serve CLI does) and serve until drained; the host's wall time
+    and the responses sorted by request id."""
+    import torch
+    from repro_torch.serve import Request
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp = []
+    for i in range(queries_np.shape[0]):
+        rq = Request(req_id=i, query=queries_np[i], radius=float(radii[i]))
+        while server.submit(rq) is not None:
+            resp.extend(server.step())
+    resp.extend(server.run_until_drained())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    resp.sort(key=lambda x: x.req_id)
+    if [x.req_id for x in resp] != list(range(queries_np.shape[0])):
+        raise AssertionError("[serve] a request went unanswered or twice")
+    return resp, wall
+
+
+def served_arrays(resp, cap: int):
+    """(ids (Q, cap) INVALID-padded, counts) of range responses, for AP."""
+    from repro_torch.utils import INVALID_ID
+    ids = np.full((len(resp), cap), INVALID_ID, np.int64)
+    counts = np.zeros(len(resp), np.int64)
+    for i, x in enumerate(resp):
+        ids[i, :len(x.ids)] = x.ids
+        counts[i] = len(x.ids)
+    return ids, counts
+
+
+def latency_line(lat) -> str:
+    return (f"p50 {np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+            f"{np.percentile(lat, 99) * 1e3:.3f} ms")
+
+
+def check_against_engine(resp, want, exact_dists: bool, points, queries, r, name) -> int:
+    """Every response equals its lane of ``engine.range``: ids, count,
+    overflow, es_stopped, and (f32) the distances' bits. An int8 lane may
+    differ only by an id whose exact distance is within 1e-6 of r (the
+    band's exact distances come from rerank_fetch, whose route follows the
+    band's size: 128 lanes and 4,096 do not take the same route). Returns
+    the number of such excused ids."""
+    from repro_torch.core import point_dist
+    from repro_torch.utils import INVALID_ID
+    w_ids, w_d, w_c, w_o, w_e = (t.cpu().numpy() for t in (
+        want.ids, want.dists, want.count, want.overflow, want.es_stopped))
+    excused = 0
+    for i, x in enumerate(resp):
+        keep = w_ids[i] != INVALID_ID
+        same = np.array_equal(x.ids, w_ids[i][keep])
+        if exact_dists:
+            same = same and np.array_equal(x.dists.view(np.int32), w_d[i][keep].view(np.int32))
+        if same and (x.count, x.overflow, x.es_stopped) == (w_c[i], w_o[i], w_e[i]):
+            continue
+        if exact_dists:
+            raise AssertionError(f"[serve] {name}: request {i} differs from engine.range "
+                                 f"(count {x.count} against {w_c[i]})")
+        for j in set(x.ids.tolist()) ^ set(w_ids[i][keep].tolist()):
+            d = float(point_dist(points[j], queries[i], "l2"))
+            if abs(d - r) > 1e-6 * abs(r):
+                raise AssertionError(f"[serve] {name}: request {i} id {j} at {d:.9g} "
+                                     f"differs from engine.range (r={r:.9g})")
+            excused += 1
+        if x.overflow != w_o[i] or x.es_stopped != w_e[i]:
+            raise AssertionError(f"[serve] {name}: request {i} flags differ")
+    return excused
+
+
+def serve_phase(engine, points, queries, r, prof, cfg, q_cfg, kernels, gt):
+    """[serve]: the serving layer (``repro_torch.serve.RangeServer``) on the
+    Vamana engine at 1M x 128 with the reference serve CLI's settings
+    (max_batch 128, 32 lanes, 8 rounds a slice; the effort regressor fitted
+    on 256 calibration requests with their exact counts). Lockstep, f32 and
+    int8: the 4,096 requests at r, each response equal to
+    ``engine.range``'s lane; requests/s beside engine.range's QPS, exact
+    latency percentiles. Then benchmarks/run.py's tail workload (every 16th
+    request at the radius of ~512 mean matches, the rest at ~4) served in
+    lockstep and continuously (after a warm-up pass of each): per request
+    the same ids, count and overflow; AP of both against the oracle; point
+    p50/p99, heavy p99, the point-p99 ratio and the pool counters. A
+    256-request continuous pass on the plain path gives AP within 0.01 of
+    the kernel path. Every path kernel must launch through the server.
+    ``gt`` is the oracle's (ids, counts) at r. Returns the server's
+    launches per kernel."""
+    import torch
+    from repro_torch.core import (
+        RangeSearchEngine, average_precision, exact_range_search)
+    from repro_torch.models import EffortPredictor
+    from repro_torch.serve import RangeServer, ServerConfig
+    dev = points.device
+    card = card_line()
+    engine_q = RangeSearchEngine.from_graph(points, engine.graph, metric="l2", n_starts=4,
+                                            corpus_dtype="int8", device=dev)
+    path = {"float32": ("expand", "gatherdist"),
+            "int8": ("expand_int8", "gatherdist_int8", "rerank_fetch")}
+    launches = dict.fromkeys(kernels, 0)
+
+    def counted(kind, fn, name):
+        reset_counts(kernels)
+        out = fn()
+        counts, _ = read_counts(kernels)
+        missing = [k for k in path[kind] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"[serve] {name}: {missing} never launched {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        return out, counts
+
+    q_np = queries.cpu().numpy()
+    lock_cfg = ServerConfig(max_batch=SERVE_MAX_BATCH, lanes=SERVE_LANES,
+                            slice_rounds=SERVE_SLICE_ROUNDS)
+    cont_cfg = dataclasses.replace(lock_cfg, continuous=True)
+    engines = {"float32": (engine, cfg), "int8": (engine_q, q_cfg)}
+    radii_all = np.full(q_np.shape[0], r, np.float32)
+    for kind, (eng, c) in engines.items():
+        eng.range(queries, r, cfg=c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = eng.range(queries, r, cfg=c)
+        torch.cuda.synchronize()
+        t_range = time.perf_counter() - t0
+        srv = RangeServer(eng, c, lock_cfg)
+        (resp, wall), counts = counted(kind, lambda: drive_server(srv, q_np, radii_all),
+                                       f"lockstep {kind}")
+        excused = check_against_engine(resp, want, kind == "float32", points, queries, r,
+                                       f"lockstep {kind}")
+        ids, cnt = served_arrays(resp, c.result_cap)
+        ap = average_precision(gt[0], gt[1], ids, cnt)
+        lat = np.array([x.latency_s for x in resp])
+        log(f"[serve] lockstep {kind}: {len(resp)} requests at r={r:.6g}, max_batch "
+            f"{SERVE_MAX_BATCH} ({srv.stats['batches']} micro-batches): "
+            f"{len(resp) / wall:.1f} requests/s against engine.range's "
+            f"{len(resp) / t_range:.1f} QPS on the same queries; latency "
+            f"{latency_line(lat)} (exact, {len(lat)} responses); AP={ap:.4f}; every "
+            f"response equal to engine.range's lane (ids, count, overflow, es_stopped"
+            f"{', distance bits' if kind == 'float32' else f'; {excused} ids within 1e-6 of r excused'}); "
+            f"reranked {srv.stats['reranked']}; launches {counts}; card {card}")
+
+    # -- the tail workload ----------------------------------------------------
+    mean_counts = prof.counts.mean(axis=0)
+    r_point = float(prof.radii[int(np.argmin(np.abs(mean_counts - TAIL_POINT_MATCHES)))])
+    r_heavy = float(prof.radii[int(np.argmin(np.abs(mean_counts - TAIL_HEAVY_MATCHES)))])
+    nq = TAIL_REQUESTS
+    radii = np.full(nq, r_point, np.float32)
+    radii[::TAIL_HEAVY_EVERY] = r_heavy
+    point = radii == r_point
+    tq = queries[:nq]
+    gt_ids, _, gt_counts = exact_range_search(points, tq, torch.from_numpy(radii).to(dev),
+                                              cap=4096, device=dev)
+    gt_ids, gt_counts = gt_ids.cpu().numpy(), gt_counts.cpu().numpy()
+    ncal = SERVE_CALIBRATION
+    t0 = time.perf_counter()
+    effort = EffortPredictor.fit(q_np[:ncal], radii[:ncal], gt_counts[:ncal], device=dev)
+    t_fit = time.perf_counter() - t0
+    split_ok = float(np.mean((effort.predict(q_np[:nq], radii) >= cont_cfg.effort_threshold)
+                             == ~point))
+    log(f"[serve] tail workload: {nq} requests, every {TAIL_HEAVY_EVERY}th at r_heavy="
+        f"{r_heavy:.6g} (mean matches {gt_counts[~point].mean():.1f}), the rest at r_point="
+        f"{r_point:.6g} ({gt_counts[point].mean():.2f}); effort regressor fitted on the "
+        f"card on {ncal} requests in {t_fit:.2f} s (300 AdamW steps); its split at "
+        f"{cont_cfg.effort_threshold:g} matches agrees with the radius class on {split_ok:.4f} of the requests")
+
+    def ap_resp(resp, k=nq):
+        ids, cnt = served_arrays(resp, cfg.result_cap)
+        return average_precision(gt_ids[:k], gt_counts[:k], ids, cnt)
+
+    for kind, (eng, c) in engines.items():
+        tq_np = q_np[:nq]
+        drive_server(RangeServer(eng, c, lock_cfg), tq_np, radii)               # warm-up
+        drive_server(RangeServer(eng, c, cont_cfg, effort=effort), tq_np, radii)
+        srv_l = RangeServer(eng, c, lock_cfg)
+        (resp_l, wall_l), cnt_l = counted(kind, lambda: drive_server(srv_l, tq_np, radii),
+                                          f"tail lockstep {kind}")
+        srv_c = RangeServer(eng, c, cont_cfg, effort=effort)
+        (resp_c, wall_c), cnt_c = counted(kind, lambda: drive_server(srv_c, tq_np, radii),
+                                          f"tail continuous {kind}")
+        for a, b in zip(resp_l, resp_c):
+            if (set(a.ids.tolist()) != set(b.ids.tolist()) or a.count != b.count
+                    or a.overflow != b.overflow):
+                raise AssertionError(f"[serve] tail {kind}: request {a.req_id} differs "
+                                     "between continuous and lockstep")
+        s = srv_c.stats
+        if not (s["pool_admitted"] and s["bucket_heavy"] and s["bucket_cheap"]):
+            raise AssertionError(f"[serve] tail {kind}: the pool or a bucket never ran {s}")
+        lat_l = np.array([x.latency_s for x in resp_l])
+        lat_c = np.array([x.latency_s for x in resp_c])
+        p99 = {m: float(np.percentile(v[point], 99)) for m, v in (("l", lat_l), ("c", lat_c))}
+        pool = {k: s[k] for k in ("pool_admitted", "pool_retired", "pool_ticks",
+                                  "pool_rotations", "pool_oneshot", "bucket_cheap",
+                                  "bucket_heavy")}
+        log(f"[serve] tail {kind}: continuous equals lockstep on every request (id set, "
+            f"count, overflow); AP lockstep={ap_resp(resp_l):.4f} continuous="
+            f"{ap_resp(resp_c):.4f}; lockstep {nq / wall_l:.1f} requests/s, point "
+            f"{latency_line(lat_l[point])}, heavy p99 "
+            f"{np.percentile(lat_l[~point], 99) * 1e3:.3f} ms; continuous {nq / wall_c:.1f} "
+            f"requests/s, point {latency_line(lat_c[point])}, heavy p99 "
+            f"{np.percentile(lat_c[~point], 99) * 1e3:.3f} ms; point p99 ratio "
+            f"(continuous/lockstep) {p99['c'] / p99['l']:.4f}; pool {pool}; launches "
+            f"lockstep {cnt_l} continuous {cnt_c}; card {card}")
+
+    # -- the kernel path against the plain path, continuous -------------------
+    k = SERVE_PLAIN_REQUESTS
+    plain = dataclasses.replace(cfg, search=dataclasses.replace(cfg.search, use_kernels=False))
+    aps = {}
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        resp, _ = drive_server(RangeServer(engine, c, cont_cfg, effort=effort), q_np[:k],
+                               radii[:k])
+        aps[name] = ap_resp(resp, k)
+    log(f"[serve] continuous f32 on {k} tail requests: AP kernel={aps['kernel']:.4f} "
+        f"plain={aps['plain']:.4f}")
+    if abs(aps["kernel"] - aps["plain"]) > MAX_SERVE_AP_GAP:
+        raise AssertionError(f"[serve] kernel and plain AP differ by "
+                             f"{abs(aps['kernel'] - aps['plain']):.4f}")
+    del engine_q
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
@@ -2161,11 +2407,19 @@ def main() -> int:
     # -- 13. filtered range search on the Vamana graph -------------------------
     fallback_launches = filtered_phase(engine_v, points, queries, prof, deploy,
                                        rerank_fetch_cuda)
+
+    # -- 14. the serving layer on the Vamana engine ----------------------------
+    t0 = time.perf_counter()
+    serve_launches = serve_phase(engine_v, points, queries, r, prof, cfgs["greedy"],
+                                 q_cfgs["greedy f32-query"], kernels, (gt_ids, gt_counts))
+    log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
     del engine_v
 
     for name in ("expand", "gatherdist"):
         entries[name]["launches"] = launches["greedy"][name]
         entries[name]["build_launches"] = build_launches[name]
+    for name, n in serve_launches.items():
+        entries[name]["serve_launches"] = n
     entries["rerank_fetch"]["fallback_launches"] = fallback_launches
     entries["rerank_fetch"]["tier_launches"] = tier_launches
     for name in ("expand_int8", "gatherdist_int8"):
@@ -2189,7 +2443,8 @@ def main() -> int:
              "main_shape_bound_ms", "int8_query_gather_route", "int8_query_old_route_ms",
              "int8_query_main_shape_ms", "int8_query_main_shape_old_route_ms",
              "int8_query_main_shape_bound_ms", "fetch_route", "cold_ms",
-             "old_route_cold_ms", "build_launches", "fallback_launches", "tier_launches")
+             "old_route_cold_ms", "build_launches", "fallback_launches", "tier_launches",
+             "serve_launches")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

@@ -9,7 +9,7 @@ default stays f32.
 
 The reference's ``ARCH`` (sharding rules over a device mesh and the
 optimizer settings) is left out: it comes with the multi-device slice
-(ROADMAP.md §1, item 5: multi-device).
+(ROADMAP.md §1, item 4: multi-device).
 """
 import dataclasses
 

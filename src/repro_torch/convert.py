@@ -6,7 +6,8 @@ builds this package's engine over the identical index, so both packages
 can be run on the same graph. An int8 reference corpus comes across as its
 ``codes`` and ``meta`` beside the raw ``points``, so both packages search
 the identical quantized corpus. ``recsys_params_from_jax`` carries a JAX
-two-tower parameter tree across, ``transformer_params_from_jax`` a JAX LM's.
+two-tower parameter tree across, ``transformer_params_from_jax`` a JAX LM's,
+``effort_params_from_jax`` the effort regressor's.
 """
 from __future__ import annotations
 
@@ -98,3 +99,12 @@ def transformer_params_from_jax(params: dict, cfg: TransformerConfig,
     unembed_table = None if cfg.tie_embeddings else dense(params["unembed"])
     return Transformer(dense(params["embed"]), tensor(params["final_norm"]), layers,
                        unembed_table)
+
+
+def effort_params_from_jax(params: dict, device="cuda") -> dict:
+    """The reference's ``init_effort`` / fitted ``EffortPredictor.params``
+    ({"w{i}": (in, out), "b{i}": (out,)}, numpy) as the port's effort
+    tensors: the same (in, out) layout, so nothing is transposed."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v, np.float32), device=dev).contiguous()
+            for k, v in params.items()}

@@ -55,7 +55,11 @@ from .range_search import (
     filter_labeled,
     filter_tombstoned,
     finalize_results,
+    greedy_coverage,
+    greedy_lane_done,
+    greedy_resume_batch,
     greedy_search,
+    greedy_seed_batch,
     range_phase1,
     range_search_compacted,
     range_search_fused,

@@ -16,8 +16,9 @@ bounds and ends in the guard-band rerank. A ``TieredCorpus`` (``tier``)
 walks on its device arm and serves the rerank's exact rows from host
 memory. Label predicates gate the result stage; on the compacted path a
 lane whose predicate is selective enough skips the graph and scans its
-posting list exactly. The resumable ``greedy_*_batch`` API is a later
-slice (ROADMAP.md §1, item 2).
+posting list exactly. ``greedy_seed_batch`` / ``greedy_resume_batch``
+expose phase 2 as checkpoints advanced in slices, for continuous batching
+(``serve.scheduler``).
 """
 from __future__ import annotations
 
@@ -52,11 +53,6 @@ from .corpus import QuantizedCorpus, corpus_raw, corpus_size, hot_arm, upper_bou
 from .distances import gather_dist
 from .graph import Graph
 from .labels import LabelFilter, as_label_rows, label_match_counts, labels_match
-
-_LATER = ("is not ported yet: the resumable greedy API comes with serving, a "
-          "later slice of the port (ROADMAP.md §1, item 2: resumable greedy "
-          "API and serving)")
-
 
 @dataclasses.dataclass(frozen=True)
 class RangeConfig:
@@ -98,6 +94,11 @@ class RangeResult:
     phase2: torch.Tensor    # (Q,) bool — query took the second phase
     n_rerank: torch.Tensor  # (Q,) int32 — guard-band candidates exact-reranked
 
+    def select(self, lanes: torch.Tensor) -> "RangeResult":
+        """The result of the given lanes (an index tensor)."""
+        return RangeResult(**{f.name: getattr(self, f.name)[lanes]
+                              for f in dataclasses.fields(self)})
+
 
 # ---------------------------------------------------------------------------
 # Greedy continuation (paper Alg. 2)
@@ -113,6 +114,11 @@ class GreedyState:
     overflow: torch.Tensor   # (Q,) bool
     n_dist: torch.Tensor     # (Q,) int32
     seen_bits: torch.Tensor  # (Q, W) int32 — result-membership bitset
+
+    def select(self, lanes: torch.Tensor) -> "GreedyState":
+        """The state of the given lanes (an index tensor; copies)."""
+        return GreedyState(**{f.name: getattr(self, f.name)[lanes]
+                              for f in dataclasses.fields(self)})
 
 
 def _greedy_init(st: BeamState, r, cap: int, num_words: int,
@@ -242,9 +248,13 @@ def _greedy_step(points, graph: Graph, q, r, cap: int, scfg: SearchConfig,
 
 
 def _greedy_run(points, graph: Graph, q, r, gs: GreedyState, cap: int,
-                stop_at: int, scfg: SearchConfig, active) -> GreedyState:
+                stop_at, scfg: SearchConfig, active) -> GreedyState:
     """Advance every lane's greedy continuation until its frontier is empty
-    or ``gs.rounds`` reaches ``stop_at``; inactive lanes stay as they are."""
+    or ``gs.rounds`` reaches ``stop_at`` (an int, or a (Q,) tensor of each
+    lane's own stop); inactive lanes stay as they are. ``stop_at`` decides
+    only whether a lane steps, never how far, so stopping at round s and
+    running on later replays the expansions of one uninterrupted run.
+    ``gs.seen_bits`` is updated in place."""
     exact_bits = bitset_exact(corpus_size(points), gs.seen_bits.shape[1])
     E1 = scfg.eff_expand_width == 1
     # E >= 2: the packed buffer holds the results while the loop runs
@@ -279,12 +289,68 @@ def greedy_search(points, graph: Graph, q, r, st: BeamState, cap: int,
     return dataclasses.replace(gs, overflow=gs.overflow | (gs.expand_ptr < gs.res_count))
 
 
-def greedy_seed_batch(*args, **kwargs):
-    raise NotImplementedError("greedy_seed_batch " + _LATER)
+# ---------------------------------------------------------------------------
+# Checkpoint/resume greedy API (continuous-batching serving)
+# ---------------------------------------------------------------------------
+#
+# A ``GreedyState`` is a complete checkpoint of a lane's phase 2: the result
+# buffer, expansion pointer, round counter and membership bitset determine
+# every later expansion. A serving scheduler seeds checkpoints from phase 1
+# and advances them ``slice_rounds`` expansions at a time, rotating finished
+# lanes out while stragglers keep their state.
+
+def greedy_seed_batch(corpus, st: BeamState, r, cap: int,
+                      scfg: SearchConfig) -> GreedyState:
+    """Phase-2 checkpoints for a batch of finished beam states, each lane at
+    its own radius ``r`` (scalar or (Q,)): what ``greedy_search`` starts
+    from. Advance them with ``greedy_resume_batch``."""
+    points = hot_arm(corpus)
+    n_corpus = corpus_size(points)
+    num_words = bitset_num_words(n_corpus, scfg.bitset_cap_bits)
+    rj = broadcast_radius(r, st.ids.shape[0], device=st.ids.device)
+    return _greedy_init(st, rj, cap, num_words, bitset_exact(n_corpus, num_words))
 
 
-def greedy_resume_batch(*args, **kwargs):
-    raise NotImplementedError("greedy_resume_batch " + _LATER)
+def greedy_resume_batch(corpus, graph: Graph, queries, r, gs: GreedyState,
+                        active, cap: int, rounds: int, slice_rounds: int,
+                        scfg: SearchConfig) -> GreedyState:
+    """Advance checkpointed greedy lanes by up to ``slice_rounds`` expansions
+    each. A lane stops early when its frontier empties or its lifetime budget
+    ``rounds`` is spent; ``active`` (Q,) masks lanes to no-ops. Returns a new
+    state and leaves ``gs`` as it was (its bitset is copied before the run
+    marks it), so N resumes compose to exactly one ``greedy_search``. The
+    end-of-budget overflow bit is not set here (a paused lane has not
+    overflowed): ``greedy_lane_done`` gives it at retirement."""
+    points = hot_arm(corpus)
+    dev = points.device
+    queries = queries.to(device=dev, dtype=torch.float32).contiguous()
+    rj = broadcast_radius(r, queries.shape[0], device=dev)
+    active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+    gs = dataclasses.replace(gs, seen_bits=gs.seen_bits.clone())
+    stop_at = torch.clamp(gs.rounds + slice_rounds, max=rounds)
+    return _greedy_run(points, graph, queries, rj, gs, cap, stop_at, scfg, active)
+
+
+def greedy_lane_done(gs: GreedyState, rounds: int):
+    """Host-side retirement test for resumed lanes: ``(done, overflow)``
+    bool numpy arrays (one device-to-host copy). A lane is done when its
+    frontier is exhausted or its budget spent; ``overflow`` adds
+    ``greedy_search``'s end-of-run ``expand_ptr < res_count`` bit, so a
+    sliced lane retires with the one-shot path's flags."""
+    ptr, cnt, rds, over = torch.stack(
+        [gs.expand_ptr, gs.res_count, gs.rounds,
+         gs.overflow.to(torch.int32)]).cpu().numpy()
+    done = (ptr >= cnt) | (rds >= rounds)
+    return done, over.astype(bool) | (done & (ptr < cnt))
+
+
+def greedy_coverage(gs: GreedyState) -> np.ndarray:
+    """Visited-frontier fraction of each lane, ``expand_ptr / res_count``
+    clamped to [0, 1] (1.0 for a lane with no result), as host float64: the
+    coverage a deadline-truncated response carries (one device-to-host
+    copy)."""
+    ptr, cnt = torch.stack([gs.expand_ptr, gs.res_count]).cpu().numpy().astype(np.float64)
+    return np.where(cnt > 0, np.minimum(ptr / np.maximum(cnt, 1.0), 1.0), 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ the given ``KVCache`` at ``q_offset`` and returns the same object (the
 reference returns a new cache; on the card a second 8 GB cache would not
 fit beside gemma3-27b).
 
-MLA (deepseek-v2) is ROADMAP.md §1 item 7.
+MLA (deepseek-v2) is ROADMAP.md §1 item 6.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The LM token table: init, lookup (with gemma's sqrt(d_model) scale) and
 the tied or untied unembedding (with the logit soft cap). The recsys
-EmbeddingBag and ``multi_field_lookup`` are ROADMAP.md §1 item 9."""
+EmbeddingBag and ``multi_field_lookup`` are ROADMAP.md §1 item 8."""
 from __future__ import annotations
 
 import torch

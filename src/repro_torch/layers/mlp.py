@@ -1,8 +1,9 @@
 """The LM's feed-forward block (``MLPConfig``, ``init_mlp``, ``mlp``: gated
-SwiGLU / GeGLU or the classic two-matrix FFN) and the recsys towers' plain
-dense stack (``init_dense_stack`` / ``dense_stack`` of the reference, with
-ReLU, the towers' activation; the reference's other activations and
-``final_act`` serve models not ported yet, ROADMAP.md §1 item 9)."""
+SwiGLU / GeGLU or the classic two-matrix FFN) and the plain dense stack of
+the recsys towers and the effort regressor (``init_dense_stack`` /
+``dense_stack`` of the reference, with ReLU, their activation; the
+reference's other activations and ``final_act`` serve models not ported
+yet, ROADMAP.md §1 item 8)."""
 from __future__ import annotations
 
 import dataclasses
@@ -87,12 +88,18 @@ class DenseStack(nn.Module):
             self.register_parameter(f"b{i}", nn.Parameter(b, requires_grad=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        for i in range(self.n):
-            x = x @ getattr(self, f"w{i}").to(dt) + getattr(self, f"b{i}").to(dt)
-            if i < self.n - 1:
-                x = torch.relu(x)
-        return x
+        return dense_stack(dict(self.named_parameters()), x, self.n)
+
+
+def dense_stack(params: dict, x: torch.Tensor, n: int) -> torch.Tensor:
+    """The stack's function over a dict of its tensors (``w{i}``, ``b{i}``):
+    what ``DenseStack`` computes, on tensors a caller may differentiate."""
+    dt = x.dtype
+    for i in range(n):
+        x = x @ params[f"w{i}"].to(dt) + params[f"b{i}"].to(dt)
+        if i < n - 1:
+            x = torch.relu(x)
+    return x
 
 
 def init_dense_stack(dims, *, generator=None, device="cuda") -> DenseStack:

@@ -1,4 +1,13 @@
-"""Models of the port: the two-tower retrieval model and the dense LM."""
+"""Models of the port: the two-tower retrieval model, the dense LM and the
+serving layer's effort regressor."""
+from .effort import (
+    EffortConfig,
+    EffortPredictor,
+    effort_features,
+    effort_forward,
+    effort_loss,
+    init_effort,
+)
 from .recsys import (
     RecsysConfig,
     Tower,
@@ -23,8 +32,10 @@ from .transformer import (
     prefill,
 )
 
-__all__ = ["RecsysConfig", "Tower", "Transformer", "TransformerConfig", "TwoTower",
-           "cache_shapes", "decode_step", "embed_items", "forward", "greedy_token",
+__all__ = ["EffortConfig", "EffortPredictor", "RecsysConfig", "Tower", "Transformer",
+           "TransformerConfig", "TwoTower",
+           "cache_shapes", "decode_step", "effort_features", "effort_forward",
+           "effort_loss", "embed_items", "forward", "greedy_token", "init_effort",
            "init_cache", "init_recsys", "init_tower", "init_transformer",
            "logits_from_hidden", "prefill", "recsys_forward", "retrieval_scores",
            "retrieval_topk"]

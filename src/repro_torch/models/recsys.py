@@ -8,7 +8,7 @@ engine. The other kinds (Wide&Deep, DLRM, AutoInt) and the losses are not
 ported yet: they raise ``NotImplementedError`` naming their ROADMAP item.
 
 Serving only: parameters do not require gradients (the training slice,
-ROADMAP.md §1 item 7, turns them on).
+ROADMAP.md §1 item 6, turns them on).
 """
 from __future__ import annotations
 
@@ -22,15 +22,15 @@ from ..layers.common import embed_init
 from ..layers.mlp import DenseStack, init_dense_stack
 from ..utils import resolve_device
 
-_OTHER_KINDS = "ROADMAP.md §1 item 9 (the rest of the recsys family)"
-_TRAINING = "ROADMAP.md §1 item 7 (training)"
+_OTHER_KINDS = "ROADMAP.md §1 item 8 (the rest of the recsys family)"
+_TRAINING = "ROADMAP.md §1 item 6 (training)"
 
 
 @dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     """The reference's fields that the two-tower model reads; the dense
     features, DLRM's bottom MLP and AutoInt's attention come with the kinds
-    that read them (ROADMAP.md §1 item 9)."""
+    that read them (ROADMAP.md §1 item 8)."""
     name: str = "dlrm"
     kind: str = "dlrm"          # two_tower (wide_deep | dlrm | autoint raise)
     n_sparse: int = 26

@@ -1288,3 +1288,79 @@ def test_tiered_rerank_on_the_card_is_bitwise_resident(cuda_device, n_queries):
             assert torch.equal(getattr(res, f), getattr(res_t, f)), f
     c = tier.counters
     assert c.cache_evictions > 0 and c.fetch_batches > 5 and c.cache_hits > 0
+
+
+# ---------------------------------------------------------------------------
+# the serving layer on the card: integer coordinates make every distance
+# exact, so served answers must equal engine.range's bit for bit on any route
+# ---------------------------------------------------------------------------
+
+def _serve_rig(dev, corpus_dtype):
+    from repro_torch.core import BuildConfig, Graph, build_vamana
+    pts = _integer_rig(3000, 16, 2)
+    graph = build_vamana(pts, BuildConfig(max_degree=16, beam=32, insert_batch=256),
+                         device="cpu")
+    eng = RangeSearchEngine.from_graph(pts, Graph(graph.neighbors), corpus_dtype=corpus_dtype,
+                                       device=dev)
+    qs = pts[:96] + 0.5
+    d2 = ((pts[None] - qs[:, None]) ** 2).sum(-1)
+    cfg = RangeConfig(search=SearchConfig(beam=32, max_beam=32, visit_cap=128,
+                                          corpus_dtype=corpus_dtype or "float32"),
+                      result_cap=512)
+    return pts, eng, qs, d2, cfg
+
+
+def _serve(srv, qs, radii):
+    from repro_torch.serve import Request
+    for i in range(qs.shape[0]):
+        assert srv.submit(Request(req_id=i, query=qs[i], radius=float(radii[i]))) is None
+    return sorted(srv.run_until_drained(), key=lambda x: x.req_id)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus_dtype", [None, "int8"])
+def test_lockstep_server_equals_engine_range_on_the_card(cuda_device, corpus_dtype):
+    """Micro-batches of 32 against one engine.range over all 96 queries:
+    every response equals its lane (ids, distance bits, count, overflow,
+    es_stopped), and the path's kernels launched."""
+    from repro_torch.serve import RangeServer, ServerConfig
+    pts, eng, qs, d2, cfg = _serve_rig(cuda_device, corpus_dtype)
+    radii = np.full(qs.shape[0], float(np.quantile(d2, 0.01)) + 0.5, np.float32)
+    want = eng.range(qs, radii, cfg=cfg)
+    kern = expand_int8_cuda if corpus_dtype else expand_cuda
+    before = kern.launches
+    resp = _serve(RangeServer(eng, cfg, ServerConfig(max_batch=32)), qs, radii)
+    torch.cuda.synchronize()
+    assert kern.launches > before
+    ids, dists = want.ids.cpu().numpy(), want.dists.cpu().numpy()
+    for i, x in enumerate(resp):
+        keep = ids[i] != INVALID_ID
+        np.testing.assert_array_equal(x.ids, ids[i][keep])
+        np.testing.assert_array_equal(x.dists.view(np.int32), dists[i][keep].view(np.int32))
+        assert (x.count, x.overflow, x.es_stopped) == (
+            int(want.count[i]), bool(want.overflow[i]), bool(want.es_stopped[i]))
+    assert sum(x.count for x in resp) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus_dtype", [None, "int8"])
+def test_continuous_server_equals_lockstep_on_the_card(cuda_device, corpus_dtype):
+    """Every fourth request at a radius of ~300 matches (phase 2 in the pool
+    of 4 lanes, 2 rounds a slice, the overflow one-shot), the rest at ~10:
+    per request the lockstep server's ids, distance bits, count and
+    overflow."""
+    from repro_torch.serve import RangeServer, ServerConfig
+    pts, eng, qs, d2, cfg = _serve_rig(cuda_device, corpus_dtype)
+    srt = np.sort(d2, 1)
+    radii = np.where(np.arange(qs.shape[0]) % 4 == 0, srt[:, 300], srt[:, 10]).astype(np.float32)
+    lock = _serve(RangeServer(eng, cfg, ServerConfig(max_batch=16)), qs, radii)
+    srv = RangeServer(eng, cfg, ServerConfig(max_batch=16, continuous=True, lanes=4,
+                                             slice_rounds=2))
+    cont = _serve(srv, qs, radii)
+    torch.cuda.synchronize()
+    assert srv.stats["pool_admitted"] and srv.stats["pool_oneshot"]
+    assert srv.stats["pool_rotations"]
+    for a, b in zip(lock, cont):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.dists.view(np.int32), b.dists.view(np.int32))
+        assert (a.count, a.overflow) == (b.count, b.overflow)

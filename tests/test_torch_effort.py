@@ -1,0 +1,269 @@
+"""The port's effort regressor, AdamW and latency histogram against the JAX
+package's, on the same numpy inputs.
+
+Tolerances, and why they hold:
+
+* features, the normalization statistics and the forward pass:
+  ``rtol=1e-5, atol=1e-6``. The same f32 arithmetic; the frameworks order a
+  norm's and a matmul's sums differently (a few ulp).
+* the learning-rate schedule, the global norm and one AdamW update:
+  ``rtol=1e-5, atol=1e-8``. The same f32 formulas; ``b ** step`` and ``cos``
+  come from different libraries (an ulp or two), and the update divides by
+  ``sqrt(v_hat) + eps``, which magnifies a relative ulp of ``v`` by at most
+  a half.
+* a whole fit from the same initial weights: within 1e-4 in log1p through
+  150 steps (the trajectories stay a few ulp apart); at the default 300
+  steps the training is chaotic (one ulp in the initial weights moves a
+  fit's predictions by up to 0.11), so those fits are held to 0.25 and to
+  the same effort buckets (see the test).
+* gradient accumulation (two micro-batches) against one large batch, as
+  the reference tests it: ``rtol=2e-3, atol=2e-4`` (the reference's own
+  tolerance; the mean of means reorders the batch sum).
+* ``LatencyHistogram`` is a copy of the reference's numpy module: equal.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import effort as JE
+from repro.optim import adamw as JA
+from repro.serve.latency import LatencyHistogram as JLatencyHistogram
+from repro_torch.convert import effort_params_from_jax
+from repro_torch.models import (
+    EffortConfig, EffortPredictor, effort_features, effort_forward, effort_loss, init_effort)
+from repro_torch.optim import (
+    AdamWConfig, adamw_update, clip_by_global_norm, global_norm, init_adamw,
+    make_train_step, schedule_lr)
+from repro_torch.serve import LatencyHistogram
+
+FEAT_TOL = dict(rtol=1e-5, atol=1e-6)
+OPT_TOL = dict(rtol=1e-5, atol=1e-8)
+TN_STD = 0.9865881  # std of a unit normal truncated at +-3
+
+
+def _data(n=256, d=12, seed=0):
+    """Calibration traffic as a server sees it: queries near a clustered
+    corpus of 2,000 points, radii over two decades, and each query's exact
+    match count (a noisy target: the fit's loss stays well above zero)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((8, d)).astype(np.float32) * 3
+    pts = centers[rng.integers(0, 8, 2000)] + rng.standard_normal((2000, d)) * 0.4
+    q = (centers[rng.integers(0, 8, n)] + rng.standard_normal((n, d)) * 0.6).astype(np.float32)
+    r = np.exp(rng.uniform(np.log(0.5), np.log(20.0), n)).astype(np.float32)
+    counts = (((pts[None] - q[:, None]) ** 2).sum(-1) <= r[:, None]).sum(1)
+    return q, r, counts
+
+
+def _np(tree):
+    return {k: np.asarray(v) for k, v in tree.items()}
+
+
+def _t(tree):
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def test_effort_features_match_jax():
+    q, r, _ = _data()
+    np.testing.assert_allclose(effort_features(q, r).numpy(),
+                               np.asarray(JE.effort_features(q, r)), **FEAT_TOL)
+    np.testing.assert_allclose(effort_features(torch.from_numpy(q), 0.5).numpy(),
+                               np.asarray(JE.effort_features(q, 0.5)), **FEAT_TOL)
+
+
+def test_effort_forward_and_loss_match_jax():
+    """The JAX initial weights carried across; mu and sigma computed by each
+    side (sigma is the population deviation: ``torch.std``'s default
+    correction=1 would move it by sqrt(n / (n - 1)))."""
+    q, r, counts = _data()
+    cfg = EffortConfig(dim=12)
+    jcfg = JE.EffortConfig(dim=12)
+    jparams = JE.init_effort(jax.random.PRNGKey(3), jcfg)
+    params = effort_params_from_jax(_np(jparams), device="cpu")
+    feats = effort_features(q, r)
+    mu, sigma = feats.mean(0), torch.clamp(feats.std(0, correction=0), min=1e-6)
+    jf = JE.effort_features(q, r)
+    jmu, jsigma = jnp.mean(jf, axis=0), jnp.maximum(jnp.std(jf, axis=0), 1e-6)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(jmu), **FEAT_TOL)
+    np.testing.assert_allclose(sigma.numpy(), np.asarray(jsigma), **FEAT_TOL)
+    assert not np.allclose(feats.std(0).numpy(), np.asarray(jsigma), **FEAT_TOL)
+    got = effort_forward(params, feats, cfg, mu, sigma).numpy()
+    want = np.asarray(JE.effort_forward(jparams, jf, jcfg, jmu, jsigma))
+    np.testing.assert_allclose(got, want, **FEAT_TOL)
+    batch = {"feats": feats, "log_count": torch.log1p(torch.from_numpy(counts).float())}
+    jbatch = {"feats": jf, "log_count": jnp.log1p(jnp.asarray(counts, jnp.float32))}
+    loss, m = effort_loss(params, batch, cfg, mu, sigma)
+    jloss, jm = JE.effort_loss(jparams, jbatch, jcfg, jmu, jsigma)
+    np.testing.assert_allclose(float(loss), float(jloss), **FEAT_TOL)
+    np.testing.assert_allclose(float(m["mae_log"]), float(jm["mae_log"]), **FEAT_TOL)
+
+
+def test_init_effort_shapes_and_statistics():
+    cfg = EffortConfig(dim=126, hidden=(512, 256))
+    params = init_effort(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    want = JE.init_effort(jax.random.PRNGKey(0), JE.EffortConfig(dim=126, hidden=(512, 256)))
+    assert {k: tuple(v.shape) for k, v in params.items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
+    for i, fan_in in enumerate((128, 512, 256)):
+        w = params[f"w{i}"]
+        assert abs(float(w.std()) - TN_STD * fan_in ** -0.5) < 0.05 * fan_in ** -0.5
+        assert float(w.abs().max()) <= 3 * fan_in ** -0.5
+        assert not params[f"b{i}"].any() and not w.requires_grad
+
+
+@pytest.mark.parametrize("schedule", ["cosine", "linear", "constant"])
+def test_schedule_lr_matches_jax(schedule):
+    kw = dict(lr=1e-2, schedule=schedule, warmup_steps=10, total_steps=300,
+              min_lr_frac=0.1)
+    cfg, jcfg = AdamWConfig(**kw), JA.AdamWConfig(**kw)
+    steps = np.arange(0, 320, 7, dtype=np.int32)
+    got = [float(schedule_lr(cfg, torch.tensor(s))) for s in steps]
+    want = [float(JA.schedule_lr(jcfg, jnp.asarray(s))) for s in steps]
+    np.testing.assert_allclose(got, want, **OPT_TOL)
+
+
+def _tree(seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return {"w0": (rng.standard_normal((14, 32)) * scale).astype(np.float32),
+            "b0": (rng.standard_normal(32) * scale).astype(np.float32),
+            "w1": (rng.standard_normal((32, 1)) * scale).astype(np.float32),
+            "b1": (rng.standard_normal(1) * scale).astype(np.float32)}
+
+
+def test_global_norm_and_clip_match_jax():
+    g = _tree(1, 3.0)
+    np.testing.assert_allclose(float(global_norm(_t(g))), float(JA.global_norm(g)), **OPT_TOL)
+    for max_norm in (1.0, 1e6):   # clipped, and left alone
+        got, gn = clip_by_global_norm(_t(g), max_norm)
+        want, jgn = JA.clip_by_global_norm(g, max_norm)
+        np.testing.assert_allclose(float(gn), float(jgn), **OPT_TOL)
+        for k in g:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **OPT_TOL)
+    zero = {k: np.zeros_like(v) for k, v in g.items()}   # the 1e-12 floor
+    got, _ = clip_by_global_norm(_t(zero), 1.0)
+    assert all(not v.any() and torch.isfinite(v).all() for v in got.values())
+
+
+@pytest.mark.parametrize("moment_dtype", [None, "bfloat16"])
+def test_adamw_updates_match_jax(moment_dtype):
+    """Five updates with decay, clipping (global norm ~10 against a limit of
+    1) and warm-up: parameters, moments, step, grad_norm and lr."""
+    kw = dict(lr=1e-2, weight_decay=0.1, clip_norm=1.0, warmup_steps=3, total_steps=20)
+    cfg = AdamWConfig(**kw, moment_dtype=None if moment_dtype is None else torch.bfloat16)
+    jcfg = JA.AdamWConfig(**kw, moment_dtype=None if moment_dtype is None else jnp.bfloat16)
+    p, jp = _t(_tree(0)), _tree(0)
+    st, jst = init_adamw(p, cfg), JA.init_adamw(jp, jcfg)
+    tol = OPT_TOL if moment_dtype is None else dict(rtol=1e-2, atol=1e-5)
+    for i in range(5):
+        g = _tree(10 + i, 3.0)
+        p, st, m = adamw_update(p, _t(g), st, cfg)
+        jp, jst, jm = JA.adamw_update(jp, g, jst, jcfg)
+        assert int(st["step"]) == int(jst["step"]) == i + 1
+        for k in g:
+            np.testing.assert_allclose(p[k].numpy(), np.asarray(jp[k]), **tol, err_msg=k)
+            for mom in ("m", "v"):
+                assert st[mom][k].dtype == (cfg.moment_dtype or torch.float32)
+                np.testing.assert_allclose(st[mom][k].float().numpy(),
+                                           np.asarray(jst[mom][k], np.float32), **tol)
+        for key in ("grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[key]), float(jm[key]), **OPT_TOL)
+
+
+def test_gradient_accumulation_matches_big_batch():
+    """tests/test_train_serve.py's accumulation test on the effort model: two
+    micro-batches against one batch of both, and against JAX's accumulating
+    step."""
+    q, r, counts = _data(64)
+    cfg = EffortConfig(dim=12)
+    jcfg = JE.EffortConfig(dim=12)
+    jparams = JE.init_effort(jax.random.PRNGKey(0), jcfg)
+    params = effort_params_from_jax(_np(jparams), device="cpu")
+    feats = effort_features(q, r)
+    mu, sigma = feats.mean(0), torch.clamp(feats.std(0, correction=0), min=1e-6)
+    batch = {"feats": feats, "log_count": torch.log1p(torch.from_numpy(counts).float())}
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, schedule="constant")
+    jopt = JA.AdamWConfig(lr=1e-2, warmup_steps=1, schedule="constant")
+    loss = lambda p_, b_: effort_loss(p_, b_, cfg, mu, sigma)  # noqa: E731
+    big = make_train_step(loss, opt)
+    acc = make_train_step(loss, opt, accum_steps=2)
+    p1, _, m1 = big(params, init_adamw(params, opt), batch)
+    p2, _, m2 = acc(params, init_adamw(params, opt), batch)
+    for k in p1:
+        np.testing.assert_allclose(p1[k].numpy(), p2[k].numpy(), rtol=2e-3, atol=2e-4)
+    jmu, jsigma = jnp.asarray(mu.numpy()), jnp.asarray(sigma.numpy())
+    jacc = JA.make_train_step(lambda p_, b_: JE.effort_loss(p_, b_, jcfg, jmu, jsigma),
+                              jopt, accum_steps=2)
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    jp2, _, jm2 = jacc(jparams, JA.init_adamw(jparams, jopt), jbatch)
+    for k in p2:
+        np.testing.assert_allclose(p2[k].numpy(), np.asarray(jp2[k]), **FEAT_TOL)
+    np.testing.assert_allclose(float(m2["loss"]), float(jm2["loss"]), **FEAT_TOL)
+    assert float(m1["loss"]) > 0 and m1["grad_norm"] > 0
+
+
+def _calibration(n=320, d=12, seed=0):
+    """The serving CLI's calibration shape: queries at corpus points, every
+    fourth at the radius of ~96 matches, the rest at ~3, with exact counts
+    (the first 256 fit, the rest are held out)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((8, d)).astype(np.float32) * 3
+    pts = (centers[rng.integers(0, 8, 2000)] + rng.standard_normal((2000, d)) * 0.4)
+    q = (pts[rng.integers(0, 2000, n)] + 0.01).astype(np.float32)
+    d2 = ((pts[None] - q[:, None]) ** 2).sum(-1)
+    srt = np.sort(d2, 1)
+    r = np.where(np.arange(n) % 4 == 0, (srt[:, 95] + srt[:, 96]) / 2,
+                 (srt[:, 2] + srt[:, 3]) / 2).astype(np.float32)
+    return q, r, (d2 <= r[:, None]).sum(1)
+
+
+@pytest.mark.parametrize("steps", [150, 300])
+def test_effort_fit_matches_jax(steps):
+    """Whole fits from the same initial weights. Through 150 steps the two
+    trajectories stay a few ulp apart: predictions within 1e-4 in log1p. By
+    300 steps (the default) the trajectory is chaotic: one ulp added to the
+    port's own initial weights moves its predictions by up to 0.11 in log1p
+    on this data (0.05 for JAX's), so no bound tighter than that spread can
+    hold; the 300-step fits are held to 0.25 (about twice the spread) and to
+    splitting the requests into the same effort buckets."""
+    cq, cr, cc = _calibration()
+    q, r, counts = cq[:256], cr[:256], cc[:256]
+    hq, hr, hc = cq[256:], cr[256:], cc[256:]
+    jcfg = JE.EffortConfig(dim=12, steps=steps)
+    jpred = JE.EffortPredictor.fit(q, r, counts, jcfg, seed=5)
+    init = effort_params_from_jax(_np(JE.init_effort(jax.random.PRNGKey(5), jcfg)),
+                                  device="cpu")
+    pred = EffortPredictor.fit(q, r, counts, EffortConfig(dim=12, steps=steps),
+                               device="cpu", init_params=init)
+    np.testing.assert_allclose(pred.mu.numpy(), np.asarray(jpred.mu), **FEAT_TOL)
+    np.testing.assert_allclose(pred.sigma.numpy(), np.asarray(jpred.sigma), **FEAT_TOL)
+    got = pred.predict_log1p(hq, hr).numpy()
+    want = np.asarray(jpred.predict_log1p(hq, hr))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 if steps == 150 else 0.25)
+    np.testing.assert_array_equal(pred.predict(hq, hr) >= 16.0,
+                                  np.asarray(jpred.predict(hq, hr)) >= 16.0)
+    np.testing.assert_allclose(pred.predict(hq, hr), np.maximum(np.expm1(got), 0.0))
+    # the fit splits held-out traffic as the true counts do
+    assert np.mean((pred.predict(hq, hr) >= 16.0) == (hc >= 16)) >= 0.95
+    if steps == 300:   # the port's own draw (a torch.Generator from the seed)
+        own = EffortPredictor.fit(q, r, counts, device="cpu", seed=5)
+        assert own.device.type == "cpu" and own.cfg == EffortConfig(dim=12)
+        assert np.mean((own.predict(hq, hr) >= 16.0) == (hc >= 16)) >= 0.95
+
+
+def test_latency_histogram_matches_jax():
+    rng = np.random.default_rng(4)
+    samples = np.concatenate([rng.lognormal(np.log(2e-3), 1.0, 500), [1e-7, 20.0, 0.0]])
+    h, jh = LatencyHistogram(), JLatencyHistogram()
+    assert np.isnan(h.percentile(50)) and h.summary()["count"] == 0
+    for chunk in np.array_split(samples, 7):
+        h.record(chunk)
+        jh.record(chunk)
+    h.record(0.5)
+    jh.record(0.5)
+    for p in (0, 1, 50, 90, 95, 99, 99.9, 100):
+        assert h.percentile(p) == jh.percentile(p)
+    assert h.summary() == jh.summary()
+    np.testing.assert_array_equal(h.counts, jh.counts)
+    with pytest.raises(ValueError):
+        LatencyHistogram(lo_s=1.0, hi_s=0.5)

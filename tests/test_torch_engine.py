@@ -153,14 +153,9 @@ def test_from_graph_and_bf16_corpus_match_jax(metric):
 
 
 def test_unported_options_raise():
-    """The resumable greedy API waits for the serving slice and raises,
-    naming its ROADMAP item; a filter on an engine without labels raises
-    ``ValueError``, as the reference's does."""
-    from repro_torch.core.range_search import greedy_resume_batch, greedy_seed_batch
+    """A filter on an engine without labels raises ``ValueError``, as the
+    reference's does."""
     _, jeng, teng, qs, radii = _rig("l2")
-    for fn in (greedy_seed_batch, greedy_resume_batch):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1, item 2"):
-            fn()
     jfilt = J.make_label_filter([[0]] * qs.shape[0], 4)
     with pytest.raises(ValueError, match="no labels"):
         jeng.range(jnp.asarray(qs), jnp.asarray(radii), filter=jfilt)

@@ -31,7 +31,10 @@ NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
          "repro_torch.configs.range_engine", "repro_torch.tier",
          "repro_torch.tier.budget", "repro_torch.tier.cache",
          "repro_torch.tier.corpus", "repro_torch.tier.planner",
-         "repro_torch.tier.store")
+         "repro_torch.tier.store", "repro_torch.fault", "repro_torch.fault.errors",
+         "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.models.effort",
+         "repro_torch.serve", "repro_torch.serve.latency", "repro_torch.serve.scheduler",
+         "repro_torch.serve.server")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -55,11 +58,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from repro_torch.configs import gemma3_27b
     from repro_torch.configs.two_tower_retrieval import reduced
     from repro_torch.convert import (
-        engine_from_arrays, recsys_params_from_jax, transformer_params_from_jax)
+        effort_params_from_jax, engine_from_arrays, recsys_params_from_jax,
+        transformer_params_from_jax)
     from repro_torch.kernels import rangescan
     from repro_torch.layers import (
         GQAConfig, MLPConfig, init_dense_stack, init_gqa, init_mlp, init_token_embedding)
-    from repro_torch.models import init_cache, init_recsys, init_tower, init_transformer
+    from repro_torch.models import (
+        EffortConfig, EffortPredictor, init_cache, init_effort, init_recsys, init_tower,
+        init_transformer)
     from repro_torch.core import (
         Graph, RangeSearchEngine, build_knn_graph, build_vamana, exact_range_search,
         exact_topk, range_counts_at, sweep)
@@ -100,6 +106,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: tiered_corpus(pts),
         lambda: RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs)),
                                              tier=True),
+        lambda: init_effort(EffortConfig(dim=8)),
+        lambda: EffortPredictor.fit(pts, np.ones(64, np.float32), np.ones(64)),
+        lambda: effort_params_from_jax({"w0": np.zeros((10, 1), np.float32)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -119,3 +128,4 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert init_transformer(lm, device="cpu").embed.device.type == "cpu"
     assert init_cache(lm, 1, 8, device="cpu").k.device.type == "cpu"
     assert init_transformer(lm, device="meta").embed.is_meta
+    assert init_effort(EffortConfig(dim=8), device="cpu")["w0"].device.type == "cpu"
