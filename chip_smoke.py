@@ -80,6 +80,26 @@ Phases, each printed as it ends:
      counters; a 256-request continuous pass on the plain path (AP within
      0.01 of the kernel path); every path kernel launched through the
      server (``serve_launches`` in the kernels line);
+ 15. [live]: the live index (``repro_torch.live``) promoted from the Vamana
+     graph, the serve CLI's --churn settings (capacity n + k, insert steps
+     of 128, R=32, beam 64), greedy at r: (a) f32 and int8, k = 10,000
+     inserts (a corpus point plus 0.05 std noise, benchmarks/run.py's churn
+     row) and k deletes of initial ids, with their rates; QPS and AP on the
+     live set beside the static engine's; gates: no deleted id answers,
+     each of 256 inserted vectors finds its own id at distance 0, the int8
+     guard band on the live snapshot, a pre-churn snapshot answers bit for
+     bit as before, kernel-path AP equals plain-path AP within 0.01; then
+     ``consolidate()`` (seconds, rows rewired and pruned, slots reclaimed)
+     and the gates again; (b) f32 durability: a WAL and a checkpoint in a
+     temporary directory, half the churn, save, 2,000 inserts and deletes
+     and a consolidation, a torn record; ``LiveIndex.restore(cm, wal=)``
+     equals the uninterrupted index bit for bit (checkpoint bytes, save,
+     restore and replay seconds); (c) 1,024 queries shuffled with 2,000
+     inserts and 2,000 deletes through ``RangeServer(live=)``, lockstep and
+     continuous: every request answered once, each insert's id holding its
+     vector, continuous equal to lockstep per query, requests/s, epoch,
+     AP on the final live set; every search kernel launched through the
+     live path (``live_launches`` in the kernels line);
   9. [two_tower], run right after the build so its 43 GB tables find the
      card empty: the two-tower-retrieval model at full width (16 + 16
      fields, vocab 10,485,760, d_embed 64, towers 1024-1024-512-256, both
@@ -1652,7 +1672,7 @@ def vamana_phase(points, queries, r, cfg, q_cfg, ap_of, knn, kernels, profile):
     degrees and reachability; then greedy f32 and int8 on it at the main
     path's settings beside the k-NN graph's QPS and AP, the kernel path against
     the plain path and the int8 guard-band contract. Returns (the f32
-    engine, the build's launches)."""
+    engine, the build's launches, the greedy f32 and int8 APs)."""
     import torch
     from repro_torch.core import BuildConfig, RangeSearchEngine, build_vamana
     bcfg = BuildConfig(max_degree=32, beam=64, alpha=1.2, insert_batch=1024, metric="l2")
@@ -1695,6 +1715,7 @@ def vamana_phase(points, queries, r, cfg, q_cfg, ap_of, knn, kernels, profile):
     sub = queries[:256]
     f32_k = {k: kernels[k] for k in ("expand", "gatherdist")}
     q_k = {k: kernels[k] for k in ("expand_int8", "gatherdist_int8", "rerank_fetch")}
+    aps = {}
     for name, eng, c, kern in (("greedy f32", engine, cfg, f32_k),
                                ("greedy int8 f32-query", engine_q, q_cfg, q_k)):
         res, wall, cnt, rts = run_mode(eng, queries, r, c, kern, profile, f"vamana {name}")
@@ -1707,7 +1728,7 @@ def vamana_phase(points, queries, r, cfg, q_cfg, ap_of, knn, kernels, profile):
             check_result(res, points, queries, r, c.result_cap, f"vamana {name}")
         else:
             check_result_int8(res, points, queries, r, c.result_cap, f"vamana {name}")
-        ap = ap_of(res)
+        ap = aps[name] = ap_of(res)
         plain = dataclasses.replace(c, search=dataclasses.replace(c.search, use_kernels=False))
         ap_k, ap_p = ap_of(eng.range(sub, r, cfg=c), 256), ap_of(eng.range(sub, r, cfg=plain), 256)
         if abs(ap_k - ap_p) > 0.01:
@@ -1727,7 +1748,7 @@ def vamana_phase(points, queries, r, cfg, q_cfg, ap_of, knn, kernels, profile):
                 f"rerank-disabled set filtered by the exact distances on {n_ok} lanes; "
                 f"{n_tie} pairs within 1e-6 of r")
     del engine_q
-    return engine, counts
+    return engine, counts, aps
 
 
 FILTER_LABELS = 16          # benchmarks/run.py's filtered row: 16 labels, 1-2 a point
@@ -2145,6 +2166,302 @@ def serve_phase(engine, points, queries, r, prof, cfg, q_cfg, kernels, gt):
     return launches
 
 
+LIVE_K = 10_000             # rows inserted and deleted: 1 % of n (benchmarks/run.py churns 10 %)
+LIVE_INSERT_BATCH = 128     # the serve CLI's --churn path (src/repro/launch/serve.py:165-167)
+LIVE_CHECK = 256            # queries of each gate
+LIVE_DURABLE_TAIL = 2_000   # inserts and deletes after the checkpoint
+LIVE_SERVED_QUERIES = 1_024
+LIVE_SERVED_MUTATIONS = 2_000
+LIVE_PATH = ("expand", "gatherdist", "expand_int8", "gatherdist_int8", "rerank_fetch")
+
+
+class _SlotView:
+    """A live snapshot searched by slot id with its tombstones applied: the
+    guard-band check's engine (its ids index the capacity's raw rows)."""
+
+    def __init__(self, snap):
+        self.engine, self.tombstones = snap.as_engine(), snap.tombstones
+
+    def range(self, queries, r, cfg):
+        return self.engine.range(queries, r, cfg=cfg, tombstones=self.tombstones)
+
+
+def live_ap(live, queries, res_ids, res_counts, r):
+    """AP of external-id answers against ``exact_range_search`` over the
+    index's live set (``live_vectors``), ids mapped to its rows."""
+    import torch
+    from repro_torch.core import average_precision, exact_range_search
+    from repro_torch.utils import INVALID_ID
+    ext, vecs = live.live_vectors()
+    gt_ids, _, gt_counts = exact_range_search(torch.from_numpy(vecs).to(queries.device),
+                                              queries, r, device=queries.device)
+    lut = np.full(live.next_ext_id + 1, INVALID_ID, np.int64)
+    lut[ext] = np.arange(ext.shape[0])
+    ids = np.asarray(res_ids)
+    rows = np.where(ids == INVALID_ID, INVALID_ID, lut[np.minimum(ids, live.next_ext_id)])
+    return average_precision(gt_ids.cpu().numpy(), gt_counts.cpu().numpy(), rows,
+                             np.asarray(res_counts))
+
+
+def live_gates(live, snap0, before, queries, fresh_ids, fresh, doomed, r, cfg, name):
+    """The churn gates of [live] (a) on the index as it stands: no deleted id
+    answers (all queries), each of LIVE_CHECK inserted vectors finds its own
+    id at distance 0, the int8 guard band on the live snapshot, the
+    pre-churn snapshot answers bit for bit as before, kernel-path AP equals
+    plain-path AP within 0.01. Returns (the full batch's AP, QPS, a line)."""
+    import torch
+    from repro_torch.core import corpus_raw
+    snap = live.snapshot()
+    res = snap.range(queries, r, cfg=cfg)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = snap.range(queries, r, cfg=cfg)
+    torch.cuda.synchronize()
+    qps = queries.shape[0] / (time.perf_counter() - t0)
+    ids = res.ids.cpu().numpy()
+    if np.isin(ids, doomed).any():
+        raise AssertionError(f"[live] {name}: a deleted id answered")
+    ap = live_ap(live, queries, ids, res.count.cpu().numpy(), r)
+    k = LIVE_CHECK
+    mine = snap.range(torch.from_numpy(fresh[:k]).to(queries.device), r, cfg=cfg)
+    m_ids, m_d = mine.ids.cpu().numpy(), mine.dists.cpu().numpy()
+    hit = [bool(((m_ids[i] == fresh_ids[i]) & (m_d[i] == 0.0)).any()) for i in range(k)]
+    if not all(hit):
+        raise AssertionError(f"[live] {name}: {k - sum(hit)} of {k} inserted vectors did not "
+                             "find their own id at distance 0")
+    sub = queries[:k]
+    guard = ""
+    if cfg.search.corpus_dtype == "int8":
+        n_ok, n_tie = check_guard_band(_SlotView(snap), corpus_raw(live.points), sub, r, cfg,
+                                       f"live {name}")
+        guard = f"; guard band held on {n_ok} lanes ({n_tie} pairs within 1e-6 of r)"
+    again = snap0.range(sub, r, cfg=cfg)
+    for f in ("ids", "dists", "count", "overflow", "n_visited", "n_dist", "n_rerank"):
+        if not torch.equal(getattr(again, f), before[f]):
+            raise AssertionError(f"[live] {name}: the pre-churn snapshot's {f} changed")
+    plain = dataclasses.replace(cfg, search=dataclasses.replace(cfg.search, use_kernels=False))
+    res_k, res_p = snap.range(sub, r, cfg=cfg), snap.range(sub, r, cfg=plain)
+    ap_k = live_ap(live, sub, res_k.ids.cpu().numpy(), res_k.count.cpu().numpy(), r)
+    ap_p = live_ap(live, sub, res_p.ids.cpu().numpy(), res_p.count.cpu().numpy(), r)
+    if abs(ap_k - ap_p) > 0.01:
+        raise AssertionError(f"[live] {name}: kernel and plain AP differ by {abs(ap_k - ap_p):.4f}")
+    line = (f"no deleted id in {queries.shape[0]} answers; {k} of {k} inserted vectors "
+            f"found their own id at distance 0{guard}; the pre-churn snapshot answered {k} "
+            f"queries bit for bit as before; on {k} queries AP kernel={ap_k:.4f} "
+            f"plain={ap_p:.4f}")
+    return ap, qps, line
+
+
+def live_phase(graph, points, queries, r, cfg, q_cfg, kernels, vamana_aps) -> dict:
+    """[live]: the live index (``repro_torch.live``) promoted from the Vamana
+    graph (``graph=``) at 1M x 128, with the serve CLI's --churn settings
+    (``LiveConfig(capacity=n + k, insert_batch=128)``, ``BuildConfig(
+    max_degree=32, beam=64)``) and the deploy config's greedy search at r.
+    (a) f32 and int8: insert LIVE_K rows (a corpus point plus 0.05 std noise,
+    benchmarks/run.py's churn row), delete LIVE_K initial ids, answer the
+    queries, the gates of ``live_gates``; then ``consolidate()`` and the
+    gates again. (b) f32 durability: a WAL and a checkpoint in a temporary
+    directory; half the churn, save, LIVE_DURABLE_TAIL inserts and deletes
+    and a consolidation, a torn record; ``LiveIndex.restore(cm, wal=)``
+    equals the uninterrupted index bit for bit. (c) served churn:
+    LIVE_SERVED_QUERIES queries shuffled with LIVE_SERVED_MUTATIONS inserts
+    and deletes (seed 0, as the serve CLI's `_churn_main`), through
+    ``RangeServer(None, cfg, ServerConfig(max_batch=128), live=)`` in
+    lockstep and continuously: every request answered once, each insert
+    response carrying the id its row holds, continuous equal to lockstep on
+    every query. Returns the phase's launches per kernel (every count set to
+    0 at its start; the plain path launches none)."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import BuildConfig, corpus_raw
+    from repro_torch.fault import WriteAheadLog
+    from repro_torch.fault.wal import encode_record
+    from repro_torch.live import LiveConfig, LiveIndex
+    from repro_torch.serve import RangeServer, Request, ServerConfig
+    from repro_torch.train import CheckpointManager
+    from repro_torch.utils import INVALID_ID
+    dev = points.device
+    card = card_line()
+    n, k = points.shape[0], LIVE_K
+    lcfg = LiveConfig(capacity=n + k, insert_batch=LIVE_INSERT_BATCH)
+    bcfg = BuildConfig(max_degree=32, beam=64)
+    pts_np = points.cpu().numpy()
+    rng = np.random.default_rng(SEED)          # benchmarks/run.py:900-903
+    fresh = (pts_np[rng.integers(0, n, k)] + rng.standard_normal((k, pts_np.shape[1]))
+             .astype(np.float32) * 0.05 * pts_np.std()).astype(np.float32)
+    doomed = rng.choice(n, k, replace=False)
+    del pts_np
+    sub = queries[:LIVE_CHECK]
+    reset_counts(kernels)
+
+    # -- (a) churn on the engine, f32 and int8 --------------------------------
+    for dtype, c in (("float32", cfg), ("int8", q_cfg)):
+        t0 = time.perf_counter()
+        live = LiveIndex.create(points, lcfg, bcfg, corpus_dtype=dtype, graph=graph, device=dev)
+        torch.cuda.synchronize()
+        t_create = time.perf_counter() - t0
+        snap0 = live.snapshot()
+        res0 = snap0.range(sub, r, cfg=c)
+        before = {f: getattr(res0, f).clone() for f in (
+            "ids", "dists", "count", "overflow", "n_visited", "n_dist", "n_rerank")}
+        t0 = time.perf_counter()
+        fresh_ids = live.insert(fresh)
+        torch.cuda.synchronize()
+        t_ins = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_del = live.delete(doomed)
+        torch.cuda.synchronize()
+        t_del = time.perf_counter() - t0
+        if n_del != k or live.n_live != n or not np.array_equal(fresh_ids, n + np.arange(k)):
+            raise AssertionError(f"[live] {dtype}: {n_del} deleted, {live.n_live} live")
+        ap, qps, line = live_gates(live, snap0, before, queries, fresh_ids, fresh, doomed, r, c,
+                                   dtype)
+        static = vamana_aps["greedy f32" if dtype == "float32" else "greedy int8 f32-query"]
+        log(f"[live] {dtype} churn: LiveIndex.create(graph=) in {t_create:.2f} s; {k} inserts "
+            f"in {t_ins:.2f} s ({k / t_ins:.1f} inserts/s; one call, "
+            f"{-(-k // LIVE_INSERT_BATCH)} insert steps of {LIVE_INSERT_BATCH}), {k} deletes in "
+            f"{t_del:.4f} s ({k / t_del:.1f} deletes/s); {queries.shape[0]} queries at "
+            f"r={r:.6g}: QPS={qps:.1f}, AP={ap:.4f} on the live set (the static Vamana "
+            f"engine's {static:.4f}); {line}; card {card}")
+        t0 = time.perf_counter()
+        st = live.consolidate()
+        torch.cuda.synchronize()
+        t_con = time.perf_counter() - t0
+        if st["reclaimed"] != k or live.n_dead or live.live_count != n:
+            raise AssertionError(f"[live] {dtype}: consolidation {st}")
+        ap, qps, line = live_gates(live, snap0, before, queries, fresh_ids, fresh, doomed, r, c,
+                                   f"{dtype} consolidated")
+        log(f"[live] {dtype} consolidate: {t_con:.2f} s, n_rewired={st['n_rewired']}, "
+            f"n_pruned={st['n_pruned']}, reclaimed={st['reclaimed']}; QPS={qps:.1f}, "
+            f"AP={ap:.4f} on the live set; {line}")
+        del live, snap0, res0
+        torch.cuda.empty_cache()
+    counts, _ = read_counts(kernels)
+    log(f"[live] churn launches {counts}")
+
+    # -- (b) durability, f32 --------------------------------------------------
+    half, tail = k // 2, LIVE_DURABLE_TAIL
+    with tempfile.TemporaryDirectory(prefix="live_") as tmp:
+        wal_path = os.path.join(tmp, "wal.bin")
+        cm = CheckpointManager(os.path.join(tmp, "ck"), keep=1)
+        victim = LiveIndex.create(points, lcfg, bcfg, graph=graph, device=dev)
+        victim.attach_wal(WriteAheadLog(wal_path))
+        victim.insert(fresh[:half])
+        victim.delete(doomed[:half])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_dir = victim.save(cm)
+        t_save = time.perf_counter() - t0
+        ck_seq = victim.wal_seq
+        ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        victim.insert(fresh[half:half + tail])
+        victim.delete(doomed[half:half + tail])
+        st = victim.consolidate()
+        torch.cuda.synchronize()
+        with open(wal_path, "ab") as f:          # a crash mid-append
+            f.write(encode_record(victim.wal_seq + 1, "consolidate", {})[:9])
+        wal_bytes = os.path.getsize(wal_path)
+        t0 = time.perf_counter()
+        loaded = LiveIndex.restore(cm, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        del loaded
+        t0 = time.perf_counter()
+        got = LiveIndex.restore(cm, wal=WriteAheadLog(wal_path), device=dev)
+        torch.cuda.synchronize()
+        t_rec = time.perf_counter() - t0
+        pairs = {"points": (corpus_raw(got.points), corpus_raw(victim.points)),
+                 "neighbors": (got.neighbors, victim.neighbors),
+                 "start ids": (got.start_ids, victim.start_ids),
+                 "ext ids": (torch.from_numpy(got.ext_ids), torch.from_numpy(victim.ext_ids)),
+                 "tombstones": (got.tombstones, victim.tombstones),
+                 "counters": (torch.tensor([got.live_count, got.next_ext_id, got.epoch,
+                                            got.wal_seq]),
+                              torch.tensor([victim.live_count, victim.next_ext_id,
+                                            victim.epoch, victim.wal_seq]))}
+        for what, (a, b) in pairs.items():
+            if not torch.equal(a, b):
+                raise AssertionError(f"[live] durability: the recovered {what} differ")
+        ra, rb = got.range(sub, r, cfg=cfg), victim.range(sub, r, cfg=cfg)
+        for f in ("ids", "dists", "count", "overflow", "n_visited", "n_dist"):
+            if not torch.equal(getattr(ra, f), getattr(rb, f)):
+                raise AssertionError(f"[live] durability: the recovered index's {f} differ")
+        log(f"[live] durability f32: {half} inserts + {half} deletes, save, {tail} inserts + "
+            f"{tail} deletes + consolidate (n_rewired={st['n_rewired']}), a torn record; "
+            f"checkpoint {ck_bytes} bytes saved in {t_save:.2f} s, WAL {wal_bytes} bytes; "
+            f"restore {t_load:.2f} s, restore + replay of {got.wal_seq - ck_seq} records "
+            f"{t_rec:.2f} s; the recovered index equals the uninterrupted one bit for bit "
+            f"(points, neighbors, start ids, ext ids, tombstones, counters) and answers "
+            f"{LIVE_CHECK} queries identically; card {card}")
+        del victim, got
+    torch.cuda.empty_cache()
+
+    # -- (c) served churn -----------------------------------------------------
+    q_np = queries[:LIVE_SERVED_QUERIES].cpu().numpy()
+    m = LIVE_SERVED_MUTATIONS
+    srng = np.random.default_rng(SEED)           # src/repro/launch/serve.py:191, 207-226
+    s_doomed = srng.choice(n, size=m, replace=False)
+    reqs = ([dict(req_id=i, query=q_np[i], radius=float(r)) for i in range(q_np.shape[0])]
+            + [dict(req_id=q_np.shape[0] + i, op="insert", query=fresh[i]) for i in range(m)]
+            + [dict(req_id=q_np.shape[0] + m + i, op="delete",
+                    delete_ids=np.asarray([s_doomed[i]])) for i in range(m)])
+    srng.shuffle(reqs)
+    served = {}
+    for mode in ("lockstep", "continuous"):
+        live = LiveIndex.create(points, lcfg, bcfg, graph=graph, device=dev)
+        scfg = ServerConfig(max_batch=SERVE_MAX_BATCH, continuous=mode == "continuous")
+        srv = RangeServer(None, cfg, scfg, live=live)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp = []
+        for kw in reqs:
+            while srv.submit(Request(**kw)) is not None:
+                resp.extend(srv.step())
+        resp.extend(srv.run_until_drained())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        resp.sort(key=lambda x: x.req_id)
+        if [x.req_id for x in resp] != list(range(len(reqs))):
+            raise AssertionError(f"[live] served {mode}: a request went unanswered or twice")
+        ins = [x for x in resp if x.op == "insert"]
+        ext = np.asarray([int(x.ids[0]) for x in ins])
+        slots = torch.tensor([live._slot_of[int(e)] for e in ext], device=dev)
+        rows = corpus_raw(live.points)[slots].cpu().numpy()
+        want = np.stack([fresh[x.req_id - q_np.shape[0]] for x in ins])
+        if np.unique(ext).size != m or not np.array_equal(rows, want):
+            raise AssertionError(f"[live] served {mode}: an insert response's id does not "
+                                 "hold its vector")
+        rq = [x for x in resp if x.op == "range"]
+        ids = np.full((len(rq), cfg.result_cap), INVALID_ID, np.int64)
+        for i, x in enumerate(rq):
+            ids[i, :len(x.ids)] = x.ids
+        ap = live_ap(live, queries[:len(rq)], ids, [len(x.ids) for x in rq], r)
+        s = srv.stats
+        served[mode] = rq
+        log(f"[live] served {mode}: {len(reqs)} requests ({len(rq)} queries, {m} inserts, "
+            f"{m} deletes, shuffled) at max_batch {SERVE_MAX_BATCH} in {wall:.2f} s = "
+            f"{len(reqs) / wall:.1f} requests/s; epoch={s['epoch']}, consolidations="
+            f"{s['consolidations']}, batches={s['batches']}, pool admitted "
+            f"{s['pool_admitted']}; every request answered once, each insert response "
+            f"carries the id its row holds; AP={ap:.4f} on the final live set; card {card}")
+        del live, srv
+        torch.cuda.empty_cache()
+    for a, b in zip(served["lockstep"], served["continuous"]):
+        if (set(a.ids.tolist()) != set(b.ids.tolist()) or a.count != b.count
+                or a.overflow != b.overflow):
+            raise AssertionError(f"[live] served: request {a.req_id} differs between "
+                                 "continuous and lockstep")
+    log(f"[live] served: continuous equals lockstep on all {len(served['lockstep'])} query "
+        "responses (id set, count, overflow)")
+    counts, _ = read_counts(kernels)
+    missing = [name for name in LIVE_PATH if counts[name] == 0]
+    if missing:
+        raise AssertionError(f"[live] {missing} never launched through the live path {counts}")
+    log(f"[live] launches through the live path {counts}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
@@ -2400,7 +2717,7 @@ def main() -> int:
 
     # -- 12. the Vamana graph built on the card, and searched ----------------
     kernels = {**f32_kernels, **int8_kernels}
-    engine_v, build_launches = vamana_phase(
+    engine_v, build_launches, vamana_aps = vamana_phase(
         points, queries, r, cfgs["greedy"], q_cfgs["greedy f32-query"], ap_of, knn,
         kernels, args.profile)
 
@@ -2413,6 +2730,12 @@ def main() -> int:
     serve_launches = serve_phase(engine_v, points, queries, r, prof, cfgs["greedy"],
                                  q_cfgs["greedy f32-query"], kernels, (gt_ids, gt_counts))
     log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. the live index on the Vamana graph ------------------------------
+    t0 = time.perf_counter()
+    live_launches = live_phase(engine_v.graph, points, queries, r, cfgs["greedy"],
+                               q_cfgs["greedy f32-query"], kernels, vamana_aps)
+    log(f"[live] phase took {time.perf_counter() - t0:.1f} s")
     del engine_v
 
     for name in ("expand", "gatherdist"):
@@ -2420,6 +2743,8 @@ def main() -> int:
         entries[name]["build_launches"] = build_launches[name]
     for name, n in serve_launches.items():
         entries[name]["serve_launches"] = n
+    for name, n in live_launches.items():
+        entries[name]["live_launches"] = n
     entries["rerank_fetch"]["fallback_launches"] = fallback_launches
     entries["rerank_fetch"]["tier_launches"] = tier_launches
     for name in ("expand_int8", "gatherdist_int8"):
@@ -2444,7 +2769,7 @@ def main() -> int:
              "int8_query_main_shape_ms", "int8_query_main_shape_old_route_ms",
              "int8_query_main_shape_bound_ms", "fetch_route", "cold_ms",
              "old_route_cold_ms", "build_launches", "fallback_launches", "tier_launches",
-             "serve_launches")
+             "serve_launches", "live_launches")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

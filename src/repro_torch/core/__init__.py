@@ -21,9 +21,13 @@ from .corpus import (
     corpus_dim,
     corpus_dtype_name,
     corpus_raw,
+    corpus_set_rows,
     corpus_size,
+    corpus_take_rows,
+    corpus_with_capacity,
     hot_arm,
     lower_bound_dists,
+    pad_corpus_rows,
     quantize_corpus,
     quantize_rows,
     quantized_gather_lb,

@@ -142,7 +142,11 @@ def bytes_per_vector(points: Corpus) -> int:
 
 
 def corpus_raw(points: Corpus) -> torch.Tensor:
-    """The exact rows of a corpus (a quantized one must carry them)."""
+    """The exact rows of a corpus (a quantized one must carry them), what
+    graph construction and mutation run on. A tiered corpus uploads its host
+    store to the hot arm's device: a mutation cost, never a query cost."""
+    if getattr(points, "is_tiered", False):
+        return points.raw_array()
     if isinstance(points, QuantizedCorpus):
         if points.raw is None:
             raise ValueError("this QuantizedCorpus holds no raw rows; "
@@ -242,3 +246,79 @@ def upper_bound_dists(corpus: QuantizedCorpus, ids: torch.Tensor,
     eps = (meta[..., 2] * q_norm
            + torch.sqrt(torch.clamp(meta[..., 1], min=0.0)) * err_q) * (1.0 + _SLACK)
     return d_lb + 2.0 * eps
+
+
+# -- live-index row mutation helpers ------------------------------------------
+#
+# The live index (``repro_torch.live``) pre-allocates the corpus at a fixed
+# capacity and fills rows behind a watermark; these helpers are the only
+# code that writes corpus rows after construction. Each returns new tensors
+# and writes nothing in place into a tensor it was given: a published
+# ``LiveSnapshot`` may still hold that tensor.
+
+def corpus_with_capacity(points: Corpus, capacity: int, far: float = 1e30) -> Corpus:
+    """``points`` grown to ``capacity`` rows with unreachable sentinel rows
+    (no graph edge ever points at them, and their ``far`` coordinates rank
+    last under l2)."""
+    n = corpus_size(points)
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < corpus size {n}")
+    if capacity == n:
+        return points
+    if isinstance(points, QuantizedCorpus):
+        return pad_corpus_rows(points, capacity - n, far)
+    pad = torch.full((capacity - n, points.shape[-1]), far, dtype=points.dtype,
+                     device=points.device)
+    return torch.cat([points, pad])
+
+
+def _set(rows: torch.Tensor, slots: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    out = rows.clone()
+    out[slots] = vals.to(rows.dtype)
+    return out
+
+
+def corpus_set_rows(points: Corpus, slots: torch.Tensor, vecs: torch.Tensor,
+                    active: torch.Tensor) -> Corpus:
+    """A copy of ``points`` with ``vecs`` (B, d) f32 written into rows
+    ``slots`` (B,) where ``active``; inactive lanes are dropped. A quantized
+    corpus quantizes the rows on the way in, each with its own exact
+    ``err``, so the certified guard band keeps holding under inserts. The
+    active slots must be distinct."""
+    dev = hot_arm(points).device
+    keep = torch.as_tensor(active, device=dev).bool()
+    slots = torch.as_tensor(slots, device=dev)[keep].long()
+    vecs = torch.as_tensor(vecs, device=dev)[keep].float()
+    if isinstance(points, QuantizedCorpus):
+        codes, meta = quantize_rows(vecs)
+        return QuantizedCorpus(
+            codes=_set(points.codes, slots, codes), meta=_set(points.meta, slots, meta),
+            raw=None if points.raw is None else _set(points.raw, slots, vecs))
+    return _set(points, slots, vecs)
+
+
+def corpus_take_rows(points: Corpus, idx: torch.Tensor) -> Corpus:
+    """Rows ``idx`` of a corpus, in order (consolidation's compaction)."""
+    if isinstance(points, QuantizedCorpus):
+        idx = idx.to(points.device).long()
+        return QuantizedCorpus(
+            codes=points.codes.index_select(0, idx), meta=points.meta.index_select(0, idx),
+            raw=None if points.raw is None else points.raw.index_select(0, idx))
+    return points.index_select(0, idx.to(points.device).long())
+
+
+def pad_corpus_rows(corpus: QuantizedCorpus, n_pad: int, far: float) -> QuantizedCorpus:
+    """Append ``n_pad`` sentinel rows: zero codes, metadata ``[0, far, 0]``
+    (a ``far`` raw value would register a huge error and put the row inside
+    every rerank band; the ``far`` stored norm keeps the norm-form distance
+    large) and ``far`` raw rows."""
+    if n_pad <= 0:
+        return corpus
+    n, d = corpus.codes.shape
+    dev = corpus.device
+    meta = torch.tensor([0.0, far, 0.0], dtype=torch.float32, device=dev).expand(n_pad, 3)
+    return QuantizedCorpus(
+        codes=torch.cat([corpus.codes, torch.zeros((n_pad, d), dtype=torch.int8, device=dev)]),
+        meta=torch.cat([corpus.meta, meta]),
+        raw=None if corpus.raw is None else torch.cat(
+            [corpus.raw, torch.full((n_pad, d), far, dtype=corpus.raw.dtype, device=dev)]))

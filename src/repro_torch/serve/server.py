@@ -24,6 +24,13 @@ One process serving one engine, as the reference's single-engine path:
   filters, and int8 and tiered corpora (the result stage is one
   ``finalize_results`` call on the served corpus, which reranks a tiered
   corpus's guard band from host memory).
+* **live mutation**: over a ``live.LiveIndex`` (``live=``), ``insert`` and
+  ``delete`` requests ride the same queue. A micro-batch's mutations apply
+  first (one coalesced insert, then one coalesced delete), the epoch
+  snapshot advances once, and the batch's queries are answered against
+  that one consistent view (graph, corpus, tombstones, external ids).
+  Continuous mode first finishes its in-flight lanes on the snapshot they
+  were admitted under, since a consolidation moves slots.
 * **latency accounting**: every response carries ``timings`` (queue /
   service / total) and feeds log-bucket histograms (``latency_summary``).
 
@@ -33,10 +40,12 @@ variants; eager PyTorch needs none and the lanes are independent); a
 response's clock is read after its result tensors reach the host, so its
 latency includes the device work that CUDA's asynchronous launches would
 otherwise leave out; a micro-batch's queries and radii go to the device as
-one copy per tensor. The live index (``live=``), fault injection, retries
-and replication (``injector=``, ``retry=``, ``replicas=``, ``hedge=``) and
-sharded serving (``mesh=``, ``sharded=``) are later slices of the port and
-raise ``NotImplementedError``.
+one copy per tensor; over a live index a lockstep micro-batch searches the
+snapshot by slot id and maps the ids to external ids on the host, as the
+continuous path does (the reference calls ``LiveSnapshot.range``). Fault
+injection, retries and replication (``injector=``, ``retry=``,
+``replicas=``, ``hedge=``) and sharded serving (``mesh=``, ``sharded=``)
+are later slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,9 +58,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.corpus import corpus_dtype_name
+from ..core.corpus import corpus_dtype_name, hot_arm
 from ..core.engine import RangeSearchEngine
-from ..core.labels import LabelFilter, make_label_filter
+from ..core.labels import LabelFilter, make_label_filter, make_mask
 from ..core.range_search import (
     RangeConfig, RangeResult, finalize_results, greedy_coverage, greedy_lane_done,
     greedy_resume_batch, greedy_seed_batch, range_phase1, range_search_compacted,
@@ -67,13 +76,12 @@ from .scheduler import LaneScheduler
 REQUEST_OPS = ("range", "count", "insert", "delete")
 
 _LATER = {
-    "live": "ROADMAP.md §1, item 2: the live index",
-    "injector": "ROADMAP.md §1, item 3: fault tolerance",
-    "retry": "ROADMAP.md §1, item 3: fault tolerance",
-    "replicas": "ROADMAP.md §1, item 3: fault tolerance",
-    "hedge": "ROADMAP.md §1, item 3: fault tolerance",
-    "mesh": "ROADMAP.md §1, item 4: multi-device",
-    "sharded": "ROADMAP.md §1, item 4: multi-device",
+    "injector": "ROADMAP.md §1, item 4: fault tolerance",
+    "retry": "ROADMAP.md §1, item 4: fault tolerance",
+    "replicas": "ROADMAP.md §1, item 4: fault tolerance",
+    "hedge": "ROADMAP.md §1, item 4: fault tolerance",
+    "mesh": "ROADMAP.md §1, item 3: multi-device",
+    "sharded": "ROADMAP.md §1, item 3: multi-device",
 }
 
 
@@ -140,7 +148,7 @@ class ServerConfig:
     expand_width: int = 0           # DEPRECATED: deploy-time search overrides
                                     # belong on EngineDeployConfig.overrides()
     max_queue: int = 8192           # admission bound; 0 disables admission
-    auto_consolidate: bool = True   # live engines (a later slice)
+    auto_consolidate: bool = True   # live engines: threshold consolidation
     # -- continuous batching (tail-latency mode) ----------------------------
     continuous: bool = False        # persistent-lane phase-2 scheduling
     lanes: int = 32                 # pool width (rounded up to pow2)
@@ -173,27 +181,30 @@ class RangeServer:
         hedge=None,
         clock=time.perf_counter,
     ):
-        """``effort`` is a fitted ``models.EffortPredictor``; continuous
+        """``live`` is a ``live.LiveIndex``; it takes the place of ``engine``
+        (pass ``engine=None``) and enables insert/delete requests.
+        ``effort`` is a fitted ``models.EffortPredictor``; continuous
         mode uses it to split each drain into cheap/heavy dispatches.
         ``clock`` is the monotonic time source of queueing and deadline
         decisions, injectable so tests advance a fake clock. The arguments
-        of later slices (``mesh``, ``sharded``, ``live``, ``injector``,
-        ``retry``, ``replicas`` > 1, ``hedge``) raise."""
-        given = dict(mesh=mesh, sharded=sharded, live=live, injector=injector,
+        of later slices (``mesh``, ``sharded``, ``injector``, ``retry``,
+        ``replicas`` > 1, ``hedge``) raise."""
+        given = dict(mesh=mesh, sharded=sharded, injector=injector,
                      retry=retry, hedge=hedge, replicas=None if replicas == 1 else replicas)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"RangeServer({name}=...) is not ported yet ({_LATER[name]})")
-        if engine is None:
-            raise ValueError("need an engine")
+        if engine is None and live is None:
+            raise ValueError("need an engine or a live index")
         self.engine = engine
+        self.live = live
         if server_cfg.expand_width > 0:
             cfg = dataclasses.replace(cfg, search=dataclasses.replace(
                 cfg.search, expand_width=server_cfg.expand_width))
         # the declarative SearchConfig.corpus_dtype is a deploy contract:
         # what the config promises must be what the served corpus stores
-        actual = corpus_dtype_name(engine.points)
+        actual = corpus_dtype_name(live.points if live is not None else engine.points)
         if cfg.search.corpus_dtype != actual:
             raise ValueError(
                 f"SearchConfig.corpus_dtype={cfg.search.corpus_dtype!r} but "
@@ -203,19 +214,20 @@ class RangeServer:
         self.effort = effort
         self._clock = clock
         self.queue: deque[tuple[Request, float]] = deque()
+        self._view = live.snapshot() if live is not None else None
         self._pool: Optional[LaneScheduler] = None
         if server_cfg.continuous:
             if cfg.mode != "greedy":
                 raise ValueError("continuous batching schedules the greedy "
                                  f"phase; cfg.mode={cfg.mode!r}")
-            self._pool = LaneScheduler(engine.points, engine.graph, cfg,
+            self._pool = LaneScheduler(self._device_corpus(), self._graph(), cfg,
                                        server_cfg.lanes, server_cfg.slice_rounds)
         self.hist = {"all": LatencyHistogram(), "service": LatencyHistogram()}
         self.stats = {
             "served": 0, "batches": 0, "es_stopped": 0, "overflow": 0,
             # bounded admission: requests shed at the queue limit
             "rejected": 0,
-            # live-index counters (a later slice: they stay 0)
+            # live mutation counters; epoch mirrors the served snapshot
             "inserts": 0, "deletes": 0, "consolidations": 0, "epoch": 0,
             # int8 corpus: guard-band candidates exact-reranked
             "reranked": 0,
@@ -241,12 +253,35 @@ class RangeServer:
         }
 
     # -- served view ---------------------------------------------------------
+    def _device_corpus(self):
+        """The served corpus: the live snapshot's, else the engine's (the
+        search code takes a tier's hot arm itself)."""
+        return self._view.points if self.live is not None else self.engine.points
+
+    def _graph(self):
+        return self._view.graph if self.live is not None else self.engine.graph
+
+    def _start_ids(self):
+        return self._view.start_ids if self.live is not None else self.engine.start_ids
+
+    def _tombstones(self):
+        return self._view.tombstones if self.live is not None else None
+
+    def _epoch(self) -> int:
+        return self._view.epoch if self._view is not None else 0
+
+    def _externalize(self, ids: np.ndarray) -> np.ndarray:
+        if self.live is None:
+            return ids
+        from ..live.index import externalize_ids
+        return externalize_ids(self._view.ext_ids, ids)
+
     @property
     def device(self) -> torch.device:
-        return self.engine.device
+        return hot_arm(self._device_corpus()).device
 
     def _labels(self):
-        return self.engine.labels
+        return self._view.labels if self.live is not None else self.engine.labels
 
     def _num_labels(self) -> int:
         """Label-id space the packed store can represent (32 per word)."""
@@ -265,10 +300,11 @@ class RangeServer:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _finalize(self, qj, rj, res: RangeResult, lf) -> RangeResult:
-        """The result stage on the served corpus: the label drop, then the
-        int8 guard-band rerank (from host memory for a tiered corpus)."""
-        return finalize_results(self.engine.points, qj, rj, res, self.cfg, None,
-                                None if lf is None else self._labels(), lf)
+        """The result stage on the served corpus: the tombstone drop (a live
+        snapshot), the label drop, then the int8 guard-band rerank (from host
+        memory for a tiered corpus)."""
+        return finalize_results(self._device_corpus(), qj, rj, res, self.cfg,
+                                self._tombstones(), None if lf is None else self._labels(), lf)
 
     # -- admission -------------------------------------------------------
     def submit(self, req: Request) -> Optional[Response]:
@@ -278,11 +314,16 @@ class RangeServer:
         here, at the caller, before they can join a micro-batch."""
         if req.op not in REQUEST_OPS:
             raise ValueError(f"unknown op {req.op!r}")
-        if req.op in ("insert", "delete"):
+        if req.op in ("insert", "delete") and self.live is None:
             raise ValueError(f"{req.op!r} requests need a live index")
-        if req.query is None:
+        if req.op == "delete":
+            if req.delete_ids is None:
+                raise ValueError("delete requests need delete_ids")
+        elif req.query is None:
             raise ValueError(f"{req.op!r} requests need a query vector")
         if req.filter_labels is not None:
+            if req.op not in ("range", "count"):
+                raise ValueError("filter_labels applies to range/count requests")
             if self._labels() is None:
                 raise ValueError(
                     "served corpus has no labels attached; filtered range "
@@ -296,7 +337,10 @@ class RangeServer:
                     f"filter label id {int(fl.max())} out of range for a "
                     f"{self._num_labels()}-label corpus")
         if req.labels is not None:
-            raise ValueError("labels= applies to insert requests")
+            if req.op != "insert":
+                raise ValueError("labels= applies to insert requests")
+            if self.live is None or self.live.labels is None:
+                raise ValueError("labeled inserts need a labeled live index")
         if req.deadline_s is not None and req.deadline_s < 0:
             raise ValueError("deadline_s must be >= 0 (or None for no budget)")
         if len(self.queue) >= self.scfg.max_queue:
@@ -321,11 +365,12 @@ class RangeServer:
 
     def _shed_expired(self, batch, svc0: float):
         """Split a drained micro-batch into (alive, expired-error responses).
+        Only queries expire: a mutation is wanted however late it applies.
         Expiry is strict (``now > deadline``), so a zero budget still gets
         its work done under a frozen test clock."""
         alive, out = [], []
         for rq, arrive in batch:
-            if svc0 > self._deadline_at(rq, arrive):
+            if rq.op in ("range", "count") and svc0 > self._deadline_at(rq, arrive):
                 self.stats["deadline_shed"] += 1
                 out.append(self._record(self._error_response(
                     rq, DEADLINE_EXPIRED, latency_s=svc0 - arrive,
@@ -401,6 +446,8 @@ class RangeServer:
             t.cpu().numpy() for t in (res.ids, res.dists, res.count, res.overflow,
                                       res.es_stopped, res.n_rerank))
         now = self._clock()
+        ids = self._externalize(ids)
+        epoch = self._epoch()
         out = []
         for i, rq in enumerate(reqs):
             row = ids[i]
@@ -413,7 +460,7 @@ class RangeServer:
             out.append(self._record(Response(
                 req_id=rq.req_id, op=rq.op, ids=r_ids, dists=r_dists,
                 count=int(counts[i]), overflow=bool(over[i]), es_stopped=bool(ess[i]),
-                latency_s=now - arrive[i], radius=float(radii[i]),
+                latency_s=now - arrive[i], radius=float(radii[i]), epoch=epoch,
                 timings=self._timings(arrive[i], svc0s[i], now),
                 filtered=rq.filter_labels is not None,
                 **(extras[i] if extras is not None else {}))))
@@ -423,18 +470,85 @@ class RangeServer:
         self.stats["served"] += len(out)
         return out
 
+    # -- mutation ------------------------------------------------------------
+    def _apply_mutations(self, muts, svc0: float) -> list[Response]:
+        """Apply a micro-batch's mutations: ONE coalesced insert, then ONE
+        coalesced delete. The reorder is sound because external ids are
+        never reused: an insert and a delete of the same id in one batch end
+        in the same state either way, and a delete cannot precede "its"
+        insert (the id did not exist when the delete was submitted)."""
+        out = []
+        ins = [(rq, t) for rq, t in muts if rq.op == "insert"]
+        dels = [(rq, t) for rq, t in muts if rq.op == "delete"]
+        if ins:
+            lab = None
+            if self.live.labels is not None:
+                nl = 32 * int(self.live.labels.shape[1])
+                lab = np.stack([make_mask([] if rq.labels is None else rq.labels, nl)
+                                for rq, _ in ins])
+            ext = self.live.insert(np.stack([np.asarray(rq.query, np.float32)
+                                             for rq, _ in ins]), labels=lab)
+            self.stats["inserts"] += len(ins)
+            now = self._clock()
+            for (rq, arrive), e in zip(ins, ext):
+                out.append(self._record(Response(
+                    req_id=rq.req_id, op="insert", ids=np.asarray([e], np.int64),
+                    dists=np.zeros(1, np.float32), count=1,
+                    latency_s=now - arrive, epoch=self.live.epoch,
+                    timings=self._timings(arrive, svc0, now))))
+        if dels:
+            per_req = [np.atleast_1d(np.asarray(rq.delete_ids, np.int64)) for rq, _ in dels]
+            self.stats["deletes"] += self.live.delete(np.concatenate(per_req))
+            now = self._clock()
+            for (rq, arrive), ids in zip(dels, per_req):
+                out.append(self._record(Response(
+                    req_id=rq.req_id, op="delete", ids=ids,
+                    dists=np.zeros(len(ids), np.float32), count=len(ids),
+                    latency_s=now - arrive, epoch=self.live.epoch,
+                    timings=self._timings(arrive, svc0, now))))
+        return out
+
+    def _mutate(self, batch, svc0: float) -> tuple[list, list[Response]]:
+        """Split off and apply a drained batch's mutations (live index only),
+        consolidate past the threshold, refresh the snapshot. Returns (the
+        queries, the mutations' responses)."""
+        if self.live is None:
+            return batch, []
+        muts = [b for b in batch if b[0].op in ("insert", "delete")]
+        batch = [b for b in batch if b[0].op in ("range", "count")]
+        out = []
+        if muts:
+            # continuous: in-flight checkpoints must not cross an epoch, so
+            # they finish on the snapshot they were admitted under first
+            if self._pool is not None:
+                out.extend(self._finish_pool())
+            out.extend(self._apply_mutations(muts, svc0))
+            if self.scfg.auto_consolidate and self.live.maybe_consolidate():
+                self.stats["consolidations"] += 1
+            self._view = self.live.snapshot()
+            if self._pool is not None:
+                self._pool.rebind(self._device_corpus(), self._graph())
+            if self._pool is None and not batch:
+                self.stats["batches"] += 1
+        self.stats["epoch"] = self._view.epoch
+        return batch, out
+
     # -- lockstep execution --------------------------------------------------
     def step(self) -> list[Response]:
-        """Serve one micro-batch from the queue: one ``range_search_compacted``
-        call, every lane at its own radius. In continuous mode a step also
-        advances the lane pool one tick and retires finished lanes."""
+        """Serve one micro-batch from the queue: its mutations first (a live
+        index), then one ``range_search_compacted`` call over its queries on
+        one snapshot, every lane at its own radius. In continuous mode a
+        step also advances the lane pool one tick and retires finished
+        lanes."""
         if self._pool is not None:
             return self._step_continuous()
         batch = self._drain()
         if not batch:
             return []
         svc0 = self._clock()
-        batch, out = self._shed_expired(batch, svc0)
+        batch, out = self._mutate(batch, svc0)
+        batch, shed = self._shed_expired(batch, svc0)
+        out.extend(shed)
         if not batch:
             return out
         reqs = [b[0] for b in batch]
@@ -442,11 +556,11 @@ class RangeServer:
         q, radii = self._batch_arrays(reqs)
         qj, rj = self._to_device(q), self._to_device(radii)
         lf = self._filter_of(reqs)
-        eng = self.engine
         res = range_search_compacted(
-            corpus=eng.points, graph=eng.graph, queries=qj, start_ids=eng.start_ids,
-            r=rj, cfg=self.cfg, es_radius=self._es(rj),
-            labels=None if lf is None else eng.labels, label_filter=lf)
+            corpus=self._device_corpus(), graph=self._graph(), queries=qj,
+            start_ids=self._start_ids(), r=rj, cfg=self.cfg, es_radius=self._es(rj),
+            tombstones=self._tombstones(),
+            labels=None if lf is None else self._labels(), label_filter=lf)
         out.extend(self._emit(res, reqs, arrive, radii, [svc0] * len(reqs)))
         self.stats["batches"] += 1
         self.stats["filtered_batches"] += int(lf is not None)
@@ -462,7 +576,9 @@ class RangeServer:
         step they were drained in; saturated lanes ride the pool."""
         batch = self._drain()
         svc0 = self._clock()
-        batch, out = self._shed_expired(batch, svc0)
+        batch, out = self._mutate(batch, svc0)
+        batch, shed = self._shed_expired(batch, svc0)
+        out.extend(shed)
         if batch:
             reqs = [b[0] for b in batch]
             arrive = [b[1] for b in batch]
@@ -504,9 +620,8 @@ class RangeServer:
         the saturated ones into the pool (those that do not fit run to
         completion at once)."""
         qj, rj = self._to_device(q), self._to_device(radii)
-        eng = self.engine
-        st, res, need = range_phase1(eng.points, eng.graph, qj, eng.start_ids, rj,
-                                     self.cfg, es_radius=self._es(rj))
+        st, res, need = range_phase1(self._device_corpus(), self._graph(), qj,
+                                     self._start_ids(), rj, self.cfg, es_radius=self._es(rj))
         need_h = need.cpu().numpy()
         out = []
         # phase 1 walks unfiltered (predicates act at the result stage):
@@ -522,7 +637,7 @@ class RangeServer:
         lanes = np.nonzero(need_h)[0]
         if len(lanes):
             sel = self._to_device(lanes)
-            seeded = greedy_seed_batch(eng.points, st.select(sel), rj[sel],
+            seeded = greedy_seed_batch(self._device_corpus(), st.select(sel), rj[sel],
                                        self.cfg.result_cap, self.cfg.search)
             nv1, nd1, es1 = torch.stack([st.n_visited[sel], st.n_dist[sel],
                                          st.es_stopped[sel].to(torch.int32)]).cpu().numpy()
@@ -546,7 +661,7 @@ class RangeServer:
     def _oneshot(self, seeded, sel, qs, rs, metas) -> list[Response]:
         idx = self._to_device(sel)
         g = greedy_resume_batch(
-            self.engine.points, self.engine.graph, qs[idx], rs[idx], seeded.select(idx),
+            self._device_corpus(), self._graph(), qs[idx], rs[idx], seeded.select(idx),
             torch.ones(len(sel), dtype=torch.bool, device=self.device),
             self.cfg.result_cap, self.cfg.frontier_rounds, self.cfg.frontier_rounds,
             self.cfg.search)
@@ -585,6 +700,21 @@ class RangeServer:
         return self._emit(res, reqs, [m["arrive"] for m in metas],
                           np.asarray([m["radius"] for m in metas], np.float32),
                           [m["svc0"] for m in metas], extras=extras)
+
+    def _finish_pool(self) -> list[Response]:
+        """Tick the pool empty (the epoch barrier). Deadlines stay live:
+        expired lanes finalize as certified partials between ticks."""
+        out = []
+        while self._pool.occupancy:
+            expired = self._pool.expired(self._clock())
+            if len(expired):
+                out.extend(self._respond_greedy(*self._pool.retire(expired), expired=True))
+                continue
+            finished = self._pool.tick()
+            self.stats["pool_ticks"] = self._pool.ticks
+            if len(finished):
+                out.extend(self._respond_greedy(*self._pool.retire(finished)))
+        return out
 
     # -- monitoring / drain --------------------------------------------------
     def radius_dispersion(self) -> dict:

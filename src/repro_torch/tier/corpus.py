@@ -104,8 +104,17 @@ class TieredCorpus:
                             self.fetch_bucket)
 
     @property
+    def n(self) -> int:
+        return len(self.store)
+
+    @property
     def dim(self) -> int:
         return self.store.dim
+
+    def raw_array(self) -> torch.Tensor:
+        """The whole host store uploaded to the hot arm's device (graph
+        mutation and consolidation; never on the query path)."""
+        return torch.from_numpy(self.store.to_array()).to(self.device.device)
 
     @property
     def quantized(self) -> bool:

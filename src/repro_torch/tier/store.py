@@ -13,6 +13,10 @@ the same reason.
 
 A failed fetch raises :class:`TierFetchError`; ``fail_next`` scripts such
 failures for tests.
+
+The live index writes through: ``write`` fills fresh slots in place,
+``take`` compacts into a new store (the old one stays valid for the
+snapshots that hold it), ``to_array`` is the checkpoint payload.
 """
 from __future__ import annotations
 
@@ -28,9 +32,24 @@ class TierFetchError(RuntimeError):
 
 class HostRowStore:
     """Row-aligned host store of exact f32 rerank rows; ``pin`` page-locks
-    it (a CUDA corpus's store)."""
+    it (a CUDA corpus's store).
 
-    def __init__(self, rows, *, pin: bool = False, align: int = ROW_ALIGN):
+    ``copy=False`` wraps an (N, d) f32 numpy array as it is, without the
+    aligned copy: a copy-on-write memory map of a checkpoint leaf, which
+    writes then go through. Such a store is not pinned (page-locking would
+    fault the whole map in), so its uploads are staged through the pinned
+    buffers of ``TieredCorpus``."""
+
+    def __init__(self, rows, *, pin: bool = False, copy: bool = True,
+                 align: int = ROW_ALIGN):
+        if not copy:
+            if not isinstance(rows, np.ndarray) or rows.dtype != np.float32 or rows.ndim != 2:
+                raise ValueError("copy=False wraps an (N, d) float32 numpy array")
+            self._buf = self._rows = torch.from_numpy(rows)
+            self.n, self.dim = (int(s) for s in rows.shape)
+            self.pinned = False
+            self.fail_next = 0
+            return
         rows = torch.as_tensor(np.asarray(rows, dtype=np.float32)
                                if not isinstance(rows, torch.Tensor) else rows)
         rows = rows.detach().to("cpu", torch.float32)
@@ -74,3 +93,19 @@ class HostRowStore:
         dst = out[:idx.numel()]
         torch.index_select(self._rows, 0, idx, out=dst)
         return dst
+
+    def write(self, slots, vecs) -> None:
+        """Write rows in place. Sound for the live index's inserts only:
+        their slots lie past every published snapshot's watermark."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64))
+        self._rows[idx] = torch.as_tensor(np.asarray(vecs, np.float32))
+
+    def take(self, idx) -> "HostRowStore":
+        """A new store of rows ``idx`` in order (consolidation's compaction;
+        the old store stays valid for old snapshots)."""
+        rows = self._rows.index_select(0, torch.as_tensor(np.asarray(idx, np.int64)))
+        return HostRowStore(rows, pin=self.pinned)
+
+    def to_array(self) -> np.ndarray:
+        """The (N, d) rows as a numpy view, no copy: the checkpoint payload."""
+        return self._rows.numpy()

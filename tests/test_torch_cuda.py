@@ -1364,3 +1364,139 @@ def test_continuous_server_equals_lockstep_on_the_card(cuda_device, corpus_dtype
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_array_equal(a.dists.view(np.int32), b.dists.view(np.int32))
         assert (a.count, a.overflow) == (b.count, b.overflow)
+
+
+# ---------------------------------------------------------------------------
+# the live index on the card: WAL replay needs every mutation deterministic
+# ---------------------------------------------------------------------------
+
+def _live_state(idx) -> dict:
+    from repro_torch.core import corpus_raw
+    pts = idx.points
+    hot = pts.device if getattr(pts, "is_tiered", False) else pts
+    out = dict(raw=corpus_raw(pts), neighbors=idx.neighbors, start_ids=idx.start_ids,
+               tombstones=idx.tombstones, ext_ids=torch.from_numpy(idx.ext_ids),
+               counters=torch.tensor([idx.live_count, idx.next_ext_id, idx.epoch]))
+    if hasattr(hot, "codes"):
+        out.update(codes=hot.codes, meta=hot.meta)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _live_stream(seed):
+    """Float data (ties are rare, so every order the card picks shows):
+    inserts, deletes of initial and fresh ids, an explicit consolidation,
+    and one past the threshold."""
+    rng = np.random.default_rng(seed)
+    ops = [("insert", rng.standard_normal((100, 16)).astype(np.float32)),
+           ("delete", rng.choice(1000, 120, replace=False)),
+           ("insert", rng.standard_normal((70, 16)).astype(np.float32)),
+           ("delete", np.arange(1000, 1040)),
+           ("consolidate", None),
+           ("insert", rng.standard_normal((90, 16)).astype(np.float32)),
+           ("delete", rng.choice(1260, 400, replace=False)),
+           ("maybe", None),
+           ("insert", rng.standard_normal((40, 16)).astype(np.float32))]
+    return ops
+
+
+def _run_live(live, ops):
+    for op, arg in ops:
+        if op == "insert":
+            live.insert(arg)
+        elif op == "delete":
+            live.delete(arg)
+        elif op == "maybe":
+            assert live.maybe_consolidate()
+        else:
+            live.consolidate()
+    torch.cuda.synchronize()
+    return live
+
+
+def _live_card(dev, corpus_dtype="float32", graph=None):
+    from repro_torch.core import BuildConfig, build_vamana
+    from repro_torch.live import LiveConfig, LiveIndex
+    pts = np.random.default_rng(0).standard_normal((1000, 16)).astype(np.float32)
+    bcfg = BuildConfig(max_degree=16, beam=32, insert_batch=256)
+    graph = graph or build_vamana(pts, bcfg, device=dev)
+    return LiveIndex.create(pts, LiveConfig(capacity=1400, insert_batch=32), bcfg,
+                            corpus_dtype=corpus_dtype, graph=graph, device=dev), graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus_dtype", ["float32", "int8"])
+def test_live_index_mutations_are_deterministic_on_the_card(cuda_device, corpus_dtype):
+    """One mutation stream run twice on the card from the same graph:
+    every tensor of the two indices' states equal bit for bit, and the
+    kernels of the insert path launched."""
+    a, graph = _live_card(cuda_device, corpus_dtype)
+    b, _ = _live_card(cuda_device, corpus_dtype, graph)
+    before = (expand_cuda.launches, gatherdist_cuda.launches)
+    sa, sb = _live_state(_run_live(a, _live_stream(1))), _live_state(_run_live(b, _live_stream(1)))
+    assert expand_cuda.launches > before[0] and gatherdist_cuda.launches > before[1]
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+    assert a._slot_of == b._slot_of and a._dead == b._dead
+
+
+@pytest.mark.cuda
+def test_live_restore_with_wal_equals_the_control_on_the_card(cuda_device, tmp_path):
+    """Checkpoint mid-stream, a torn record after the last durable one:
+    restore + replay on the card equals the index that ran uninterrupted."""
+    from repro_torch.fault import WriteAheadLog
+    from repro_torch.fault.wal import encode_record
+    from repro_torch.live import LiveIndex
+    from repro_torch.train import CheckpointManager
+    live, _ = _live_card(cuda_device)
+    live.attach_wal(WriteAheadLog(str(tmp_path / "wal.bin")))
+    cm = CheckpointManager(str(tmp_path / "ck"))
+    ops = _live_stream(2)
+    _run_live(live, ops[:3])
+    live.save(cm)
+    _run_live(live, ops[3:])
+    with open(str(tmp_path / "wal.bin"), "ab") as f:
+        f.write(encode_record(live.wal_seq + 1, "consolidate", {})[:11])
+    got = LiveIndex.restore(cm, wal=WriteAheadLog(str(tmp_path / "wal.bin")),
+                            device=cuda_device)
+    sg, sw = _live_state(got), _live_state(live)
+    for k in sw:
+        assert torch.equal(sg[k], sw[k]), k
+    assert got.wal_seq == live.wal_seq and got.neighbors.device.type == cuda_device.type
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus_dtype", ["float32", "int8"])
+def test_live_snapshot_kernel_path_equals_plain_path(cuda_device, corpus_dtype):
+    """After churn, a snapshot's kernel path equals its plain path on every
+    lane: integer coordinates make every exact distance exact, so ids,
+    counts, flags and counters are equal, and f32 distances too; int8
+    keeps a sure member's certified lower bound, a sum over dequantized
+    codes that the kernel orders otherwise (``_tol``)."""
+    from repro_torch.core import BuildConfig, build_vamana
+    from repro_torch.live import LiveConfig, LiveIndex
+    pts = _integer_rig(2000, 16, 4)
+    bcfg = BuildConfig(max_degree=16, beam=32, insert_batch=256)
+    graph = build_vamana(pts, bcfg, device=cuda_device)
+    live = LiveIndex.create(pts, LiveConfig(capacity=2400, insert_batch=64), bcfg,
+                            corpus_dtype=corpus_dtype, graph=graph, device=cuda_device)
+    live.insert(_integer_rig(300, 16, 5))
+    live.delete(np.arange(0, 2300, 7))
+    snap = live.snapshot()
+    qs = _integer_rig(128, 16, 6) + 0.5
+    d2 = ((pts[None] - qs[:, None]) ** 2).sum(-1)
+    radii = np.where(np.arange(128) % 4 == 0, np.quantile(d2, 0.05, axis=1),
+                     np.quantile(d2, 0.002, axis=1)).round() + 0.5
+    cfg = RangeConfig(search=SearchConfig(beam=32, max_beam=32, visit_cap=128,
+                                          corpus_dtype=corpus_dtype), result_cap=512)
+    plain = dataclasses.replace(cfg, search=dataclasses.replace(cfg.search, use_kernels=False))
+    kern = expand_int8_cuda if corpus_dtype == "int8" else expand_cuda
+    before = kern.launches
+    got, want = snap.range(qs, radii, cfg=cfg), snap.range(qs, radii, cfg=plain)
+    torch.cuda.synchronize()
+    assert kern.launches > before
+    for f in dataclasses.fields(want):
+        if f.name == "dists" and corpus_dtype == "int8":
+            _assert_dists(got.dists, want.dists, _tol("l2", None, None))
+        else:
+            assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    assert int(got.count.sum()) > 0 and bool(got.phase2.any())

@@ -34,7 +34,9 @@ NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
          "repro_torch.tier.store", "repro_torch.fault", "repro_torch.fault.errors",
          "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.models.effort",
          "repro_torch.serve", "repro_torch.serve.latency", "repro_torch.serve.scheduler",
-         "repro_torch.serve.server")
+         "repro_torch.serve.server", "repro_torch.live", "repro_torch.live.index",
+         "repro_torch.live.consolidate", "repro_torch.fault.wal", "repro_torch.train",
+         "repro_torch.train.checkpoint")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -54,7 +56,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from repro_torch.configs import gemma3_27b
     from repro_torch.configs.two_tower_retrieval import reduced
     from repro_torch.convert import (
@@ -69,7 +71,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from repro_torch.core import (
         Graph, RangeSearchEngine, build_knn_graph, build_vamana, exact_range_search,
         exact_topk, range_counts_at, sweep)
+    from repro_torch.live import LiveConfig, LiveIndex
     from repro_torch.tier import tiered_corpus
+    from repro_torch.train import CheckpointManager
 
     pts = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     nbrs = np.zeros((64, 4), np.int32)
@@ -80,6 +84,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     lm = gemma3_27b.reduced()
     lm_params = {"embed": np.zeros((lm.vocab, lm.d_model), np.float32),
                  "final_norm": np.zeros(lm.d_model, np.float32), "layers": {}}
+    cm = CheckpointManager(str(tmp_path))
+    LiveIndex.create(pts, LiveConfig(capacity=80), graph=Graph(torch.from_numpy(nbrs)),
+                     device="cpu").save(cm)
     calls = [
         lambda: RangeSearchEngine.from_graph(pts, Graph(torch.from_numpy(nbrs))),
         lambda: build_knn_graph(pts, k=4),
@@ -109,6 +116,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda: init_effort(EffortConfig(dim=8)),
         lambda: EffortPredictor.fit(pts, np.ones(64, np.float32), np.ones(64)),
         lambda: effort_params_from_jax({"w0": np.zeros((10, 1), np.float32)}),
+        lambda: LiveIndex.create(pts, LiveConfig(capacity=80), graph=Graph(
+            torch.from_numpy(nbrs))),
+        lambda: LiveIndex.restore(cm),
+        lambda: cm.restore_flat(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -424,9 +424,10 @@ def test_server_bounded_admission_queue(small_engine):
 
 
 def test_server_requests_and_arguments_of_later_slices(small_engine):
-    """insert/delete raise the reference's "need a live index"; the
-    constructor arguments of later slices raise NotImplementedError naming
-    their ROADMAP item; malformed requests raise at submit."""
+    """insert/delete raise the reference's "need a live index" without one;
+    ``live=`` constructs a server over a ``LiveIndex``; the constructor
+    arguments of later slices raise NotImplementedError naming their
+    ROADMAP item; malformed requests raise at submit."""
     pts, eng = small_engine
     cfg = _lock_cfg(16, 64, 128)
     srv = RangeServer(eng, cfg)
@@ -442,9 +443,13 @@ def test_server_requests_and_arguments_of_later_slices(small_engine):
         srv.submit(Request(req_id=0, query=pts[0], filter_labels=[1]))
     with pytest.raises(ValueError, match="insert"):
         srv.submit(Request(req_id=0, query=pts[0], labels=[1]))
-    items = {"live": "item 2", "injector": "item 3", "retry": "item 3",
-             "replicas": "item 3", "hedge": "item 3", "mesh": "item 4",
-             "sharded": "item 4"}
+    from repro_torch.live import LiveConfig, LiveIndex
+    live = LiveIndex.create(pts, LiveConfig(capacity=1600), graph=eng.graph, device="cpu")
+    live_srv = RangeServer(None, cfg, live=live)
+    assert live_srv.submit(Request(req_id=0, op="insert", query=pts[0])) is None
+    assert live_srv.live is live and live_srv.stats["epoch"] == 0
+    items = {"injector": "item 4", "retry": "item 4", "replicas": "item 4",
+             "hedge": "item 4", "mesh": "item 3", "sharded": "item 3"}
     for name, item in items.items():
         with pytest.raises(NotImplementedError, match=rf"{name}=.*§1, {item}"):
             RangeServer(eng, cfg, **{name: 2 if name == "replicas" else object()})
