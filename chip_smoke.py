@@ -100,6 +100,24 @@ Phases, each printed as it ends:
      vector, continuous equal to lockstep per query, requests/s, epoch,
      AP on the final live set; every search kernel launched through the
      live path (``live_launches`` in the kernels line);
+ 16. [sharded]: the sharded engine (``repro_torch.dist``, ``fault``) on the
+     same corpus, queries, radius and oracle in 4 contiguous shards of
+     250,000, each an exact k-NN graph (R=32) from its medoid, f32 and int8
+     (each shard quantized on its own), greedy at result_cap 1024:
+     ``sharded_range_search`` on a one-rank NCCL mesh, bit for bit the host
+     union of the four per-shard ``range_search_fused`` calls, no false
+     positive, a mixed r/2r batch equal lane for lane to the homogeneous
+     calls, QPS, AP and the phase-2 share beside the single index's (and AP
+     with 4 starts a shard); the f32 collective on two ranks sharing the
+     card (gloo, mesh (1, 2), this script started with ``--sharded-rank``,
+     its kernels the parent's builds), each rank bit for bit the one-rank
+     result, with its wall time and the model-axis gather's; the host
+     fan-out healthy (threaded and serial, bit for bit), with shard 1 down
+     (coverage 0.75, the union of the other three) and with garbage at
+     (shard 2, attempt 0) (caught, retried, healthy); ``RangeServer(mesh=,
+     sharded=)`` and ``RangeServer(sharded=, injector=)`` over 1,024
+     requests, each equal to its lane and annotated when degraded;
+     ``sharded_launches`` in the kernels line;
   9. [two_tower], run right after the build so its 43 GB tables find the
      card empty: the two-tower-retrieval model at full width (16 + 16
      fields, vocab 10,485,760, d_embed 64, towers 1024-1024-512-256, both
@@ -2462,6 +2480,399 @@ def live_phase(graph, points, queries, r, cfg, q_cfg, kernels, vamana_aps) -> di
     return counts
 
 
+SHARDS = 4                  # S: 4 contiguous shards of 250,000 at 1M
+SHARD_SERVED = 1_024        # requests through RangeServer(mesh=, sharded=)
+SHARD_RANKS = 2             # ranks of the second collective run, on the one card
+SHARD_RANK_TIMEOUT_S = 400
+SHARDED_PATH = {"float32": ("expand", "gatherdist"),
+                "int8": ("expand_int8", "gatherdist_int8", "rerank_fetch")}
+RESULT_FIELDS = ("ids", "dists", "count", "overflow", "n_visited", "n_dist", "es_stopped",
+                 "phase2", "n_rerank")
+
+
+def _host(res) -> dict:
+    return {f: getattr(res, f).cpu().numpy() for f in RESULT_FIELDS}
+
+
+def _same_result(got: dict, want: dict) -> list:
+    """The fields of two host results that differ (distances by their bits)."""
+    return [f for f in RESULT_FIELDS
+            if not np.array_equal(got[f].view(np.int32) if f == "dists" else got[f],
+                                  want[f].view(np.int32) if f == "dists" else want[f])]
+
+
+def host_union(per_shard: list, offsets, n_total: int, cap: int, keep=None) -> dict:
+    """The union of per-shard ``range_search_fused`` results (host dicts of
+    shard-local ids), computed on the host independently of
+    ``dist.sharded_engine``: ids made global (INVALID, and past n_total,
+    dropped), candidates in shard order, a stable sort on the distances in
+    the reference's total order, the first ``cap``; counts summed and
+    capped, flags OR-ed, counters summed. ``keep`` names the shards merged
+    (every one by default)."""
+    from repro_torch.utils import INVALID_ID
+    keep = range(len(per_shard)) if keep is None else keep
+    ids, dists, parts = [], [], [per_shard[s] for s in keep]
+    for s in keep:
+        p = per_shard[s]
+        gid = np.where(p["ids"] == INVALID_ID, INVALID_ID, p["ids"].astype(np.int64)
+                       + int(offsets[s]))
+        gid = np.where(gid < n_total, gid, INVALID_ID).astype(np.int32)
+        ids.append(gid)
+        dists.append(np.where(gid == INVALID_ID, np.float32(np.inf), p["dists"]))
+    ids, dists = np.concatenate(ids, 1), np.concatenate(dists, 1).astype(np.float32)
+    u = dists.view(np.uint32).astype(np.int64)
+    key = np.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+    order = np.argsort(key, axis=1, kind="stable")[:, :cap]
+    total = sum((g != INVALID_ID).sum(1) for g in np.split(ids, len(parts), axis=1))
+
+    def any_(f):
+        return sum(p[f].astype(np.int32) for p in parts) > 0
+
+    return {"ids": np.take_along_axis(ids, order, 1),
+            "dists": np.take_along_axis(dists, order, 1),
+            "count": np.minimum(total, cap).astype(np.int32),
+            "overflow": any_("overflow") | (total > cap),
+            "n_visited": sum(p["n_visited"] for p in parts).astype(np.int32),
+            "n_dist": sum(p["n_dist"] for p in parts).astype(np.int32),
+            "es_stopped": any_("es_stopped"), "phase2": any_("phase2"),
+            "n_rerank": sum(p["n_rerank"] for p in parts).astype(np.int32)}
+
+
+def _shard_view(corpus, i):
+    from repro_torch.core import QuantizedCorpus
+    p = corpus.points
+    if isinstance(p, QuantizedCorpus):
+        return QuantizedCorpus(codes=p.codes[i], meta=p.meta[i], raw=p.raw[i])
+    return p[i]
+
+
+def per_shard_results(corpus, queries, r, cfg) -> list:
+    """Each shard's own ``range_search_fused`` call, on the host."""
+    from repro_torch.core import Graph, range_search_fused
+    return [_host(range_search_fused(corpus=_shard_view(corpus, i),
+                                     graph=Graph(neighbors=corpus.neighbors[i]),
+                                     queries=queries, start_ids=corpus.start_ids[i], r=r,
+                                     cfg=cfg))
+            for i in range(corpus.n_local)]
+
+
+def sharded_rank(rank: int, world: int, workdir: str, device: str = "cuda") -> int:
+    """One rank of the ``[sharded]`` phase's collective run over ``world``
+    ranks that share one card: gloo (NCCL refuses two ranks on one device),
+    the mesh (1, world), the shards of this rank's model coordinate loaded
+    from the arrays the parent wrote (its kernels are the parent's builds);
+    a warm-up call, then a timed one over every query; the result and the
+    wall time go back to ``workdir``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.convert import sharded_from_arrays
+    from repro_torch.dist import make_mesh, sharded_range_search
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, world), device_type=device, backend="gloo")
+        a = {k: np.load(os.path.join(workdir, k + ".npy"), mmap_mode="r")
+             for k in ("points", "neighbors", "start_ids", "offsets", "queries")}
+        corpus = sharded_from_arrays(a["points"], a["neighbors"], a["start_ids"], a["offsets"],
+                                     int(np.load(os.path.join(workdir, "n_total.npy"))),
+                                     mesh=mesh, device=device)
+        meta = json.loads(open(os.path.join(workdir, "cfg.json")).read())
+        from repro_torch.core import RangeConfig, SearchConfig
+        cfg = RangeConfig(search=SearchConfig(**meta["search"]),
+                          **{k: v for k, v in meta.items() if k != "search"})
+        queries = torch.as_tensor(np.array(a["queries"]), device=device)
+        r = float(np.load(os.path.join(workdir, "r.npy")))
+        sharded_range_search(mesh=mesh, corpus=corpus, queries=queries, r=r, cfg=cfg)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded_range_search(mesh=mesh, corpus=corpus, queries=queries, r=r, cfg=cfg)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the model-axis gather alone, at its payload's shape: the gloo wire
+        from repro_torch.dist._comm import all_gather, axis_group
+        payload = torch.zeros((queries.shape[0], 2 * corpus.n_local * cfg.result_cap),
+                              dtype=torch.int32, device=device)
+        group = axis_group(mesh, "model")
+        all_gather(payload, group)
+        t0 = time.perf_counter()
+        all_gather(payload, group)
+        wire = time.perf_counter() - t0
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), wall=wall, wire=wire,
+                 wire_bytes=payload.numel() * 4,
+                 held=np.asarray([corpus.first_shard, corpus.n_local]), **_host(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_rank_run(corpus, queries, r, cfg, world: int = SHARD_RANKS) -> list:
+    """Write the f32 shards, the queries and the config to a temporary
+    directory, start ``world`` ranks of this script (``--sharded-rank``),
+    all at once, and return what each rank got ({fields..., wall, held})."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        for k, v in (("points", corpus.points), ("neighbors", corpus.neighbors),
+                     ("start_ids", corpus.start_ids), ("offsets", corpus.offsets),
+                     ("queries", queries)):
+            np.save(os.path.join(work, k + ".npy"), v.cpu().numpy())
+        np.save(os.path.join(work, "n_total.npy"), np.asarray(corpus.n_total))
+        np.save(os.path.join(work, "r.npy"), np.asarray(r, np.float32))
+        c = dataclasses.asdict(cfg)
+        with open(os.path.join(work, "cfg.json"), "w") as f:
+            json.dump(c, f)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(k),
+             "--sharded-world", str(world), "--sharded-dir", work,
+             "--sharded-device", corpus.device.type],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for k in range(world)]
+        outs = []
+        try:
+            for k, p in enumerate(procs):
+                text = p.communicate(timeout=SHARD_RANK_TIMEOUT_S)[0]
+                if p.returncode != 0:
+                    raise AssertionError(f"[sharded] rank {k} of {world} exited "
+                                         f"{p.returncode}:\n{text[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for k in range(world):
+            with np.load(os.path.join(work, f"rank{k}.npz")) as z:
+                outs.append({f: z[f] for f in z.files})
+        return outs
+
+
+def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dict:
+    """[sharded]: the engine split into SHARDS contiguous shards of the main
+    path's corpus (``dist.build_sharded``), one exact k-NN sub-index (R=32)
+    a shard with its medoid as the start, f32 and int8 (quantized a shard at
+    a time); the main path's queries, radius and oracle; the deploy config's
+    greedy search (result_cap 1024).
+    (1) ``sharded_range_search`` over a one-rank mesh (``make_mesh((1, 1))``,
+    NCCL), every shard local, f32 and int8: (a) bit for bit the host union
+    of the four per-shard ``range_search_fused`` calls; (b) no false
+    positive at the exact distances; (c) a mixed-radius batch (r and 2r
+    alternating) equal lane for lane to the two homogeneous calls; (d)
+    every kernel of the path launched (``sharded_launches``). QPS, AP, the
+    phase-2 share and the results beside the single index's (``single``),
+    and the f32 AP with 4 starts a shard (``start_points``, as the single
+    index's ``n_starts=4``).
+    (2) The f32 collective over two ranks on the one card (gloo, mesh
+    (1, 2), two shards each): each rank's result bit for bit (1)'s.
+    (3) ``fault.fault_tolerant_sharded_search`` on the f32 corpus: healthy,
+    bit for bit (1)'s; the threaded fan-out bit for bit the serial one; shard
+    1 down: coverage 0.75 and the union of shards {0, 2, 3}; garbage at
+    (shard 2, attempt 0): caught, retried, equal to healthy.
+    (4) ``RangeServer(mesh=, sharded=)`` in lockstep over SHARD_SERVED
+    requests, each equal to its lane of (1); then with shard 1 down
+    (``injector=``), each annotated 3 of 4 shards, ``shard_lost``, equal to
+    its lane of the union of {0, 2, 3}. Returns the launches of (1)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import build_knn_graph, match_histogram, medoid, start_points
+    from repro_torch.dist import build_sharded, make_mesh, sharded_range_search
+    from repro_torch.fault import FaultInjector, RetryPolicy, fault_tolerant_sharded_search
+    from repro_torch.serve import RangeServer, ServerConfig
+    from repro_torch.utils import INVALID_ID
+    dev = points.device
+    card = card_line()
+    t_phase = time.perf_counter()
+    n = points.shape[0]
+    mesh = make_mesh((1, 1), device_type=dev.type)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # -- the shards ------------------------------------------------------------
+    graphs = []
+
+    def knn(block):
+        g = build_knn_graph(block, k=32, metric="l2", device=dev)
+        graphs.append((g, medoid(block).reshape(1)))
+        return graphs[-1]
+
+    sync()
+    t0 = time.perf_counter()
+    corpora = {"float32": build_sharded(points, SHARDS, knn, mesh=mesh, device=dev)}
+    sync()
+    t_build = time.perf_counter() - t0
+    again = iter(graphs)
+    t0 = time.perf_counter()
+    corpora["int8"] = build_sharded(points, SHARDS, lambda block: next(again),
+                                    corpus_dtype="int8", mesh=mesh, device=dev)
+    sync()
+    t_q = time.perf_counter() - t0
+    f32 = corpora["float32"]
+    log(f"[sharded] build_sharded({n}, {SHARDS}): shards of {f32.shard_size}, an exact k-NN "
+        f"graph (R=32) and the medoid start each, {t_build:.2f} s on the card; int8 (each "
+        f"shard quantized on its own) over the same graphs {t_q:.2f} s; mesh (1, 1) over "
+        f"{dist.get_backend()}, every shard local; card {card}")
+
+    # -- (1) the collective over one rank ---------------------------------------
+    launches, unions, per_f32 = {}, {}, None
+    nq = queries.shape[0]
+    alt = torch.where(torch.arange(nq, device=dev) % 2 == 0, r, 2 * r).to(torch.float32)
+    for dt, c in (("float32", cfg), ("int8", q_cfg)):
+        corpus = corpora[dt]
+        sharded_range_search(mesh=mesh, corpus=corpus, queries=queries, r=r, cfg=c)  # warm-up
+        sync()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res = sharded_range_search(mesh=mesh, corpus=corpus, queries=queries, r=r, cfg=c)
+        sync()
+        wall = time.perf_counter() - t0
+        counts, routes = read_counts(kernels)
+        missing = [k for k in SHARDED_PATH[dt] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"[sharded] {dt}: {missing} never launched {counts}")
+        launches.update({k: counts[k] for k in SHARDED_PATH[dt]})
+        got = _host(res)
+        per = per_shard_results(corpus, queries, r, c)
+        unions[dt] = host_union(per, corpus.offsets.cpu().numpy(), corpus.n_total,
+                                c.result_cap)
+        bad = _same_result(got, unions[dt])
+        if bad:
+            raise AssertionError(f"[sharded] {dt}: {bad} differ from the host union of the "
+                                 "per-shard calls")
+        if dt == "float32":
+            per_f32 = per
+            check_result(res, points, queries, r, c.result_cap, "[sharded] float32")
+        else:
+            check_result_int8(res, points, queries, r, c.result_cap, "[sharded] int8")
+        t_mix = time.perf_counter()
+        mixed = _host(sharded_range_search(mesh=mesh, corpus=corpus, queries=queries, r=alt,
+                                           cfg=c))
+        wide = _host(sharded_range_search(mesh=mesh, corpus=corpus, queries=queries, r=2 * r,
+                                          cfg=c))
+        t_mix = time.perf_counter() - t_mix
+        for name, want, lanes in (("r", got, slice(0, None, 2)), ("2r", wide, slice(1, None, 2))):
+            bad = _same_result({f: v[lanes] for f, v in mixed.items()},
+                               {f: v[lanes] for f, v in want.items()})
+            if bad:
+                raise AssertionError(f"[sharded] {dt}: the mixed batch's {name} lanes differ "
+                                     f"from the homogeneous call in {bad}")
+        ap = ap_of(res)
+        s_ap, s_qps = single[dt]
+        log(f"[sharded] {dt} collective, 1 rank, {SHARDS} shards: QPS={nq / wall:.1f} "
+            f"({wall * 1e3:.1f} ms for {nq} queries), AP={ap:.4f} (single index on the 1M "
+            f"k-NN graph, compacted: AP {s_ap:.4f}, QPS {s_qps:.1f}), phase-2 share="
+            f"{float(res.phase2.float().mean()):.4f}, overflowed lanes="
+            f"{int(res.overflow.sum())}, mean n_rerank={float(res.n_rerank.float().mean()):.2f}"
+            f", launches={counts}, routes {routes}; gates: (a) bit for bit the host union of "
+            f"the {SHARDS} per-shard range_search_fused calls, (b) no false positive, (c) the "
+            f"r/2r mixed batch equal lane for lane to the two homogeneous calls "
+            f"({t_mix:.2f} s for both), (d) every path kernel launched; results "
+            f"{match_histogram(got['count'])}; card {card}")
+
+    # the single index starts from 4 points (start_points); the same graphs
+    # with 4 starts a shard say how much of the AP gap is the start count
+    regraph = iter(g for g, _ in graphs)
+    four = build_sharded(points, SHARDS, lambda b: (next(regraph), start_points(b, "l2", k=4)),
+                         mesh=mesh, device=dev)
+    ap4 = ap_of(sharded_range_search(mesh=mesh, corpus=four, queries=queries, r=r, cfg=cfg))
+    del four
+    log(f"[sharded] float32 with 4 starts a shard (start_points, the single index's n_starts):"
+        f" AP={ap4:.4f}; card {card}")
+
+    # -- (2) the f32 collective over two ranks on the one card -------------------
+    t0 = time.perf_counter()
+    outs = two_rank_run(f32, queries, r, cfg)
+    t_two = time.perf_counter() - t0
+    for k, o in enumerate(outs):
+        bad = _same_result(o, unions["float32"])
+        if bad or list(o["held"]) != [k * SHARDS // SHARD_RANKS, SHARDS // SHARD_RANKS]:
+            raise AssertionError(f"[sharded] rank {k} of {SHARD_RANKS}: held {o['held']}, "
+                                 f"{bad} differ from the one-rank result")
+    walls = [float(o["wall"]) for o in outs]
+    wires = [float(o["wire"]) for o in outs]
+    log(f"[sharded] float32 collective, {SHARD_RANKS} ranks on the one card (gloo, mesh (1, "
+        f"{SHARD_RANKS}), {SHARDS // SHARD_RANKS} shards a rank, payloads through host "
+        f"memory): each rank's result bit for bit the one-rank result; the timed call took "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms on the ranks "
+        f"(QPS={nq / max(walls):.1f}); the model-axis gather alone "
+        f"({int(outs[0]['wire_bytes'])} bytes a rank) "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in wires)} ms; the run, process start and shard "
+        f"loading included, {t_two:.1f} s; card {card}")
+
+    # -- (3) the host fan-out -----------------------------------------------------
+    fast = RetryPolicy(backoff_s=0.0)
+    healthy = None
+    for workers in (None, 0):
+        sync()
+        t0 = time.perf_counter()
+        d = fault_tolerant_sharded_search(corpus=f32, queries=queries, r=r, cfg=cfg,
+                                          retry=fast, max_workers=workers)
+        sync()
+        wall = time.perf_counter() - t0
+        bad = _same_result(_host(d.result), unions["float32"])
+        if bad or not d.complete:
+            raise AssertionError(f"[sharded] fan-out (max_workers={workers}): {bad} differ "
+                                 "from the collective result")
+        if workers is None:
+            healthy = wall
+    log(f"[sharded] fan-out healthy: bit for bit the collective result, threaded "
+        f"({SHARDS} workers, one device) and serial; {healthy * 1e3:.1f} ms threaded, "
+        f"{wall * 1e3:.1f} ms serial (QPS {nq / healthy:.1f}, {nq / wall:.1f}); card {card}")
+    survivors = host_union(per_f32, f32.offsets.cpu().numpy(), f32.n_total, cfg.result_cap,
+                           keep=(0, 2, 3))
+    d = fault_tolerant_sharded_search(corpus=f32, queries=queries, r=r, cfg=cfg,
+                                      injector=FaultInjector(seed=0, down_shards=(1,)),
+                                      retry=fast)
+    bad = _same_result(_host(d.result), survivors)
+    if bad or (d.coverage, d.shards_ok, d.shards_total) != (0.75, 3, 4):
+        raise AssertionError(f"[sharded] shard 1 down: coverage {d.coverage}, {bad} differ "
+                             "from the union of shards 0, 2, 3")
+    g = fault_tolerant_sharded_search(corpus=f32, queries=queries, r=r, cfg=cfg,
+                                      injector=FaultInjector(script={(2, 0): "garbage"}),
+                                      retry=fast)
+    bad = _same_result(_host(g.result), unions["float32"])
+    if bad or list(g.attempts) != [1, 1, 2, 1] or g.faults[2] != "garbage":
+        raise AssertionError(f"[sharded] garbage at (2, 0): attempts {g.attempts}, faults "
+                             f"{g.faults}, {bad} differ from healthy")
+    log(f"[sharded] fan-out faults: shard 1 down -> coverage {d.coverage}, shards_ok "
+        f"{d.shards_ok}/{d.shards_total}, attempts {d.attempts.tolist()}, bit for bit the "
+        f"union of shards {{0, 2, 3}}; garbage at (shard 2, attempt 0) -> caught by "
+        f"validation, attempts {g.attempts.tolist()}, bit for bit healthy; card {card}")
+
+    # -- (4) served ---------------------------------------------------------------
+    q_np = queries[:SHARD_SERVED].cpu().numpy()
+    radii = np.full(SHARD_SERVED, r, np.float32)
+    for name, kw, want in (
+            ("collective", dict(mesh=mesh), unions["float32"]),
+            ("fan-out, shard 1 down", dict(injector=FaultInjector(seed=0, down_shards=(1,)),
+                                           retry=fast), survivors)):
+        srv = RangeServer(None, cfg, ServerConfig(max_batch=SERVE_MAX_BATCH), sharded=f32,
+                          **kw)
+        resp, wall = drive_server(srv, q_np, radii)
+        for i, x in enumerate(resp):
+            keep = want["ids"][i] != INVALID_ID
+            same = (np.array_equal(x.ids, want["ids"][i][keep])
+                    and np.array_equal(x.dists.view(np.int32),
+                                       want["dists"][i][keep].view(np.int32))
+                    and (x.count, x.overflow) == (want["count"][i], want["overflow"][i]))
+            annotated = ((x.shards_ok, x.shards_total, x.code) == (3, 4, "shard_lost")
+                         if "down" in name else x.shards_ok is None)
+            if not (same and annotated):
+                raise AssertionError(f"[sharded] served {name}: request {i} differs from its "
+                                     f"lane ({x.count} against {want['count'][i]}) or is not "
+                                     f"annotated ({x.shards_ok}/{x.shards_total}, {x.code})")
+        log(f"[sharded] served {name}: {SHARD_SERVED} requests at max_batch {SERVE_MAX_BATCH}"
+            f" in {wall:.2f} s = {SHARD_SERVED / wall:.1f} requests/s; each response equal to "
+            f"its lane{' and annotated 3 of 4 shards, shard_lost' if 'down' in name else ''}; "
+            f"stats shard_retries={srv.stats['shard_retries']}, shards_lost="
+            f"{srv.stats['shards_lost']}, degraded_batches={srv.stats['degraded_batches']}; "
+            f"card {card}")
+    dist.destroy_process_group()
+    log(f"[sharded] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
@@ -2473,6 +2884,10 @@ def main() -> int:
                     help="result buffer per query (the deployment's 1024); "
                          "another value is the AP-gap probe, and also runs "
                          "the two-tower graph half's AP probes")
+    ap.add_argument("--sharded-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-world", type=int, default=SHARD_RANKS, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2485,6 +2900,9 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not in {ROOT}/src: run this "
               "script from a checkout of the repo", file=sys.stderr)
         return 1
+    if args.sharded_rank is not None:   # a rank of the [sharded] phase's second run
+        return sharded_rank(args.sharded_rank, args.sharded_world, args.sharded_dir,
+                            args.sharded_device)
     from repro_torch.configs.range_engine import EngineDeployConfig
     from repro_torch.core import (
         RangeSearchEngine, average_precision, build_knn_graph, default_grid,
@@ -2737,6 +3155,12 @@ def main() -> int:
                                q_cfgs["greedy f32-query"], kernels, vamana_aps)
     log(f"[live] phase took {time.perf_counter() - t0:.1f} s")
     del engine_v
+    torch.cuda.empty_cache()
+
+    # -- 16. the sharded engine: the collective, the fan-out, served ----------
+    sharded_launches = sharded_phase(
+        points, queries, r, cfgs["greedy"], q_cfgs["greedy f32-query"], kernels, ap_of,
+        {"float32": knn["greedy f32"], "int8": knn["greedy int8 f32-query"]})
 
     for name in ("expand", "gatherdist"):
         entries[name]["launches"] = launches["greedy"][name]
@@ -2745,6 +3169,8 @@ def main() -> int:
         entries[name]["serve_launches"] = n
     for name, n in live_launches.items():
         entries[name]["live_launches"] = n
+    for name, n in sharded_launches.items():
+        entries[name]["sharded_launches"] = n
     entries["rerank_fetch"]["fallback_launches"] = fallback_launches
     entries["rerank_fetch"]["tier_launches"] = tier_launches
     for name in ("expand_int8", "gatherdist_int8"):
@@ -2769,7 +3195,7 @@ def main() -> int:
              "int8_query_main_shape_ms", "int8_query_main_shape_old_route_ms",
              "int8_query_main_shape_bound_ms", "fetch_route", "cold_ms",
              "old_route_cold_ms", "build_launches", "fallback_launches", "tier_launches",
-             "serve_launches", "live_launches")
+             "serve_launches", "live_launches", "sharded_launches")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

@@ -1,11 +1,16 @@
 """ArchSpec / ShapeSpec: the (architecture x input-shape) cell definitions.
 
 Every configuration module exports ``ARCH`` (the exact published config)
-and ``reduced()`` (a CPU-test version of the same family)."""
+and ``reduced()`` (a CPU-test version of the same family). ``rules`` are
+the parameters' sharding rules (``dist.sharding.Rule``s; the reference
+requires them, the port's configs that do not shard leave them empty) and
+``opt_cfg`` the optimizer settings."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional
+
+from ..optim.adamw import AdamWConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +38,8 @@ class ArchSpec:
     family: str                        # lm | gnn | recsys
     model_cfg: Any
     shapes: dict[str, ShapeSpec]
+    rules: Any = ()                    # sharding Rule list
+    opt_cfg: AdamWConfig = AdamWConfig()
     source: str = ""
     technique_note: str = ""           # paper-technique applicability
     reduced: Optional[Callable[[], Any]] = None  # smoke-size config factory

@@ -5,16 +5,16 @@ a Vamana graph of degree 32, l2, and the fused greedy search (beam 64,
 visit_cap 256, E=4, result_cap 1024) over 4096-query batches, each query
 at its own radius. ``corpus_dtype`` "int8" is the production setting (the
 guard-banded walk on int8 codes and the exact rerank of the band); the
-default stays f32.
-
-The reference's ``ARCH`` (sharding rules over a device mesh and the
-optimizer settings) is left out: it comes with the multi-device slice
-(ROADMAP.md §1, item 3: multi-device).
+default stays f32. A multi-shard deployment splits its corpus over the
+mesh's model axis, one such shard a sub-index (``dist.build_sharded``).
 """
 import dataclasses
 
 from ..core.beam_search import SearchConfig
 from ..core.range_search import RangeConfig
+from ..dist.sharding import Rule
+from ..optim.adamw import AdamWConfig
+from .common import ArchSpec, ShapeSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +84,21 @@ def reduced() -> EngineDeployConfig:
                                                   visit_cap=64, expand_width=4),
                               mode="greedy", result_cap=128,
                               frontier_rounds=256))
+
+
+ARCH = ArchSpec(
+    arch_id="range-engine",
+    family="engine",
+    model_cfg=EngineDeployConfig(),
+    shapes={
+        "search_4k": ShapeSpec("search_4k", "range_search", global_batch=4096,
+                               notes="batched online range queries"),
+        "search_64k": ShapeSpec("search_64k", "range_search", global_batch=65_536,
+                                notes="bulk range search (Szilvasy-style)"),
+    },
+    rules=[Rule(r".*", ())],
+    opt_cfg=AdamWConfig(),
+    source="this paper",
+    technique_note="the paper's contribution itself",
+    reduced=reduced,
+)

@@ -5,7 +5,9 @@ and ``start_ids``; given those as numpy arrays, ``engine_from_arrays``
 builds this package's engine over the identical index, so both packages
 can be run on the same graph. An int8 reference corpus comes across as its
 ``codes`` and ``meta`` beside the raw ``points``, so both packages search
-the identical quantized corpus. ``recsys_params_from_jax`` carries a JAX
+the identical quantized corpus. ``sharded_from_arrays`` does the same for a
+reference ``ShardedCorpus`` (its stacked per-shard arrays), keeping only a
+rank's own shards when given a mesh. ``recsys_params_from_jax`` carries a JAX
 two-tower parameter tree across, ``transformer_params_from_jax`` a JAX LM's,
 ``effort_params_from_jax`` the effort regressor's.
 """
@@ -17,6 +19,7 @@ import torch
 from .core.corpus import QuantizedCorpus
 from .core.engine import RangeSearchEngine
 from .core.graph import Graph
+from .core.labels import as_label_rows
 from .layers.attention import GQA
 from .layers.mlp import MLP, DenseStack
 from .models.recsys import RecsysConfig, Tower, TwoTower
@@ -41,6 +44,40 @@ def engine_from_arrays(points, neighbors, start_ids, metric: str = "l2",
     return RangeSearchEngine(points=corpus,
                              graph=Graph(neighbors=nbrs.contiguous()),
                              start_ids=starts.reshape(-1), metric=metric)
+
+
+def sharded_from_arrays(points, neighbors, start_ids, offsets, n_total: int, *,
+                        codes=None, meta=None, labels=None, mesh=None,
+                        model_axis: str = "model", device="cuda"):
+    """A reference ``ShardedCorpus`` given as numpy arrays, stacked on the
+    shard axis: ``points`` (S, n, d) f32 (the raw rows of an int8 corpus),
+    ``neighbors`` (S, n, R), ``start_ids`` (S, k), ``offsets`` (S,),
+    ``n_total``; an int8 corpus adds ``codes`` (S, n, d) and ``meta``
+    (S, n, 3); ``labels`` (S, n, W) uint32 words. With ``mesh``, only the
+    shards of this rank's model coordinate are kept (``build_sharded``'s
+    layout)."""
+    from .dist.sharded_engine import ShardedCorpus, _held_shards
+
+    dev = resolve_device(device)
+    if (codes is None) != (meta is None):
+        raise ValueError("an int8 corpus needs both codes and meta")
+    n_shards = np.asarray(offsets).shape[0]
+    held = _held_shards(mesh, n_shards, model_axis)
+    sel = slice(held.start, held.stop)
+
+    def tensor(x, dtype):
+        return torch.as_tensor(np.array(np.asarray(x)[sel], dtype), device=dev).contiguous()
+
+    pts = tensor(points, np.float32)
+    if codes is not None:
+        pts = QuantizedCorpus(codes=tensor(codes, np.int8), meta=tensor(meta, np.float32),
+                              raw=pts)
+    return ShardedCorpus(
+        points=pts, neighbors=tensor(neighbors, np.int32),
+        start_ids=tensor(start_ids, np.int32).reshape(len(held), -1),
+        offsets=tensor(offsets, np.int32), n_total=int(n_total),
+        labels=None if labels is None else as_label_rows(np.asarray(labels)[sel], dev),
+        first_shard=held.start, total_shards=n_shards)
 
 
 def recsys_params_from_jax(params: dict, cfg: RecsysConfig,

@@ -35,6 +35,18 @@ class Graph:
         rows = self.neighbors[torch.where(valid, ids, 0).long()]
         return torch.where(valid[..., None], rows, INVALID_ID)
 
+    def lane_padded(self, multiple: int = 128) -> "Graph":
+        """Copy with the degree axis INVALID-padded up to ``multiple`` (the
+        reference pads R to the TPU's 128 lanes; a padded row searches as
+        the unpadded one)."""
+        r = self.max_degree
+        r_pad = -(-r // multiple) * multiple
+        if r_pad == r:
+            return self
+        pad = torch.full((self.num_nodes, r_pad - r), INVALID_ID, dtype=torch.int32,
+                         device=self.neighbors.device)
+        return Graph(neighbors=torch.cat([self.neighbors, pad], dim=1))
+
 
 def medoid(points: torch.Tensor) -> torch.Tensor:
     """Index of the point closest to the dataset centroid (search entry)."""

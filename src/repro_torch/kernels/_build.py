@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
@@ -43,6 +44,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-I", str(COMMON.parent)]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()   # the fan-out's threads may load a library at once
 
 
 def _nvcc() -> str:
@@ -102,10 +104,11 @@ def build(names=None) -> dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
-    if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    with _load_lock:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]
 
 
 def check(lib: ctypes.CDLL, prefix: str, rc: int) -> None:

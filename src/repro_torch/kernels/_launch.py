@@ -1,8 +1,9 @@
-"""Argument checks shared by the CUDA kernel wrappers, and the empty
-launch their times are read against."""
+"""Argument checks shared by the CUDA kernel wrappers, their launch
+counts, and the empty launch their times are read against."""
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -13,6 +14,19 @@ ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # 1 + GUARD_SLACK, the factor every lower-bound site applies; ctypes rounds
 # it to f32 as PyTorch rounds the same Python float
 SLACK_FACTOR = 1.0 + GUARD_SLACK
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, route: str | None = None) -> None:
+    """Add one to a wrapper's ``launches`` (and to its ``routes[route]``).
+    The sharded fan-out's worker threads launch at once, and ``+=`` on an
+    attribute is a read, an add and a write, so the update holds a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if route is not None:
+            wrapper.routes[route] += 1
 
 
 def check_tensor(name: str, t: torch.Tensor, dtypes, ndim: int,

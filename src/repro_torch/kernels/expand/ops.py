@@ -32,7 +32,8 @@ import torch
 
 from .. import _build
 from .._launch import (
-    ROW_DTYPES, SLACK_FACTOR, check_metric, check_tensor, code_vec, vector_rows)
+    ROW_DTYPES, SLACK_FACTOR, check_metric, check_tensor, code_vec, count_launch,
+    vector_rows)
 from .ref import expand_frontier_int8_ref, expand_frontier_ref
 
 _SMEM_LIMIT = 48 * 1024  # static shared-memory limit of a warp-route launch
@@ -252,8 +253,7 @@ def expand_cuda(points, neighbors, frontier, queries, *, metric: str = "l2",
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*ptrs, *tail, stream)
-    expand_cuda.launches += 1
-    expand_cuda.routes[p.route] += 1
+    count_launch(expand_cuda, p.route)
     _build.check(lib, "expand", rc)
     return ids, dists, n_dist
 
@@ -312,8 +312,7 @@ def expand_int8_cuda(codes, meta, neighbors, frontier, queries, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*ptrs, *tail, stream)
-    expand_int8_cuda.launches += 1
-    expand_int8_cuda.routes[p.route] += 1
+    count_launch(expand_int8_cuda, p.route)
     _build.check(lib, "expand_int8", rc)
     return out
 

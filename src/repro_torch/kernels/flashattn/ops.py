@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .._launch import ROW_DTYPES
+from .._launch import ROW_DTYPES, count_launch
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -170,8 +170,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     fn.argtypes, fn.restype = argtypes + [ctypes.c_void_p], ctypes.c_int
     with torch.cuda.device(q.device):
         rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.routes[route] += 1
+    count_launch(flash_attention_cuda, route)
     _build.check(lib, lib_name, rc)
     return out
 

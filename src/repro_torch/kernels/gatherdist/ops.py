@@ -28,7 +28,8 @@ import torch
 
 from .. import _build
 from .._launch import (
-    ROW_DTYPES, SLACK_FACTOR, check_metric, check_tensor, code_vec, vector_rows)
+    ROW_DTYPES, SLACK_FACTOR, check_metric, check_tensor, code_vec, count_launch,
+    vector_rows)
 from .ref import gatherdist_int8_ref, gatherdist_ref
 
 _SMEM_LIMIT = 48 * 1024  # static shared-memory limit of a launch
@@ -109,7 +110,7 @@ def gatherdist_cuda(points, ids, queries, *, metric: str = "l2"):
         rc = fn(points.data_ptr(), ROW_DTYPES[points.dtype], ids.data_ptr(),
                 queries.data_ptr(), out.data_ptr(), qn, n, d, s, l2,
                 vector_rows(points), stream)
-    gatherdist_cuda.launches += 1
+    count_launch(gatherdist_cuda)
     _build.check(lib, "gatherdist", rc)
     return out
 
@@ -173,8 +174,7 @@ def gatherdist_int8_cuda(codes, meta, ids, queries, *, metric: str = "l2",
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, SLACK_FACTOR, stream)
-    gatherdist_int8_cuda.launches += 1
-    gatherdist_int8_cuda.routes[p.route] += 1
+    count_launch(gatherdist_int8_cuda, p.route)
     _build.check(lib, "gatherdist_int8", rc)
     return result
 

@@ -26,7 +26,7 @@ import torch
 
 from ...utils import INVALID_ID, cdiv, resolve_device
 from .. import _build
-from .._launch import ROW_DTYPES, check_metric, check_tensor, vector_rows
+from .._launch import ROW_DTYPES, check_metric, check_tensor, count_launch, vector_rows
 from .ref import rangescan_ref
 
 TILE = 128                  # points a tile, both routes
@@ -191,8 +191,7 @@ def rangescan_cuda(queries, points, r, *, k: int = 128, metric: str = "l2",
     with torch.cuda.device(dev):
         rc = fn(queries.data_ptr(), points.data_ptr(), ROW_DTYPES[points.dtype], float(r),
                 *ints, *ptrs, torch.cuda.current_stream(dev).cuda_stream)
-    rangescan_cuda.launches += 1
-    rangescan_cuda.routes[p.route] += 1
+    count_launch(rangescan_cuda, p.route)
     _build.check(lib, "rangescan", rc)
     return ids, dists, counts
 

@@ -26,7 +26,7 @@ import functools
 import torch
 
 from .. import _build
-from .._launch import check_metric, check_tensor, vector_rows
+from .._launch import check_metric, check_tensor, count_launch, vector_rows
 from .ref import fetch_rerank_pairs_ref
 
 CHUNK = 32      # pairs a warp takes at a time
@@ -165,8 +165,7 @@ def rerank_fetch_cuda(raw, queries, ids, lanes, *, metric: str = "l2",
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*ptrs, n, nq, d, p, *tail, stream)
-    rerank_fetch_cuda.launches += 1
-    rerank_fetch_cuda.routes[route] += 1
+    count_launch(rerank_fetch_cuda, route)
     _build.check(lib, "rerank_fetch", rc)
     return out
 

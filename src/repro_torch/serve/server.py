@@ -24,6 +24,15 @@ One process serving one engine, as the reference's single-engine path:
   filters, and int8 and tiered corpora (the result stage is one
   ``finalize_results`` call on the served corpus, which reranks a tiered
   corpus's guard band from host memory).
+* **multi-shard** (lockstep only): over a ``dist.ShardedCorpus``
+  (``sharded=``), a micro-batch goes through the collective
+  ``dist.sharded_range_search`` when a ``mesh`` is given (and neither an
+  injector nor a tiered corpus), else through the fault-tolerant host
+  fan-out (``fault.fault_tolerant_sharded_search``: per-shard retries with
+  ``retry`` backoff, validated answers, and on permanent shard loss every
+  response of the batch annotated ``shards_ok``/``shards_total``,
+  ``code="shard_lost"``). Over a mesh of several ranks every rank runs the
+  same server over the same requests and gets the same responses.
 * **live mutation**: over a ``live.LiveIndex`` (``live=``), ``insert`` and
   ``delete`` requests ride the same queue. A micro-batch's mutations apply
   first (one coalesced insert, then one coalesced delete), the epoch
@@ -42,10 +51,9 @@ latency includes the device work that CUDA's asynchronous launches would
 otherwise leave out; a micro-batch's queries and radii go to the device as
 one copy per tensor; over a live index a lockstep micro-batch searches the
 snapshot by slot id and maps the ids to external ids on the host, as the
-continuous path does (the reference calls ``LiveSnapshot.range``). Fault
-injection, retries and replication (``injector=``, ``retry=``,
-``replicas=``, ``hedge=``) and sharded serving (``mesh=``, ``sharded=``)
-are later slices of the port and raise ``NotImplementedError``.
+continuous path does (the reference calls ``LiveSnapshot.range``).
+Replication (``replicas=`` > 1, ``hedge=``) is ROADMAP.md §1, item 4, and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -65,6 +73,8 @@ from ..core.range_search import (
     RangeConfig, RangeResult, finalize_results, greedy_coverage, greedy_lane_done,
     greedy_resume_batch, greedy_seed_batch, range_phase1, range_search_compacted,
 )
+from ..dist.sharded_engine import sharded_range_search
+from ..fault.degraded import RetryPolicy, fault_tolerant_sharded_search
 from ..fault.errors import DEADLINE_EXPIRED, QUEUE_FULL
 from ..utils import INVALID_ID
 from .latency import LatencyHistogram
@@ -76,12 +86,8 @@ from .scheduler import LaneScheduler
 REQUEST_OPS = ("range", "count", "insert", "delete")
 
 _LATER = {
-    "injector": "ROADMAP.md §1, item 4: fault tolerance",
-    "retry": "ROADMAP.md §1, item 4: fault tolerance",
-    "replicas": "ROADMAP.md §1, item 4: fault tolerance",
-    "hedge": "ROADMAP.md §1, item 4: fault tolerance",
-    "mesh": "ROADMAP.md §1, item 3: multi-device",
-    "sharded": "ROADMAP.md §1, item 3: multi-device",
+    "replicas": "ROADMAP.md §1, item 4: fault tolerance (replication)",
+    "hedge": "ROADMAP.md §1, item 4: fault tolerance (replication)",
 }
 
 
@@ -132,8 +138,8 @@ class Response:
     complete: bool = True           # False: partial (deadline)
     coverage: float = 1.0           # searched fraction estimate (1.0 = full)
     code: Optional[str] = None      # fault.errors taxonomy; None = healthy
-    shards_ok: Optional[int] = None     # sharded serving (a later slice)
-    shards_total: Optional[int] = None
+    shards_ok: Optional[int] = None     # sharded fan-out: shards merged
+    shards_total: Optional[int] = None  # sharded fan-out: shards configured
     replicas_ok: Optional[int] = None   # replicated serving (a later slice)
     replicas_total: Optional[int] = None
     filtered: bool = False          # answered under a label predicate
@@ -183,20 +189,25 @@ class RangeServer:
     ):
         """``live`` is a ``live.LiveIndex``; it takes the place of ``engine``
         (pass ``engine=None``) and enables insert/delete requests.
+        ``sharded`` is a ``dist.ShardedCorpus`` (``engine=None``), served
+        through the collective ``dist.sharded_range_search`` over ``mesh``
+        or, without a mesh or with an ``injector`` (a seeded
+        ``fault.FaultInjector`` for chaos tests), through the fault-tolerant
+        host fan-out with ``retry`` (a ``fault.RetryPolicy``).
         ``effort`` is a fitted ``models.EffortPredictor``; continuous
         mode uses it to split each drain into cheap/heavy dispatches.
         ``clock`` is the monotonic time source of queueing and deadline
-        decisions, injectable so tests advance a fake clock. The arguments
-        of later slices (``mesh``, ``sharded``, ``injector``, ``retry``,
-        ``replicas`` > 1, ``hedge``) raise."""
-        given = dict(mesh=mesh, sharded=sharded, injector=injector,
-                     retry=retry, hedge=hedge, replicas=None if replicas == 1 else replicas)
+        decisions, injectable so tests advance a fake clock. Replication
+        (``replicas`` > 1, ``hedge``) raises."""
+        given = dict(hedge=hedge, replicas=None if replicas == 1 else replicas)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"RangeServer({name}=...) is not ported yet ({_LATER[name]})")
-        if engine is None and live is None:
-            raise ValueError("need an engine or a live index")
+        if engine is None and live is None and sharded is None:
+            raise ValueError("need an engine, a sharded corpus, or a live index")
+        if injector is not None and sharded is None:
+            raise ValueError("fault injection targets shards; pass sharded=")
         self.engine = engine
         self.live = live
         if server_cfg.expand_width > 0:
@@ -204,19 +215,32 @@ class RangeServer:
                 cfg.search, expand_width=server_cfg.expand_width))
         # the declarative SearchConfig.corpus_dtype is a deploy contract:
         # what the config promises must be what the served corpus stores
-        actual = corpus_dtype_name(live.points if live is not None else engine.points)
+        if live is not None:
+            served = live.points
+        elif sharded is not None:
+            served = sharded.points
+        else:
+            served = engine.points
+        actual = corpus_dtype_name(served)
         if cfg.search.corpus_dtype != actual:
             raise ValueError(
                 f"SearchConfig.corpus_dtype={cfg.search.corpus_dtype!r} but "
                 f"the served corpus stores {actual!r}")
         self.cfg = cfg
         self.scfg = server_cfg
+        self.mesh = mesh
+        self.sharded = sharded
         self.effort = effort
+        self.injector = injector
+        self.retry = retry or RetryPolicy()
         self._clock = clock
         self.queue: deque[tuple[Request, float]] = deque()
         self._view = live.snapshot() if live is not None else None
         self._pool: Optional[LaneScheduler] = None
         if server_cfg.continuous:
+            if sharded is not None or mesh is not None:
+                raise ValueError("continuous batching is single-shard; "
+                                 "drop continuous=True for sharded serving")
             if cfg.mode != "greedy":
                 raise ValueError("continuous batching schedules the greedy "
                                  f"phase; cfg.mode={cfg.mode!r}")
@@ -241,7 +265,8 @@ class RangeServer:
             "pool_rotations": 0, "pool_oneshot": 0,
             "bucket_cheap": 0, "bucket_heavy": 0,
             # deadlines: shed while queued / finalized as certified partials;
-            # the shard and replica counters belong to later slices
+            # shard_retries / shards_lost / degraded_batches come from the
+            # sharded fan-out; the replica counters belong to a later slice
             "deadline_shed": 0, "deadline_partial": 0,
             "shard_retries": 0, "shards_lost": 0, "degraded_batches": 0,
             "hedges_fired": 0, "hedge_wins": 0, "breaker_trips": 0,
@@ -278,10 +303,19 @@ class RangeServer:
 
     @property
     def device(self) -> torch.device:
+        if self.sharded is not None:
+            return self.sharded.device
         return hot_arm(self._device_corpus()).device
 
     def _labels(self):
-        return self._view.labels if self.live is not None else self.engine.labels
+        """The served packed label rows, or None. A sharded corpus keeps
+        labels per shard; here they only say whether a filter applies and
+        how many labels there are."""
+        if self.live is not None:
+            return self._view.labels
+        if self.sharded is not None:
+            return self.sharded.labels
+        return self.engine.labels
 
     def _num_labels(self) -> int:
         """Label-id space the packed store can represent (32 per word)."""
@@ -534,6 +568,30 @@ class RangeServer:
         return batch, out
 
     # -- lockstep execution --------------------------------------------------
+    def _execute(self, qj: torch.Tensor, rj: torch.Tensor, lf: Optional[LabelFilter]):
+        """One micro-batch's search: ``(RangeResult, DegradedResult | None)``,
+        the second only from the sharded fan-out (no mesh, an injector, or
+        a tiered corpus)."""
+        es = self._es(rj)
+        if self.sharded is not None:
+            if (self.mesh is not None and self.injector is None
+                    and self.sharded.tiers is None):
+                return sharded_range_search(
+                    mesh=self.mesh, corpus=self.sharded, queries=qj, r=rj, cfg=self.cfg,
+                    es_radius=es, label_filter=lf), None
+            d = fault_tolerant_sharded_search(
+                corpus=self.sharded, queries=qj, r=rj, cfg=self.cfg, es_radius=es,
+                label_filter=lf, injector=self.injector, retry=self.retry)
+            self.stats["degraded_batches"] += int(not d.complete)
+            self.stats["shard_retries"] += int(d.attempts.sum()) - d.shards_total
+            self.stats["shards_lost"] += d.shards_total - d.shards_ok
+            return d.result, d
+        return range_search_compacted(
+            corpus=self._device_corpus(), graph=self._graph(), queries=qj,
+            start_ids=self._start_ids(), r=rj, cfg=self.cfg, es_radius=es,
+            tombstones=self._tombstones(),
+            labels=None if lf is None else self._labels(), label_filter=lf), None
+
     def step(self) -> list[Response]:
         """Serve one micro-batch from the queue: its mutations first (a live
         index), then one ``range_search_compacted`` call over its queries on
@@ -556,12 +614,13 @@ class RangeServer:
         q, radii = self._batch_arrays(reqs)
         qj, rj = self._to_device(q), self._to_device(radii)
         lf = self._filter_of(reqs)
-        res = range_search_compacted(
-            corpus=self._device_corpus(), graph=self._graph(), queries=qj,
-            start_ids=self._start_ids(), r=rj, cfg=self.cfg, es_radius=self._es(rj),
-            tombstones=self._tombstones(),
-            labels=None if lf is None else self._labels(), label_filter=lf)
-        out.extend(self._emit(res, reqs, arrive, radii, [svc0] * len(reqs)))
+        res, degraded = self._execute(qj, rj, lf)
+        extras = None
+        if degraded is not None:  # the shard health, on every response
+            extras = [dict(shards_ok=degraded.shards_ok, shards_total=degraded.shards_total,
+                           complete=degraded.complete, coverage=degraded.coverage,
+                           code=degraded.code)] * len(reqs)
+        out.extend(self._emit(res, reqs, arrive, radii, [svc0] * len(reqs), extras))
         self.stats["batches"] += 1
         self.stats["filtered_batches"] += int(lf is not None)
         self.stats["filtered_requests"] += sum(rq.filter_labels is not None for rq in reqs)

@@ -14,8 +14,9 @@
 
 Restored uint32 leaves come back as int32 tensors holding the same bits
 (the port's convention for packed bitsets and label rows: PyTorch has few
-uint32 operations). Placing leaves on a device mesh (``shardings=``) comes
-with the multi-device slice (ROADMAP.md §1, item 3).
+uint32 operations). ``shardings=`` places leaves on a device mesh as
+DTensors (the ``(mesh, placements)`` pairs of ``dist.bind_shardings``);
+every rank of the mesh makes the same restore call.
 """
 from __future__ import annotations
 
@@ -30,8 +31,6 @@ import torch
 
 from ..utils import resolve_device
 
-_SHARDINGS = "ROADMAP.md §1, item 3: multi-device"
-
 
 def _flatten(tree, prefix=""):
     out = {}
@@ -44,6 +43,23 @@ def _flatten(tree, prefix=""):
     else:
         out[prefix] = tree
     return out
+
+
+def _flatten_like(tree, template, prefix=""):
+    """``tree``'s entries at ``template``'s leaves, by path: a sharding leaf
+    is itself a ``(mesh, placements)`` pair, so the template says where the
+    leaves are."""
+    if isinstance(template, dict):
+        out = {}
+        for k, v in template.items():
+            out.update(_flatten_like(tree[k], v, f"{prefix}.{k}" if prefix else k))
+        return out
+    if isinstance(template, (list, tuple)):
+        out = {}
+        for i, v in enumerate(template):
+            out.update(_flatten_like(tree[i], v, f"{prefix}.{i}" if prefix else str(i)))
+        return out
+    return {prefix: tree}
 
 
 def _unflatten(flat: dict, template):
@@ -154,10 +170,9 @@ class CheckpointManager:
         """Template-free restore: ``({path: leaf}, manifest)``. Each leaf is
         a tensor on ``device``, except the leaves named in ``mmap``: those
         are copy-on-write memory-mapped numpy arrays (a tiered corpus's host
-        store restores so, and its raw rows never reach the card)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                f"CheckpointManager.restore_flat(shardings=...) is not ported yet ({_SHARDINGS})")
+        store restores so, and its raw rows never reach the card).
+        ``shardings`` is an optional flat ``{path: (mesh, placements)}``
+        dict: those leaves come back as DTensors laid out on the mesh."""
         dev = resolve_device(device)
         manifest = self.manifest(step)
         d = os.path.join(self.dir, f"step_{manifest['step']:010d}")
@@ -165,16 +180,22 @@ class CheckpointManager:
         flat = {}
         for path in manifest["paths"]:
             fp = os.path.join(d, path + ".npy")
-            flat[path] = (np.load(fp, mmap_mode="c") if path in mm
-                          else _tensor(np.load(fp), dev))
+            if path in mm:
+                flat[path] = np.load(fp, mmap_mode="c")
+                continue
+            flat[path] = _tensor(np.load(fp), dev)
+            bind = None if shardings is None else shardings.get(path)
+            if bind is not None:
+                from torch.distributed.tensor import distribute_tensor
+                flat[path] = distribute_tensor(flat[path], *bind)
         return flat, manifest
 
     def restore(self, template, step: Optional[int] = None, shardings=None, *,
                 device="cuda") -> tuple[dict, int]:
-        """Load into ``template``'s structure, each leaf on ``device``.
+        """Load into ``template``'s structure, each leaf on ``device``, or
+        laid out on a mesh where ``shardings`` (a tree of ``(mesh,
+        placements)`` or None leaves matching ``template``) says so.
         Returns (state, step)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                f"CheckpointManager.restore(shardings=...) is not ported yet ({_SHARDINGS})")
-        flat, manifest = self.restore_flat(step, device=device)
+        flat_shard = None if shardings is None else _flatten_like(shardings, template)
+        flat, manifest = self.restore_flat(step, flat_shard, device=device)
         return _unflatten(flat, template), manifest["step"]

@@ -1500,3 +1500,87 @@ def test_live_snapshot_kernel_path_equals_plain_path(cuda_device, corpus_dtype):
         else:
             assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
     assert int(got.count.sum()) > 0 and bool(got.phase2.any())
+
+
+def _sharded_rig(device, corpus_dtype):
+    """Integer coordinates (every exact distance an integer, decided alike
+    on every path) in 4 shards, an exact k-NN graph and the medoid a shard,
+    built once on the CPU and carried to ``device`` (the CPU corpus too, for
+    the plain path), and queries half a unit off the lattice at per-lane
+    radii."""
+    from repro_torch.core import medoid
+    from repro_torch.dist import build_sharded
+    pts = _integer_rig(2001, 16, 7)
+    graphs = []
+
+    def knn(block):
+        graphs.append((build_knn_graph(block, k=16, device="cpu"), medoid(block).reshape(1)))
+        return graphs[-1]
+
+    cpu = build_sharded(pts, 4, knn, corpus_dtype=corpus_dtype, device="cpu")
+    again = iter(graphs)
+    corpus = build_sharded(pts, 4, lambda b: next(again), corpus_dtype=corpus_dtype,
+                           device=device)
+    qs = _integer_rig(96, 16, 8) + 0.5
+    d2 = ((pts[None] - qs[:, None]) ** 2).sum(-1)
+    radii = (np.where(np.arange(96) % 3 == 0, np.quantile(d2, 0.05, axis=1),
+                      np.quantile(d2, 0.005, axis=1)).round() + 0.5).astype(np.float32)
+    cfg = RangeConfig(search=SearchConfig(beam=32, max_beam=32, visit_cap=128,
+                                          corpus_dtype=corpus_dtype), result_cap=256)
+    return cpu, corpus, qs, radii, cfg
+
+
+def _same(a, b, exact_dists=True):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name).cpu(), getattr(b, f.name).cpu()
+        if f.name == "dists" and not exact_dists:
+            _assert_dists(x, y, _tol("l2", None, None))
+        else:
+            assert torch.equal(x.view(torch.int32) if f.name == "dists" else x,
+                               y.view(torch.int32) if f.name == "dists" else y), f.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus_dtype", ["float32", "int8"])
+def test_sharded_fan_out_threads_on_the_card(cuda_device, corpus_dtype):
+    """Four worker threads issuing onto one card: bit for bit the serial
+    fan-out, the launch counts exact, and equal to the same fan-out on the
+    CPU's plain path (integer coordinates; int8 lower bounds to ``_tol``)."""
+    from repro_torch.fault import FaultInjector, RetryPolicy, fault_tolerant_sharded_search
+    cpu, corpus, qs, radii, cfg = _sharded_rig(cuda_device, corpus_dtype)
+    kern = expand_int8_cuda if corpus_dtype == "int8" else expand_cuda
+    runs, counts = [], []
+    for workers in (0, None, 0, None):
+        before = kern.launches
+        runs.append(fault_tolerant_sharded_search(
+            corpus=corpus, queries=qs, r=radii, cfg=cfg, max_workers=workers,
+            injector=FaultInjector(script={(2, 0): "garbage"}),
+            retry=RetryPolicy(backoff_s=0.0)))
+        torch.cuda.synchronize()
+        counts.append(kern.launches - before)
+    for d in runs[1:]:
+        _same(d.result, runs[0].result)
+        assert list(d.attempts) == [1, 1, 2, 1]
+    assert counts[0] == counts[2] and counts[1] == counts[3] and min(counts) > 0
+    plain = fault_tolerant_sharded_search(corpus=cpu, queries=qs, r=radii, cfg=cfg)
+    _same(runs[1].result, plain.result, exact_dists=corpus_dtype == "float32")
+    assert int(plain.result.count.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus_dtype", ["float32", "int8"])
+def test_sharded_collective_one_rank_on_the_card(cuda_device, corpus_dtype):
+    """``sharded_range_search`` over a one-rank NCCL mesh (every collective
+    over a group of one) equals the host fan-out bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.dist import make_mesh, sharded_range_search
+    from repro_torch.fault import fault_tolerant_sharded_search
+    _, corpus, qs, radii, cfg = _sharded_rig(cuda_device, corpus_dtype)
+    mesh = make_mesh((1, 1))
+    try:
+        assert dist.get_backend() == "nccl"
+        got = sharded_range_search(mesh=mesh, corpus=corpus, queries=qs, r=radii, cfg=cfg)
+    finally:
+        dist.destroy_process_group()
+    want = fault_tolerant_sharded_search(corpus=corpus, queries=qs, r=radii, cfg=cfg)
+    _same(got, want.result)

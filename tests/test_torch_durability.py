@@ -239,7 +239,8 @@ def test_checkpoint_save_is_idempotent_and_durable(tmp_path):
 def test_checkpoint_restore_flat_devices_maps_and_words(tmp_path):
     """Leaves land on the device asked for; ``mmap`` leaves are
     copy-on-write maps; uint32 leaves come back as int32 holding the same
-    bits; ``shardings`` names the multi-device item; no card, no restore."""
+    bits; ``shardings`` with no leaf on a mesh gives plain tensors; no card,
+    no restore."""
     cm = CheckpointManager(str(tmp_path))
     words = np.asarray([1, 2**31, 2**32 - 1], np.uint32)
     cm.save(5, {"w": words, "raw": np.ones((4, 3), np.float32)}, extra={"k": 1})
@@ -250,10 +251,11 @@ def test_checkpoint_restore_flat_devices_maps_and_words(tmp_path):
     assert isinstance(flat["raw"], np.memmap)
     flat["raw"][0, 0] = 7.0                              # copy-on-write
     assert np.load(tmp_path / "step_0000000005" / "raw.npy")[0, 0] == 1.0
-    with pytest.raises(NotImplementedError, match="item 3"):
-        cm.restore_flat(shardings={})
-    with pytest.raises(NotImplementedError, match="item 3"):
-        cm.restore({"w": 0}, shardings={"w": None})
+    # no leaf bound to a mesh: plain tensors (tests/test_torch_dist.py binds them)
+    flat, _ = cm.restore_flat(shardings={}, device="cpu")
+    assert flat["w"].numpy().view(np.uint32).tolist() == words.tolist()
+    state, _ = cm.restore({"w": 0}, shardings={"w": None}, device="cpu")
+    assert isinstance(state["w"], torch.Tensor) and not hasattr(state["w"], "placements")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cm.restore_flat()

@@ -36,7 +36,10 @@ NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
          "repro_torch.serve", "repro_torch.serve.latency", "repro_torch.serve.scheduler",
          "repro_torch.serve.server", "repro_torch.live", "repro_torch.live.index",
          "repro_torch.live.consolidate", "repro_torch.fault.wal", "repro_torch.train",
-         "repro_torch.train.checkpoint")
+         "repro_torch.train.checkpoint", "repro_torch.dist", "repro_torch.dist.sharding",
+         "repro_torch.dist.sharded_engine", "repro_torch.dist.collective_matmul",
+         "repro_torch.dist.embedding", "repro_torch.dist.compression",
+         "repro_torch.fault.injector", "repro_torch.fault.degraded")
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -448,11 +448,11 @@ def test_server_requests_and_arguments_of_later_slices(small_engine):
     live_srv = RangeServer(None, cfg, live=live)
     assert live_srv.submit(Request(req_id=0, op="insert", query=pts[0])) is None
     assert live_srv.live is live and live_srv.stats["epoch"] == 0
-    items = {"injector": "item 4", "retry": "item 4", "replicas": "item 4",
-             "hedge": "item 4", "mesh": "item 3", "sharded": "item 3"}
-    for name, item in items.items():
-        with pytest.raises(NotImplementedError, match=rf"{name}=.*§1, {item}"):
+    for name in ("replicas", "hedge"):
+        with pytest.raises(NotImplementedError, match=rf"{name}=.*§1, item 4"):
             RangeServer(eng, cfg, **{name: 2 if name == "replicas" else object()})
+    with pytest.raises(ValueError, match="pass sharded="):
+        RangeServer(eng, cfg, injector=object())
     with pytest.raises(ValueError, match="need an engine"):
         RangeServer(None, cfg)
     with pytest.raises(ValueError, match="continuous"):
