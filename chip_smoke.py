@@ -118,6 +118,38 @@ Phases, each printed as it ends:
      sharded=)`` and ``RangeServer(sharded=, injector=)`` over 1,024
      requests, each equal to its lane and annotated when degraded;
      ``sharded_launches`` in the kernels line;
+ 17. [replicated]: ``fault.replica`` over [sharded]'s f32 and int8 corpora,
+     two bit-identical replicas (``ReplicatedCorpus.replicate``,
+     ``parity_ok`` on the card; the fleet's device bytes), each gate bit for
+     bit the unreplicated serial fan-out: (a) healthy, threaded and serial;
+     (b) replicas (1, 0) and (3, 1) down: coverage 1.0, ``replica_lost``;
+     (c) scripted-slow primaries hedged at 5 ms: 4 hedges fired and won;
+     (d) the wall-clock hedge (hedges fired, wall; its losing walks waited
+     out); (e) a breaker tripped by scripted errors, re-admitted through
+     the half-open probe past an injected cooldown, and ``lose`` +
+     ``maintain`` recovery; (f) both replicas of shard 2 down: coverage
+     0.75, ``shard_lost``, the survivors' union; then 1,024 requests through
+     ``RangeServer(replicas=2)`` at the serve CLI's fault, hedge and retry
+     settings, each equal to its lane and annotated 7 of 8 replicas
+     (requests/s, exact p50/p99, the replication stats);
+     ``replicated_launches`` in the kernels line;
+ 18. [live sharded]: ``live.LiveShardedIndex`` over the 4 k-NN shards in
+     groups of two (``clone_live_index``), 10,000 inserts and deletes
+     ([live]'s churn) with their rates; ``assert_replica_parity``; no
+     deleted id; inserted vectors stored, wired and found by ``range`` at
+     least as often as one ``LiveIndex`` over the 1M k-NN graph finds them
+     under the same churn, none found that nothing links to (those counted); ``range`` over a one-rank mesh
+     bit for bit the union of the shards' own searches (external ids) and
+     the replicated fan-out over ``replicated_corpus()``;
+     ``rebuild_replica`` from a checkpoint and a WAL tail of 2,000
+     mutations rejoins bit for bit; AP on the final live set;
+     ``live_sharded_launches`` (the churn's and the timed ``range``'s) in
+     the kernels line;
+ 19. [cli]: ``python -m repro_torch.launch.serve --n 100000 --queries
+     1024`` three times (``--early-stop --mixed-radius``; ``--shards 4
+     --replicas 2 --hedge-ms 5 --down-replicas 1:0,3:1``, which must stay
+     whole; ``--churn 0.05``), each exiting 0, its AP and rate lines
+     re-printed with its wall;
   9. [two_tower], run right after the build so its 43 GB tables find the
      card empty: the two-tower-retrieval model at full width (16 + 16
      fields, vocab 10,485,760, d_embed 64, towers 1024-1024-512-256, both
@@ -2671,7 +2703,9 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
     (4) ``RangeServer(mesh=, sharded=)`` in lockstep over SHARD_SERVED
     requests, each equal to its lane of (1); then with shard 1 down
     (``injector=``), each annotated 3 of 4 shards, ``shard_lost``, equal to
-    its lane of the union of {0, 2, 3}. Returns the launches of (1)."""
+    its lane of the union of {0, 2, 3}. Returns the launches of (1), and
+    for the phases after it the corpora, each shard's k-NN graph and start,
+    and each dtype's per-shard host results of (1)."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import build_knn_graph, match_histogram, medoid, start_points
@@ -2715,7 +2749,7 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
         f"{dist.get_backend()}, every shard local; card {card}")
 
     # -- (1) the collective over one rank ---------------------------------------
-    launches, unions, per_f32 = {}, {}, None
+    launches, unions, pers = {}, {}, {}
     nq = queries.shape[0]
     alt = torch.where(torch.arange(nq, device=dev) % 2 == 0, r, 2 * r).to(torch.float32)
     for dt, c in (("float32", cfg), ("int8", q_cfg)):
@@ -2733,7 +2767,7 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
             raise AssertionError(f"[sharded] {dt}: {missing} never launched {counts}")
         launches.update({k: counts[k] for k in SHARDED_PATH[dt]})
         got = _host(res)
-        per = per_shard_results(corpus, queries, r, c)
+        per = pers[dt] = per_shard_results(corpus, queries, r, c)
         unions[dt] = host_union(per, corpus.offsets.cpu().numpy(), corpus.n_total,
                                 c.result_cap)
         bad = _same_result(got, unions[dt])
@@ -2741,7 +2775,6 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
             raise AssertionError(f"[sharded] {dt}: {bad} differ from the host union of the "
                                  "per-shard calls")
         if dt == "float32":
-            per_f32 = per
             check_result(res, points, queries, r, c.result_cap, "[sharded] float32")
         else:
             check_result_int8(res, points, queries, r, c.result_cap, "[sharded] int8")
@@ -2819,8 +2852,8 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
     log(f"[sharded] fan-out healthy: bit for bit the collective result, threaded "
         f"({SHARDS} workers, one device) and serial; {healthy * 1e3:.1f} ms threaded, "
         f"{wall * 1e3:.1f} ms serial (QPS {nq / healthy:.1f}, {nq / wall:.1f}); card {card}")
-    survivors = host_union(per_f32, f32.offsets.cpu().numpy(), f32.n_total, cfg.result_cap,
-                           keep=(0, 2, 3))
+    survivors = host_union(pers["float32"], f32.offsets.cpu().numpy(), f32.n_total,
+                           cfg.result_cap, keep=(0, 2, 3))
     d = fault_tolerant_sharded_search(corpus=f32, queries=queries, r=r, cfg=cfg,
                                       injector=FaultInjector(seed=0, down_shards=(1,)),
                                       retry=fast)
@@ -2870,7 +2903,496 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
             f"card {card}")
     dist.destroy_process_group()
     log(f"[sharded] phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, corpora, graphs, pers
+
+
+REPLICAS = 2                # R: two bit-identical copies of every shard
+REPL_SERVED = 1_024         # requests through RangeServer(replicas=)
+REPL_HEDGE_S = 0.005        # the serve CLI's --hedge-ms 5
+STRAY_TIMEOUT_S = 120       # the wall-clock hedge's losing walks, left running
+
+
+def _bytes(corpus) -> int:
+    """The device bytes one copy of a sharded corpus holds."""
+    from repro_torch.fault.replica import _leaves
+    return sum(t.numel() * t.element_size() for t in _leaves(corpus))
+
+
+def wait_for_strays(baseline: int) -> float:
+    """Wait until the threads a wall-clock hedge left behind (losing walks
+    that cannot be cancelled once they run) have ended; their seconds."""
+    import threading
+    t0 = time.perf_counter()
+    while threading.active_count() > baseline:
+        if time.perf_counter() - t0 > STRAY_TIMEOUT_S:
+            raise AssertionError("[replicated] a hedge's losing walk is still running "
+                                 f"after {STRAY_TIMEOUT_S} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def replicated_phase(corpora, pers, queries, r, cfg, q_cfg, kernels) -> dict:
+    """[replicated]: ``fault.replica`` over ``[sharded]``'s corpora (4 k-NN
+    shards of 250,000, f32 and int8), R = REPLICAS copies
+    (``ReplicatedCorpus.replicate``, ``parity_ok`` on the card), the main
+    path's queries and radius, greedy, result_cap 1,024. Each gate against
+    PR 22's unreplicated serial fan-out (``base``), bit for bit: (a) healthy,
+    threaded and serial; (b) replicas (1, 0) and (3, 1) down: coverage 1.0,
+    ``replica_lost``, served by [0, 1, 0, 0]; (c) every primary scripted
+    slow with a 5 ms hedge: 4 hedges fired and won; (d) the wall-clock hedge
+    (no injector, ``HedgePolicy()``), its losing walks waited out; (e) a
+    scripted error trips replica (0, 0)'s breaker (threshold 2), an
+    injected clock past the cooldown re-admits it through the half-open
+    probe, ``lose(0, 1)`` then ``maintain()`` recovers replica (0, 1) and a
+    probe closes it; (f) both replicas of shard 2 down: coverage 0.75,
+    ``shard_lost``, the union of shards {0, 1, 3}. Then f32 served:
+    ``RangeServer(replicas=2)`` at the serve CLI's fault, hedge and retry
+    settings with replica (1, 0) down, REPL_SERVED requests, each equal to
+    its lane of ``base`` and annotated 7 of 8 replicas. Returns the
+    launches of the replicated runs (counted from 0 after the bases)."""
+    import threading
+
+    import torch
+    from repro_torch.fault import (
+        BreakerConfig, FaultInjector, HedgePolicy, ReplicaFleet, ReplicatedCorpus,
+        RetryPolicy, fault_tolerant_sharded_search, replicated_fan_out)
+    from repro_torch.serve import RangeServer, ServerConfig
+    from repro_torch.utils import INVALID_ID
+    card = card_line()
+    t_phase = time.perf_counter()
+    nq = queries.shape[0]
+    fast = RetryPolicy(backoff_s=0.0)
+    cfgs = {"float32": cfg, "int8": q_cfg}
+    base = {}
+    for dt, corpus in corpora.items():      # PR 22's unreplicated serial fan-out
+        d = fault_tolerant_sharded_search(corpus=corpus, queries=queries, r=r, cfg=cfgs[dt],
+                                          retry=fast, max_workers=0)
+        base[dt] = _host(d.result)
+    reset_counts(kernels)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(res, want, name, dt, code, served=None):
+        bad = _same_result(_host(res.result), want)
+        if bad or res.code != code or (served is not None and res.served_by.tolist() != served):
+            raise AssertionError(f"[replicated] {dt} {name}: {bad} differ; code {res.code} "
+                                 f"(want {code}), served by {res.served_by.tolist()}")
+
+    for dt, corpus in corpora.items():
+        c = cfgs[dt]
+        kw = dict(queries=queries, r=r, cfg=c, retry=fast)
+        rc, t_rep = timed(lambda: ReplicatedCorpus.replicate(corpus, REPLICAS))
+        ok, t_par = timed(rc.parity_ok)
+        if not ok:
+            raise AssertionError(f"[replicated] {dt}: the replicas are not bit-identical")
+        one = _bytes(corpus)
+        every = sum(_bytes(x) for x in rc.replicas)
+        # (a) healthy
+        walls = {}
+        for workers in (None, 0):
+            a, walls[workers] = timed(lambda: replicated_fan_out(
+                fleet=ReplicaFleet(rc), max_workers=workers, **kw))
+            same(a, base[dt], f"healthy (max_workers={workers})", dt, None, [0] * SHARDS)
+        # (b) two replicas down
+        b = replicated_fan_out(fleet=ReplicaFleet(rc), max_workers=0, injector=FaultInjector(
+            seed=0, down_replicas=((1, 0), (3, 1))), **kw)
+        same(b, base[dt], "replicas (1, 0), (3, 1) down", dt, "replica_lost", [0, 1, 0, 0])
+        # (3, 1) is never contacted (its shard's primary answers), so only
+        # (1, 0) counts against the batch's redundancy
+        if b.coverage != 1.0 or b.replicas_ok != REPLICAS * SHARDS - 1:
+            raise AssertionError(f"[replicated] {dt}: coverage {b.coverage}, "
+                                 f"{b.replicas_ok} replicas ok")
+        # (c) scripted slow primaries, hedged
+        h = replicated_fan_out(fleet=ReplicaFleet(rc), max_workers=0, injector=FaultInjector(
+            seed=0, script={(s, 0, 0): "slow" for s in range(SHARDS)}),
+            hedge=HedgePolicy(delay_s=REPL_HEDGE_S), **kw)
+        same(h, base[dt], "slow primaries", dt, None, [1] * SHARDS)
+        if not h.hedges_fired == h.hedge_wins == SHARDS:
+            raise AssertionError(f"[replicated] {dt}: {h.hedges_fired} hedges fired, "
+                                 f"{h.hedge_wins} won")
+        # (d) the wall-clock hedge
+        baseline = threading.active_count()
+        fleet_d = ReplicaFleet(rc)
+        w, t_wall = timed(lambda: replicated_fan_out(fleet=fleet_d, hedge=HedgePolicy(), **kw))
+        t_strays = wait_for_strays(baseline)
+        torch.cuda.synchronize()
+        same(w, base[dt], "wall-clock hedge", dt, None)
+        # (e) breakers on an injected clock
+        now = [0.0]
+        fleet = ReplicaFleet(rc, clock=lambda: now[0],
+                             breaker=BreakerConfig(fail_threshold=2, cooldown_s=30.0))
+        err = FaultInjector(seed=0, script={(0, 0, 0): "error"})
+        for _ in range(2):
+            e = replicated_fan_out(fleet=fleet, injector=err, max_workers=0, **kw)
+            same(e, base[dt], "error at (0, 0)", dt, "replica_lost", [1, 0, 0, 0])
+        if fleet.breakers[(0, 0)].state != "open" or fleet.stats["breaker_trips"] != 1:
+            raise AssertionError(f"[replicated] {dt}: breaker (0, 0) "
+                                 f"{fleet.breakers[(0, 0)].state}, {fleet.stats}")
+        e = replicated_fan_out(fleet=fleet, max_workers=0, **kw)
+        same(e, base[dt], "breaker open", dt, "replica_lost", [1, 0, 0, 0])
+        now[0] += 31.0
+        e = replicated_fan_out(fleet=fleet, max_workers=0, **kw)
+        same(e, base[dt], "half-open probe", dt, None, [0] * SHARDS)
+        fleet.lose(0, 1)
+        recovered = fleet.maintain()
+        state = fleet.breakers[(0, 1)].state
+        e = replicated_fan_out(fleet=fleet, max_workers=0, preferred=1, **kw)
+        same(e, base[dt], "recovered replica's probe", dt, None, [1] * SHARDS)
+        if (recovered, state, fleet.breakers[(0, 0)].state, fleet.breakers[(0, 1)].state) != (
+                1, "half_open", "closed", "closed"):
+            raise AssertionError(f"[replicated] {dt}: recovery {recovered}, {state}")
+        # (f) a whole shard down
+        f = replicated_fan_out(fleet=ReplicaFleet(rc), max_workers=0, injector=FaultInjector(
+            seed=0, down_replicas=((2, 0), (2, 1))), **kw)
+        corpus0 = rc.replica(0)
+        survivors = host_union(pers[dt], corpus0.offsets.cpu().numpy(), corpus0.n_total,
+                               c.result_cap, keep=(0, 1, 3))
+        same(f, survivors, "shard 2 down", dt, "shard_lost", [0, 0, -1, 0])
+        if f.coverage != 0.75:
+            raise AssertionError(f"[replicated] {dt}: coverage {f.coverage}")
+        log(f"[replicated] {dt}: ReplicatedCorpus.replicate(corpus, {REPLICAS}) in "
+            f"{t_rep:.3f} s, parity_ok on the card in {t_par:.3f} s; device bytes of the fleet "
+            f"{every} against one copy's {one} ({every / one:.2f}x); gates, each bit for bit "
+            f"PR 22's unreplicated serial fan-out: (a) healthy threaded "
+            f"{walls[None] * 1e3:.1f} ms, serial {walls[0] * 1e3:.1f} ms (QPS "
+            f"{nq / walls[None]:.1f}, {nq / walls[0]:.1f}); (b) replicas (1, 0), (3, 1) down: "
+            f"coverage {b.coverage}, {b.code}, served by {b.served_by.tolist()}, "
+            f"{b.replicas_ok}/{b.replicas_total} replicas ok; (c) slow primaries, hedge "
+            f"{REPL_HEDGE_S * 1e3:g} ms: {h.hedges_fired} hedges fired, {h.hedge_wins} won; (d) "
+            f"wall-clock hedge (HedgePolicy(), delay {HedgePolicy().delay_for(fleet_d.hist(0)):g}"
+            f" s): {w.hedges_fired} fired, {w.hedge_wins} won, served by "
+            f"{w.served_by.tolist()}, {t_wall * 1e3:.1f} ms, its losing walks ended "
+            f"{t_strays:.2f} s later; (e) breaker (0, 0) tripped after 2 scripted errors, "
+            f"skipped while open, closed by the half-open probe past the cooldown; lose(0, 1), "
+            f"maintain() recovered {recovered}, the probe closed it; (f) shard 2's replicas "
+            f"down: coverage {f.coverage}, {f.code}, the union of shards {{0, 1, 3}}; card {card}")
+        del rc
+        torch.cuda.empty_cache()
+
+    # -- served -------------------------------------------------------------------
+    corpus = corpora["float32"]
+    q_np = queries[:REPL_SERVED].cpu().numpy()
+    want = base["float32"]
+    srv = RangeServer(None, cfg, ServerConfig(max_batch=SERVE_MAX_BATCH), sharded=corpus,
+                      replicas=REPLICAS, injector=FaultInjector(seed=0, down_replicas=((1, 0),)),
+                      hedge=HedgePolicy(delay_s=REPL_HEDGE_S), retry=RetryPolicy(backoff_s=0.01))
+    resp, wall = drive_server(srv, q_np, np.full(REPL_SERVED, r, np.float32))
+    for i, x in enumerate(resp):
+        keep = want["ids"][i] != INVALID_ID
+        ok = (np.array_equal(x.ids, want["ids"][i][keep])
+              and np.array_equal(x.dists.view(np.int32), want["dists"][i][keep].view(np.int32))
+              and (x.count, x.overflow) == (want["count"][i], want["overflow"][i])
+              and (x.replicas_ok, x.replicas_total, x.code, x.coverage) == (
+                  REPLICAS * SHARDS - 1, REPLICAS * SHARDS, "replica_lost", 1.0))
+        if not ok:
+            raise AssertionError(f"[replicated] served: request {i} differs from its lane or "
+                                 f"is not annotated ({x.replicas_ok}/{x.replicas_total}, "
+                                 f"{x.code})")
+    st = srv.stats
+    counts, _ = read_counts(kernels)
+    log(f"[replicated] served: RangeServer(replicas={REPLICAS}, injector=down (1, 0), hedge "
+        f"{REPL_HEDGE_S * 1e3:g} ms, retry backoff 0.01 s), {REPL_SERVED} requests at max_batch "
+        f"{SERVE_MAX_BATCH} in {wall:.2f} s = {REPL_SERVED / wall:.1f} requests/s, "
+        f"{latency_line([x.latency_s for x in resp])} (PR 22 unreplicated: 188.3-215.7 "
+        f"requests/s through the collective, 77.4-95.2 on the fan-out with a shard down); each "
+        f"response equal to its lane, annotated {REPLICAS * SHARDS - 1} of "
+        f"{REPLICAS * SHARDS} replicas, replica_lost; stats hedges_fired={st['hedges_fired']}, "
+        f"hedge_wins={st['hedge_wins']}, breaker_trips={st['breaker_trips']}, replicas_lost="
+        f"{st['replicas_lost']}, replicas_recovered={st['replicas_recovered']}, shard_retries="
+        f"{st['shard_retries']}, degraded_batches={st['degraded_batches']}; launches {counts}; "
+        f"card {card}")
+    missing = [k for k in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",
+                           "rerank_fetch") if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[replicated] {missing} never launched {counts}")
+    log(f"[replicated] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {k: counts[k] for k in counts}
+
+
+LS_REPLICAS = 2             # each shard's replica group
+LS_ROUNDS = 10              # the churn in rounds of LIVE_K / LS_ROUNDS inserts, then deletes
+LS_TAIL = 1_000             # the WAL tail: inserts and deletes on one shard, each
+
+
+def live_sharded_phase(points, queries, r, cfg, graphs, knn_graph, kernels) -> dict:
+    """[live sharded]: ``live.LiveShardedIndex`` over ``[sharded]``'s 4 k-NN
+    shards of 250,000 (``LiveIndex.create(block, graph=)`` each, capacity
+    250,000 + LIVE_K, the serve CLI's --churn insert steps of 128), each
+    cloned into a group of LS_REPLICAS (``clone_live_index``); f32, greedy
+    at r. Churn: LIVE_K inserts (a corpus point plus 0.05 std noise, as
+    ``[live]``) and LIVE_K deletes of initial ids, in LS_ROUNDS rounds, each
+    insert run by every member of its group. Gates: ``assert_replica_parity``;
+    ``range(mesh, ...)`` over a one-rank mesh answers no deleted id; each of
+    LIVE_CHECK inserted vectors is stored bit for bit at a live slot of its
+    owner with out-edges, and ``range`` finds it at distance 0 wherever
+    its owner's own walk does, and at least as many of them as one
+    ``LiveIndex`` over the 1M k-NN graph ``knn_graph`` finds under the same
+    churn (a k-NN graph is not navigable everywhere, so neither finds all;
+    the share the owner's walk finds from 32 start points is printed
+    beside); those no other born slot links to (the insert step prunes
+    reverse edges into full rows, so some keep none) are counted in both
+    indexes, and ``range`` finds none of them; ``range`` equals the host
+    union of the four shards' ``LiveSnapshot.range`` (fused) bit for bit
+    with external ids; ``replicated_corpus()`` through
+    ``replicated_fan_out`` equals ``range`` bit for bit; a checkpoint of one
+    group's primary, a WAL tail of LS_TAIL inserts and LS_TAIL deletes on
+    it, then ``rebuild_replica`` rejoins bit for bit. AP on the final live
+    set. Returns the launches of the churn and the timed ``range``, each
+    read right after it."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import BuildConfig, start_points
+    from repro_torch.dist import make_mesh
+    from repro_torch.fault import ReplicaFleet, RetryPolicy, WriteAheadLog, replicated_fan_out
+    from repro_torch.live import (
+        LiveConfig, LiveIndex, LiveShardedIndex, clone_live_index, externalize_ids)
+    from repro_torch.train import CheckpointManager
+    from repro_torch.utils import INVALID_ID
+    dev = points.device
+    card = card_line()
+    t_phase = time.perf_counter()
+    n, k = points.shape[0], LIVE_K
+    s_n = n // SHARDS
+    lcfg = LiveConfig(capacity=s_n + k, insert_batch=LIVE_INSERT_BATCH)
+    bcfg = BuildConfig(max_degree=32, beam=64)
+    pts_np = points.cpu().numpy()
+    rng = np.random.default_rng(SEED)          # [live]'s churn rows
+    fresh = (pts_np[rng.integers(0, n, k)] + rng.standard_normal((k, pts_np.shape[1]))
+             .astype(np.float32) * 0.05 * pts_np.std()).astype(np.float32)
+    doomed = rng.choice(n, k, replace=False)
+    tail = (pts_np[rng.integers(0, n, LS_TAIL)] + rng.standard_normal(
+        (LS_TAIL, pts_np.shape[1])).astype(np.float32) * 0.05 * pts_np.std()).astype(np.float32)
+    del pts_np
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shards = [LiveIndex.create(points[s * s_n:(s + 1) * s_n], lcfg, bcfg, graph=graphs[s][0],
+                               first_ext_id=s * s_n, device=dev) for s in range(SHARDS)]
+    sl = LiveShardedIndex(shards, replica_groups=[
+        [sh] + [clone_live_index(sh) for _ in range(LS_REPLICAS - 1)] for sh in shards])
+    sl.next_ext_id = n
+    torch.cuda.synchronize()
+    t_create = time.perf_counter() - t0
+    reset_counts(kernels)
+    step = k // LS_ROUNDS
+    t_ins = t_del = 0.0
+    fresh_ids = []
+    for i in range(LS_ROUNDS):
+        t0 = time.perf_counter()
+        fresh_ids.append(sl.insert(fresh[i * step:(i + 1) * step]))
+        torch.cuda.synchronize()
+        t_ins += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sl.delete(doomed[i * step:(i + 1) * step])
+        torch.cuda.synchronize()
+        t_del += time.perf_counter() - t0
+    churn_counts, _ = read_counts(kernels)
+    fresh_ids = np.concatenate(fresh_ids)
+    owners = np.bincount([sl._owner[int(e)] for e in fresh_ids], minlength=SHARDS)
+    if sl.n_live != n or not np.array_equal(fresh_ids, n + np.arange(k)):
+        raise AssertionError(f"[live sharded] {sl.n_live} live after the churn")
+    sl.assert_replica_parity()
+
+    mesh = make_mesh((1, 1), device_type=dev.type)
+    reset_counts(kernels)
+    sl.range(mesh, queries, r, cfg)                                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sl.range(mesh, queries, r, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    range_counts, _ = read_counts(kernels)
+    missing = [kk for kk in ("expand", "gatherdist")
+               if churn_counts[kk] == 0 or range_counts[kk] == 0]
+    if missing:
+        raise AssertionError(f"[live sharded] {missing} never launched: churn {churn_counts}, "
+                             f"range {range_counts}")
+    counts = {kk: churn_counts[kk] + range_counts[kk] for kk in ("expand", "gatherdist")}
+    got = _host(res)
+    if np.isin(got["ids"], doomed).any():
+        raise AssertionError("[live sharded] a deleted id answered")
+    # inserted vectors: each stored bit for bit at a live slot of its owner,
+    # wired with out-edges; those with no in-edge counted; each one its
+    # owner's own walk finds (the [live] path: snapshot, compacted) the
+    # sharded range finds too, at distance 0. A k-NN graph is not navigable
+    # everywhere, so the share found is held to one LiveIndex over the 1M
+    # k-NN graph taking the same churn, and the owner's walk from 32 start
+    # points is measured beside
+    m = LIVE_CHECK
+    q_fresh = torch.from_numpy(fresh[:m]).to(dev)
+    mine = _host(sl.range(mesh, q_fresh, r, cfg))
+    found = np.asarray([((mine["ids"][i] == fresh_ids[i]) & (mine["dists"][i] == 0.0)).any()
+                        for i in range(m)])
+    own = np.zeros(m, bool)
+    many = np.zeros(m, bool)
+    orphan = np.zeros(m, bool)
+
+    def orphans(idx, slots):
+        """Which of ``slots`` no other born slot of ``idx`` links to and no
+        walk starts from (a tombstoned slot still routes the walk)."""
+        born = idx.neighbors[:idx.live_count]
+        sl32 = slots.to(born.dtype)
+        rows, cols = torch.isin(born, sl32).nonzero(as_tuple=True)
+        into = born[rows, cols]
+        return (~torch.isin(sl32, into[into != rows])
+                & ~torch.isin(sl32, idx.start_ids)).cpu().numpy()
+
+    owner = np.asarray([sl._owner[int(e)] for e in fresh_ids[:m]])
+    for si, sh in enumerate(sl.shards):
+        lanes = np.nonzero(owner == si)[0]
+        if not len(lanes):
+            continue
+        slots = torch.tensor([sh._slot_of[int(fresh_ids[i])] for i in lanes], device=dev)
+        if not (torch.equal(sh.points[slots], q_fresh[lanes])
+                and bool((sh.neighbors[slots] != INVALID_ID).any(1).all())):
+            raise AssertionError(f"[live sharded] an inserted vector of shard {si} is not "
+                                 "stored or not wired")
+        orphan[lanes] = orphans(sh, slots)
+        snap = sh.snapshot()
+        ids = snap.range(q_fresh[lanes], r, cfg=cfg).ids.cpu().numpy()
+        own[lanes] = (ids == fresh_ids[lanes][:, None]).any(1)
+        wide = dataclasses.replace(snap, start_ids=start_points(
+            points[si * s_n:(si + 1) * s_n], "l2", 32))
+        ids = wide.range(q_fresh[lanes], r, cfg=cfg).ids.cpu().numpy()
+        many[lanes] = (ids == fresh_ids[lanes][:, None]).any(1)
+    if (own & ~found).any():
+        raise AssertionError(f"[live sharded] {int((own & ~found).sum())} inserted vectors "
+                             "their own shard finds are missing from range")
+    if (found & orphan).any():
+        raise AssertionError("[live sharded] range found an inserted vector nothing links to")
+    single = LiveIndex.create(points, LiveConfig(capacity=n + k, insert_batch=LIVE_INSERT_BATCH),
+                              bcfg, graph=knn_graph, device=dev)
+    one_ids = single.insert(fresh)
+    single.delete(doomed)
+    one = _host(single.range(q_fresh, r, cfg=cfg))
+    one_found = int(sum(((one["ids"][i] == one_ids[i]) & (one["dists"][i] == 0.0)).any()
+                        for i in range(m)))
+    one_orphans = int(orphans(single, torch.tensor(
+        [single._slot_of[int(e)] for e in one_ids[:m]], device=dev)).sum())
+    del single, one
+    if int(found.sum()) < one_found:
+        raise AssertionError(f"[live sharded] range finds {int(found.sum())} of {m} inserted "
+                             f"vectors, one LiveIndex under the same churn {one_found}")
+    per = [_host(sh.snapshot().range(queries, r, cfg=cfg, compacted=False)) for sh in sl.shards]
+    union = host_union(per, np.zeros(SHARDS, np.int64), 2**31 - 1, cfg.result_cap)
+    bad = _same_result(got, union)
+    if bad:
+        raise AssertionError(f"[live sharded] range: {bad} differ from the host union of the "
+                             "shards' LiveSnapshot.range")
+    rc, tomb, flat_ext = sl.replicated_corpus()
+    if not rc.parity_ok():
+        raise AssertionError("[live sharded] the replicated columns differ")
+    d = replicated_fan_out(fleet=ReplicaFleet(rc), queries=queries, r=r, cfg=cfg,
+                           tombstones=tomb, retry=RetryPolicy(backoff_s=0.0), max_workers=0,
+                           preferred=1)
+    fan = _host(d.result)
+    fan["ids"] = externalize_ids(flat_ext, fan["ids"])
+    bad = _same_result(fan, got)
+    if bad or d.served_by.tolist() != [1] * SHARDS:
+        raise AssertionError(f"[live sharded] the replicated fan-out: {bad} differ from range")
+    del rc, tomb
+    ap = live_ap(sl, queries, got["ids"], got["count"], r)
+
+    # -- a replica rebuilt from a checkpoint and the WAL's tail -----------------
+    free = [sh.capacity - sh.n_live for sh in sl.shards]
+    s = int(np.argmax(free))
+    gone = np.setdiff1d(np.arange(s * s_n, (s + 1) * s_n), doomed)[:LS_TAIL]
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        primary = sl.groups[s][0]
+        primary.attach_wal(WriteAheadLog(os.path.join(work, "shard.wal")))
+        cm = CheckpointManager(os.path.join(work, "ckpt"))
+        t0 = time.perf_counter()
+        primary.save(cm)
+        t_save = time.perf_counter() - t0
+        ids = sl.insert(tail)
+        if {sl._owner[int(e)] for e in ids} != {s}:
+            raise AssertionError("[live sharded] the WAL tail's inserts left their shard")
+        sl.delete(gone)
+        wal_bytes = os.path.getsize(os.path.join(work, "shard.wal"))
+        sl.groups[s][1] = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sl.rebuild_replica(s, 1, cm, wal=WriteAheadLog(os.path.join(work, "shard.wal")))
+        torch.cuda.synchronize()
+        t_rebuild = time.perf_counter() - t0
+        sl.assert_replica_parity()
+        primary.wal = None
+    after = sl.range(mesh, queries, r, cfg)
+    ap_final = live_ap(sl, queries, after.ids.cpu().numpy(), after.count.cpu().numpy(), r)
+    dist.destroy_process_group()
+    log(f"[live sharded] LiveShardedIndex over {SHARDS} k-NN shards of {s_n} (capacity "
+        f"{s_n + k}), groups of {LS_REPLICAS} (clone_live_index), created in {t_create:.2f} s; "
+        f"{k} inserts in {LS_ROUNDS} rounds in {t_ins:.2f} s = {k / t_ins:.1f} inserts/s a group "
+        f"({LS_REPLICAS * k / t_ins:.1f} member inserts/s; [live]'s single index: 1,177-1,391), "
+        f"routed {owners.tolist()}; {k} deletes in {t_del:.3f} s; range(mesh (1, 1)) over "
+        f"{queries.shape[0]} queries: QPS={queries.shape[0] / wall:.1f}, AP={ap:.4f} on the live "
+        f"set; gates: assert_replica_parity, no deleted id, {m} of {m} inserted vectors stored "
+        f"bit for bit and wired, {int(found.sum())} of {m} found at distance 0 by range, every one "
+        f"their owner's own walk finds ({int(own.sum())}), no fewer than one LiveIndex over the "
+        f"{n}-point k-NN graph under the same churn finds ({one_found}), none of them without an "
+        f"in-edge ({int(orphan.sum())} of {m} have none and are no start point; in the single "
+        f"index {one_orphans}); the owner's walk from 32 start points finds "
+        f"{int(many.sum())}; range bit for bit the "
+        f"host union of the {SHARDS} shards' "
+        f"LiveSnapshot.range with external ids, replicated_corpus() through "
+        f"replicated_fan_out (served by replica 1) bit for bit range; card {card}")
+    log(f"[live sharded] rebuild: shard {s}'s primary saved in {t_save:.2f} s, a WAL tail of "
+        f"{LS_TAIL} inserts and {LS_TAIL} deletes ({wal_bytes} bytes), replica ({s}, 1) lost and "
+        f"rebuilt (restore + replay) in {t_rebuild:.2f} s, parity held; AP on the final live set "
+        f"{ap_final:.4f} ({sl.n_live} live); launches: churn {churn_counts}, range {range_counts}; "
+        f"card {card}")
+    log(f"[live sharded] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {kk: counts[kk] for kk in ("expand", "gatherdist")}
+
+
+# each run builds its own Vamana index (1M takes 145 s): cut from 200,000 to
+# keep the whole script well inside its limit (~680 s before [live sharded])
+CLI_N = 100_000
+CLI_QUERIES = 1_024
+CLI_RUNS = (("--early-stop", "--mixed-radius"),
+            ("--shards", "4", "--replicas", "2", "--hedge-ms", "5", "--down-replicas", "1:0,3:1"),
+            ("--churn", "0.05"))
+CLI_TIMEOUT_S = 300
+
+
+def cli_phase() -> None:
+    """[cli]: the port's serving CLI, ``python -m repro_torch.launch.serve
+    --n CLI_N --queries CLI_QUERIES`` in a subprocess a run, on the card:
+    CLI_RUNS. Each must exit 0 and print its AP and rate lines; the
+    replicated run must print ``min coverage=1.00`` and
+    ``codes={'replica_lost'}``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    card = card_line()
+    for extra in CLI_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--n", str(CLI_N),
+               "--queries", str(CLI_QUERIES), *extra]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        name = " ".join(extra)
+        if p.returncode != 0:
+            raise AssertionError(f"[cli] {name} exited {p.returncode}:\n"
+                                 f"{(p.stdout + p.stderr)[-3000:]}")
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[serve]")]
+        keep = [ln for ln in lines if re.search(r"AP|QPS|req/s|radius |built|replication",
+                                                ln) and "stats=" not in ln]
+        if not any("AP" in ln for ln in keep) or not any(
+                re.search(r"QPS|req/s", ln) for ln in keep):
+            raise AssertionError(f"[cli] {name}: no AP or rate line:\n{p.stdout[-3000:]}")
+        if "--replicas" in extra and not ("min coverage=1.00" in p.stdout
+                                          and "codes={'replica_lost'}" in p.stdout):
+            raise AssertionError(f"[cli] {name}: not whole with replicas down:\n"
+                                 f"{p.stdout[-3000:]}")
+        log(f"[cli] {name} (n={CLI_N}, {CLI_QUERIES} queries): exit 0 in {wall:.1f} s; "
+            + " | ".join(ln[len("[serve] "):] for ln in keep) + f"; card {card}")
 
 
 def main() -> int:
@@ -3158,9 +3680,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 16. the sharded engine: the collective, the fan-out, served ----------
-    sharded_launches = sharded_phase(
+    sharded_launches, corpora, shard_graphs, pers = sharded_phase(
         points, queries, r, cfgs["greedy"], q_cfgs["greedy f32-query"], kernels, ap_of,
         {"float32": knn["greedy f32"], "int8": knn["greedy int8 f32-query"]})
+
+    # -- 17. replication over the sharded corpora ---------------------------------
+    replicated_launches = replicated_phase(corpora, pers, queries, r, cfgs["greedy"],
+                                           q_cfgs["greedy f32-query"], kernels)
+    del corpora, pers
+    torch.cuda.empty_cache()
+
+    # -- 18. the sharded live index, replica groups and their rebuild -------------
+    live_sharded_launches = live_sharded_phase(points, queries, r, cfgs["greedy"],
+                                               shard_graphs, graph, kernels)
+    del shard_graphs
+    torch.cuda.empty_cache()
+
+    # -- 19. the serving CLI, three runs ------------------------------------------
+    t0 = time.perf_counter()
+    cli_phase()
+    log(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
 
     for name in ("expand", "gatherdist"):
         entries[name]["launches"] = launches["greedy"][name]
@@ -3171,6 +3710,10 @@ def main() -> int:
         entries[name]["live_launches"] = n
     for name, n in sharded_launches.items():
         entries[name]["sharded_launches"] = n
+    for name, n in replicated_launches.items():
+        entries[name]["replicated_launches"] = n
+    for name, n in live_sharded_launches.items():
+        entries[name]["live_sharded_launches"] = n
     entries["rerank_fetch"]["fallback_launches"] = fallback_launches
     entries["rerank_fetch"]["tier_launches"] = tier_launches
     for name in ("expand_int8", "gatherdist_int8"):
@@ -3195,7 +3738,8 @@ def main() -> int:
              "int8_query_main_shape_ms", "int8_query_main_shape_old_route_ms",
              "int8_query_main_shape_bound_ms", "fetch_route", "cold_ms",
              "old_route_cold_ms", "build_launches", "fallback_launches", "tier_launches",
-             "serve_launches", "live_launches", "sharded_launches")
+             "serve_launches", "live_launches", "sharded_launches", "replicated_launches",
+             "live_sharded_launches")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

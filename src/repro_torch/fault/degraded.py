@@ -18,7 +18,10 @@ and each per-shard search is deterministic, the merged result over
 surviving shards equals a healthy run restricted to those shards:
 degradation truncates coverage, never corrupts results.
 
-Replication (``fleet=``, ``hedge=``) is ROADMAP.md §1, item 4.
+With replication (``fleet=``, see :mod:`repro_torch.fault.replica`) the
+per-shard worker also fails over across replicas, hedges slow primaries
+and respects per-replica circuit breakers; a shard is lost only when
+*every* replica of it is exhausted.
 """
 from __future__ import annotations
 
@@ -38,8 +41,6 @@ from ..tier import TierFetchError
 from ..utils import INVALID_ID
 from .errors import SHARD_LOST
 from .injector import FaultInjector, ShardFault
-
-_REPLICAS = "ROADMAP.md §1, item 4: fault tolerance (replication)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,10 +249,21 @@ def fault_tolerant_sharded_search(
     ``sharded_range_search`` (same per-shard program, same union merge);
     with shards lost it equals that merge restricted to the survivors. The
     threaded fan-out merges in shard order, so it equals the serial loop bit
-    for bit under every fault script."""
-    if fleet is not None or hedge is not None:
-        raise NotImplementedError(
-            f"fault_tolerant_sharded_search(fleet=, hedge=) is not ported yet ({_REPLICAS})")
+    for bit under every fault script.
+
+    With ``fleet=`` (a :class:`~repro_torch.fault.replica.ReplicaFleet`)
+    the search runs replicated: per-shard failover across R bit-identical
+    replicas, hedging of slow primaries (``hedge=``, a
+    :class:`~repro_torch.fault.replica.HedgePolicy`) and per-replica circuit
+    breakers; ``corpus`` is then taken from the fleet and the result is a
+    :class:`~repro_torch.fault.replica.ReplicatedResult`. Without a fleet
+    ``hedge`` has nothing to hedge to and is ignored."""
+    if fleet is not None:
+        from .replica import replicated_fan_out
+        return replicated_fan_out(
+            fleet=fleet, queries=queries, r=r, cfg=cfg, es_radius=es_radius,
+            tombstones=tombstones, label_filter=label_filter, injector=injector,
+            retry=retry, sleep=sleep, max_workers=max_workers, hedge=hedge)
     if corpus is None:
         raise ValueError("pass corpus= (or fleet= for replicated search)")
     if corpus.n_local != corpus.n_shards:

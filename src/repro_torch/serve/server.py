@@ -33,6 +33,12 @@ One process serving one engine, as the reference's single-engine path:
   response of the batch annotated ``shards_ok``/``shards_total``,
   ``code="shard_lost"``). Over a mesh of several ranks every rank runs the
   same server over the same requests and gets the same responses.
+* **replication** (``replicas=`` > 1, ``hedge=``; host fan-out only): the
+  sharded corpus served R-way replicated through
+  ``fault.replicated_fan_out`` (failover, hedged reads, per-replica circuit
+  breakers); every response carries ``replicas_ok``/``replicas_total``,
+  with ``code="replica_lost"`` when the answer is whole but a replica
+  failed; each lockstep step first runs the fleet's recovery sweep.
 * **live mutation**: over a ``live.LiveIndex`` (``live=``), ``insert`` and
   ``delete`` requests ride the same queue. A micro-batch's mutations apply
   first (one coalesced insert, then one coalesced delete), the epoch
@@ -52,8 +58,6 @@ otherwise leave out; a micro-batch's queries and radii go to the device as
 one copy per tensor; over a live index a lockstep micro-batch searches the
 snapshot by slot id and maps the ids to external ids on the host, as the
 continuous path does (the reference calls ``LiveSnapshot.range``).
-Replication (``replicas=`` > 1, ``hedge=``) is ROADMAP.md §1, item 4, and
-raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -76,6 +80,7 @@ from ..core.range_search import (
 from ..dist.sharded_engine import sharded_range_search
 from ..fault.degraded import RetryPolicy, fault_tolerant_sharded_search
 from ..fault.errors import DEADLINE_EXPIRED, QUEUE_FULL
+from ..fault.replica import HedgePolicy, ReplicaFleet, ReplicatedCorpus
 from ..utils import INVALID_ID
 from .latency import LatencyHistogram
 from .scheduler import LaneScheduler
@@ -84,11 +89,6 @@ from .scheduler import LaneScheduler
 #: certified match count (post-rerank, the number a range answer's ``count``
 #: carries) with no ids/dists payload. "insert"/"delete" need a live index.
 REQUEST_OPS = ("range", "count", "insert", "delete")
-
-_LATER = {
-    "replicas": "ROADMAP.md §1, item 4: fault tolerance (replication)",
-    "hedge": "ROADMAP.md §1, item 4: fault tolerance (replication)",
-}
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -140,8 +140,8 @@ class Response:
     code: Optional[str] = None      # fault.errors taxonomy; None = healthy
     shards_ok: Optional[int] = None     # sharded fan-out: shards merged
     shards_total: Optional[int] = None  # sharded fan-out: shards configured
-    replicas_ok: Optional[int] = None   # replicated serving (a later slice)
-    replicas_total: Optional[int] = None
+    replicas_ok: Optional[int] = None     # replicated serving: healthy replicas
+    replicas_total: Optional[int] = None  # replicated serving: S * R
     filtered: bool = False          # answered under a label predicate
 
 
@@ -184,7 +184,7 @@ class RangeServer:
         injector=None,
         retry=None,
         replicas: int = 1,
-        hedge=None,
+        hedge: Optional[HedgePolicy] = None,
         clock=time.perf_counter,
     ):
         """``live`` is a ``live.LiveIndex``; it takes the place of ``engine``
@@ -197,17 +197,35 @@ class RangeServer:
         ``effort`` is a fitted ``models.EffortPredictor``; continuous
         mode uses it to split each drain into cheap/heavy dispatches.
         ``clock`` is the monotonic time source of queueing and deadline
-        decisions, injectable so tests advance a fake clock. Replication
-        (``replicas`` > 1, ``hedge``) raises."""
-        given = dict(hedge=hedge, replicas=None if replicas == 1 else replicas)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"RangeServer({name}=...) is not ported yet ({_LATER[name]})")
+        decisions, injectable so tests advance a fake clock.
+
+        ``replicas=R`` (R > 1) serves ``sharded`` R-way replicated through
+        the hedged fan-out (``sharded`` may also be a built
+        ``fault.ReplicatedCorpus``, or a ``fault.ReplicaFleet`` to share
+        breaker state); ``hedge`` is a ``fault.HedgePolicy``. Replica health
+        rides the completeness contract: ``coverage < 1.0`` only when every
+        replica of a shard is exhausted, ``code="replica_lost"`` when the
+        answer is whole but redundancy is degraded. ``step()`` runs one
+        fleet recovery sweep a micro-batch."""
+        if replicas > 1 and sharded is None:
+            raise ValueError("replicas > 1 needs a sharded corpus")
         if engine is None and live is None and sharded is None:
             raise ValueError("need an engine, a sharded corpus, or a live index")
         if injector is not None and sharded is None:
             raise ValueError("fault injection targets shards; pass sharded=")
+        self.fleet: Optional[ReplicaFleet] = None
+        if isinstance(sharded, ReplicaFleet):
+            self.fleet = sharded
+        elif isinstance(sharded, ReplicatedCorpus):
+            self.fleet = ReplicaFleet(sharded)
+        elif replicas > 1:
+            self.fleet = ReplicaFleet(ReplicatedCorpus.replicate(sharded, replicas))
+        if self.fleet is not None:
+            if mesh is not None:
+                raise ValueError("replicated serving is host fan-out; "
+                                 "drop mesh= or serve unreplicated")
+            sharded = self.fleet.corpus.replica(0)
+        self.hedge = hedge
         self.engine = engine
         self.live = live
         if server_cfg.expand_width > 0:
@@ -266,7 +284,8 @@ class RangeServer:
             "bucket_cheap": 0, "bucket_heavy": 0,
             # deadlines: shed while queued / finalized as certified partials;
             # shard_retries / shards_lost / degraded_batches come from the
-            # sharded fan-out; the replica counters belong to a later slice
+            # sharded fan-out; the replica counters mirror ReplicaFleet.stats
+            # (hedged reads fired and won, breakers opened, fleet membership)
             "deadline_shed": 0, "deadline_partial": 0,
             "shard_retries": 0, "shards_lost": 0, "degraded_batches": 0,
             "hedges_fired": 0, "hedge_wins": 0, "breaker_trips": 0,
@@ -570,21 +589,23 @@ class RangeServer:
     # -- lockstep execution --------------------------------------------------
     def _execute(self, qj: torch.Tensor, rj: torch.Tensor, lf: Optional[LabelFilter]):
         """One micro-batch's search: ``(RangeResult, DegradedResult | None)``,
-        the second only from the sharded fan-out (no mesh, an injector, or
-        a tiered corpus)."""
+        the second only from the sharded fan-out (no mesh, an injector, a
+        replica fleet or a tiered corpus)."""
         es = self._es(rj)
         if self.sharded is not None:
-            if (self.mesh is not None and self.injector is None
-                    and self.sharded.tiers is None):
+            if self.mesh is not None and self.injector is None and self.sharded.tiers is None:
                 return sharded_range_search(
                     mesh=self.mesh, corpus=self.sharded, queries=qj, r=rj, cfg=self.cfg,
                     es_radius=es, label_filter=lf), None
             d = fault_tolerant_sharded_search(
                 corpus=self.sharded, queries=qj, r=rj, cfg=self.cfg, es_radius=es,
-                label_filter=lf, injector=self.injector, retry=self.retry)
+                label_filter=lf, injector=self.injector, retry=self.retry,
+                fleet=self.fleet, hedge=self.hedge)
             self.stats["degraded_batches"] += int(not d.complete)
             self.stats["shard_retries"] += int(d.attempts.sum()) - d.shards_total
             self.stats["shards_lost"] += d.shards_total - d.shards_ok
+            if self.fleet is not None:
+                self.stats.update(self.fleet.stats)  # the fleet's running totals
             return d.result, d
         return range_search_compacted(
             corpus=self._device_corpus(), graph=self._graph(), queries=qj,
@@ -597,9 +618,15 @@ class RangeServer:
         index), then one ``range_search_compacted`` call over its queries on
         one snapshot, every lane at its own radius. In continuous mode a
         step also advances the lane pool one tick and retires finished
-        lanes."""
+        lanes. Over a replica fleet a lockstep step first runs the fleet's
+        recovery sweep."""
         if self._pool is not None:
             return self._step_continuous()
+        if self.fleet is not None:
+            # rebuild lost replicas and re-admit them through the breaker's
+            # half-open probe
+            self.fleet.maintain()
+            self.stats.update(self.fleet.stats)
         batch = self._drain()
         if not batch:
             return []
@@ -617,9 +644,13 @@ class RangeServer:
         res, degraded = self._execute(qj, rj, lf)
         extras = None
         if degraded is not None:  # the shard health, on every response
-            extras = [dict(shards_ok=degraded.shards_ok, shards_total=degraded.shards_total,
-                           complete=degraded.complete, coverage=degraded.coverage,
-                           code=degraded.code)] * len(reqs)
+            health = dict(shards_ok=degraded.shards_ok, shards_total=degraded.shards_total,
+                          complete=degraded.complete, coverage=degraded.coverage,
+                          code=degraded.code)
+            if hasattr(degraded, "replica_ok"):  # the replicated fan-out
+                health.update(replicas_ok=degraded.replicas_ok,
+                              replicas_total=degraded.replicas_total)
+            extras = [health] * len(reqs)
         out.extend(self._emit(res, reqs, arrive, radii, [svc0] * len(reqs), extras))
         self.stats["batches"] += 1
         self.stats["filtered_batches"] += int(lf is not None)

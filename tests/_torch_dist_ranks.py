@@ -154,6 +154,44 @@ def _server(inp, mesh, out):
     out["server_stats"] = dict(srv.stats)
 
 
+def _live_sharded(inp, mesh, out):
+    """``LiveShardedIndex.range`` over the mesh: every rank keeps all four
+    shards' live indices (the shared k-NN graphs of the "a_" shards, pad rows
+    dropped), applies the same mutations, and searches the shards of its
+    model coordinate. Saved beside the union of the four shards' own
+    ``LiveSnapshot.range`` (fused), merged by distance in shard order."""
+    from repro_torch.core import BuildConfig, Graph
+    from repro_torch.dist.sharded_engine import union_merge
+    from repro_torch.live import LiveConfig, LiveIndex, LiveShardedIndex
+    raw, nbrs = inp["a_raw"], inp["a_neighbors"]
+    n = raw.shape[1]
+    shards = []
+    for s in range(raw.shape[0]):
+        real = int((raw[s, :, 0] < 1e29).sum())
+        shards.append(LiveIndex.create(
+            raw[s, :real], LiveConfig(capacity=480, insert_batch=32),
+            BuildConfig(max_degree=nbrs.shape[2], beam=16),
+            graph=Graph(torch.from_numpy(np.ascontiguousarray(nbrs[s, :real]))),
+            first_ext_id=s * n, device="cpu"))
+    sl = LiveShardedIndex(shards)
+    sl.next_ext_id = int(inp["a_n_total"])
+    qs, radii = inp["qs"], inp["radii"]
+    sl.insert(qs[:12] + 0.05)
+    sl.delete(np.r_[0:1601:9, 1601:1605])
+    sl.maybe_consolidate()
+    cfg = _cfg("float32", int(inp["cap"]))
+    res = sl.range(mesh, qs, radii, cfg)
+    per = [sh.snapshot().range(qs, radii, cfg=cfg, compacted=False) for sh in sl.shards]
+    ids, dists = union_merge(torch.cat([p.ids for p in per], 1),
+                             torch.cat([p.dists for p in per], 1), cfg.result_cap)
+    out["live_sharded"] = {"ids": res.ids.numpy(), "dists": res.dists.numpy(),
+                           "count": res.count.numpy()}
+    out["live_union"] = {"ids": ids.numpy(), "dists": dists.numpy(),
+                         "count": torch.clamp(sum(p.count for p in per),
+                                              max=cfg.result_cap).numpy()}
+    out["live_held"] = (sl._view_cache[1][0].first_shard, sl._view_cache[1][0].n_local)
+
+
 def main(rank: int, world: int, workdir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
@@ -167,6 +205,7 @@ def main(rank: int, world: int, workdir: str) -> None:
         _collectives(inp, mesh, out)
         _shardings(mesh, out, workdir)
         _server(inp, mesh, out)
+        _live_sharded(inp, mesh, out)
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:

@@ -1584,3 +1584,71 @@ def test_sharded_collective_one_rank_on_the_card(cuda_device, corpus_dtype):
         dist.destroy_process_group()
     want = fault_tolerant_sharded_search(corpus=corpus, queries=qs, r=radii, cfg=cfg)
     _same(got, want.result)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus_dtype", ["float32", "int8"])
+def test_replicated_fan_out_threads_on_the_card(cuda_device, corpus_dtype):
+    """The replicated fan-out on the card, R=2: threaded and serial, with
+    replicas down and with the wall-clock hedge (its losing walks waited
+    out), each bit for bit the serial unreplicated fan-out, which equals the
+    CPU's plain path (integer coordinates)."""
+    import threading
+    import time
+    from repro_torch.fault import (
+        FaultInjector, HedgePolicy, ReplicaFleet, ReplicatedCorpus, RetryPolicy,
+        fault_tolerant_sharded_search, replicated_fan_out)
+    cpu, corpus, qs, radii, cfg = _sharded_rig(cuda_device, corpus_dtype)
+    kw = dict(queries=qs, r=radii, cfg=cfg, retry=RetryPolicy(backoff_s=0.0))
+    base = fault_tolerant_sharded_search(corpus=corpus, max_workers=0, **kw)
+    rc = ReplicatedCorpus.replicate(corpus, 2)
+    assert rc.parity_ok() and rc.replica(1).neighbors.is_cuda
+    baseline = threading.active_count()
+    for workers in (0, None):
+        for inj, hedge in ((None, None), (FaultInjector(down_replicas=((1, 0), (3, 1))), None),
+                           (None, HedgePolicy(delay_s=0.0))):
+            got = replicated_fan_out(fleet=ReplicaFleet(rc), injector=inj, hedge=hedge,
+                                     max_workers=workers, **kw)
+            torch.cuda.synchronize()
+            _same(got.result, base.result)
+            assert got.complete
+    deadline = time.monotonic() + 60
+    while threading.active_count() > baseline and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert threading.active_count() == baseline
+    plain = fault_tolerant_sharded_search(corpus=cpu, **kw)
+    _same(base.result, plain.result, exact_dists=corpus_dtype == "float32")
+
+
+@pytest.mark.cuda
+def test_live_sharded_index_create_on_the_card(cuda_device):
+    """``LiveShardedIndex.create`` builds a Vamana graph a shard on the card
+    (small n), clones replica groups, takes a churn, keeps parity, and its
+    ``range`` over a one-rank NCCL mesh equals the union of the shards' own
+    searches."""
+    import torch.distributed as dist
+    from repro_torch.core import BuildConfig
+    from repro_torch.dist import make_mesh
+    from repro_torch.live import LiveConfig, LiveShardedIndex
+    pts = _integer_rig(1200, 16, 3)
+    sl = LiveShardedIndex.create(pts, 4, LiveConfig(capacity=400, insert_batch=32),
+                                 BuildConfig(max_degree=12, beam=24), replicas=2,
+                                 device=cuda_device)
+    assert sl.shards[0].neighbors.is_cuda and sl.n_replicas == 2
+    fresh = sl.insert(_integer_rig(100, 16, 4))
+    assert sl.delete(np.r_[0:1200:5, fresh[:10]]) == 250
+    sl.assert_replica_parity()
+    qs = pts[:32] + 0.5
+    cfg = RangeConfig(search=SearchConfig(beam=24, max_beam=24, visit_cap=96), result_cap=128)
+    mesh = make_mesh((1, 1))
+    try:
+        got = sl.range(mesh, qs, 40.5, cfg)
+    finally:
+        dist.destroy_process_group()
+    per = [sh.snapshot().range(qs, 40.5, cfg=cfg, compacted=False) for sh in sl.shards]
+    from repro_torch.dist.sharded_engine import union_merge
+    ids, dists = union_merge(torch.cat([p.ids for p in per], 1),
+                             torch.cat([p.dists for p in per], 1), cfg.result_cap)
+    assert torch.equal(got.ids, ids) and torch.equal(got.dists, dists)
+    assert int(got.count.sum()) > 0
+    assert not np.isin(got.ids.cpu().numpy(), np.r_[0:1200:5]).any()

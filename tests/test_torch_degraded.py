@@ -378,10 +378,17 @@ def test_fan_out_needs_every_shard_and_no_replicas():
                                 neighbors=rig["port"].neighbors[:2], total_shards=4)
     with pytest.raises(ValueError, match="every shard"):
         fault_tolerant_sharded_search(corpus=local, queries=rig["qs"], r=R, cfg=tcfg)
-    for kw in (dict(fleet=object()), dict(hedge=object())):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            fault_tolerant_sharded_search(corpus=rig["port"], queries=rig["qs"], r=R,
-                                          cfg=tcfg, **kw)
+    # the reference's routing: ``fleet=`` runs the replicated fan-out (the
+    # corpus is then the fleet's), and ``hedge=`` alone has no replica to
+    # hedge to
+    from repro_torch.fault import ReplicaFleet, ReplicatedCorpus, ReplicatedResult
+    plain = fault_tolerant_sharded_search(corpus=rig["port"], queries=rig["qs"], r=R, cfg=tcfg)
+    fleet = ReplicaFleet(ReplicatedCorpus.replicate(rig["port"], 2))
+    for kw in (dict(fleet=fleet), dict(fleet=fleet, corpus=local), dict(hedge=object())):
+        kw.setdefault("corpus", rig["port"])
+        got = fault_tolerant_sharded_search(queries=rig["qs"], r=R, cfg=tcfg, **kw)
+        assert isinstance(got, ReplicatedResult) == ("fleet" in kw)
+        _assert_bitwise(got, plain)
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +451,8 @@ def test_server_sharded_arguments_are_checked():
         RangeServer(None, tcfg, ServerConfig(continuous=True), sharded=rig["port"])
     with pytest.raises(ValueError, match="corpus_dtype"):
         RangeServer(None, tcfg8, sharded=rig["port"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        RangeServer(None, tcfg, sharded=rig["port"], replicas=2)
+    with pytest.raises(ValueError, match="replicas > 1 needs a sharded corpus"):
+        RangeServer(None, tcfg, replicas=2)
+    assert RangeServer(None, tcfg, sharded=rig["port"], replicas=2).fleet.n_replicas == 2
     srv = RangeServer(None, tcfg, sharded=rig["port"])
     assert srv.device.type == "cpu" and srv.retry == RetryPolicy()

@@ -525,3 +525,22 @@ def test_server_over_the_mesh_matches_jax(run):
                   "shard_retries", "shards_lost", "degraded_batches"):
             assert r["server_stats"][k] == want_stats[k], k
     assert sum(len(w["ids"]) for w in want) > 0
+
+
+# ---------------------------------------------------------------------------
+# the sharded live index over the mesh
+# ---------------------------------------------------------------------------
+
+def test_live_sharded_range_is_equal_on_every_rank(run):
+    """``LiveShardedIndex.range`` on the 2 x 2 mesh: each rank stacks the
+    two shards of its model coordinate, and every rank returns the same
+    external ids, distances and counts, bit for bit the union of the four
+    shards' own searches after the same mutations."""
+    for r in run.ranks:
+        assert r["live_held"] == (2 * r["coord"][1], 2)
+        for f in ("ids", "dists", "count"):
+            np.testing.assert_array_equal(r["live_sharded"][f], r["live_union"][f], err_msg=f)
+            np.testing.assert_array_equal(r["live_sharded"][f], run.ranks[0]["live_sharded"][f])
+    ids = run.ranks[0]["live_sharded"]["ids"]
+    assert ((ids >= 1601) & (ids < 1613)).any()           # inserted rows answer
+    assert not np.isin(ids, np.r_[0:1601:9]).any()        # deleted rows never do

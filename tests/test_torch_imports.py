@@ -39,7 +39,9 @@ NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
          "repro_torch.train.checkpoint", "repro_torch.dist", "repro_torch.dist.sharding",
          "repro_torch.dist.sharded_engine", "repro_torch.dist.collective_matmul",
          "repro_torch.dist.embedding", "repro_torch.dist.compression",
-         "repro_torch.fault.injector", "repro_torch.fault.degraded")
+         "repro_torch.fault.injector", "repro_torch.fault.degraded",
+         "repro_torch.fault.replica", "repro_torch.live.sharded", "repro_torch.launch",
+         "repro_torch.launch.serve")
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -846,3 +846,186 @@ def test_continuous_live_server_finishes_the_pool_before_mutating(clustered):
         assert (a.req_id, a.op, a.epoch, a.count) == (b.req_id, b.op, b.epoch, b.count)
         assert set(a.ids.tolist()) == set(b.ids.tolist())
     assert out[True][1].epoch == 0 and out[True][15].epoch == 3
+
+
+# ---------------------------------------------------------------------------
+# the sharded live index (tests/test_live.py's sharded cases; replica groups)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def shard_graphs(int_rig):
+    """The integer rig in two shards of 300, each with the port's CPU Vamana
+    graph (equal row for row to the masked reference's)."""
+    pts = int_rig[0]
+    return [(pts[s * 300:(s + 1) * 300],
+             build_vamana(pts[s * 300:(s + 1) * 300], BuildConfig(**IBCFG),
+                          device="cpu").neighbors.numpy()) for s in range(2)]
+
+
+def _sharded(shard_graphs, pkg, replicas=1):
+    """A two-shard live index of either package over ``shard_graphs``;
+    ``replicas`` > 1 (the port) clones each shard into a replica group."""
+    from repro_torch.live import LiveShardedIndex, clone_live_index
+    shards = []
+    for s, (block, nbrs) in enumerate(shard_graphs):
+        if pkg == "jax":
+            shards.append(JL.LiveIndex.create(
+                jnp.asarray(block), JL.LiveConfig(**ILCFG), J.BuildConfig(**IBCFG),
+                graph=J.Graph(jnp.asarray(nbrs)), first_ext_id=s * 300))
+        else:
+            shards.append(LiveIndex.create(
+                block, LiveConfig(**ILCFG), BuildConfig(**IBCFG),
+                graph=Graph(torch.from_numpy(nbrs)), first_ext_id=s * 300, device="cpu"))
+    if pkg == "jax":
+        sl = JL.LiveShardedIndex(shards)
+    else:
+        sl = LiveShardedIndex(shards, replica_groups=[
+            [sh] + [clone_live_index(sh) for _ in range(replicas - 1)] for sh in shards])
+    sl.next_ext_id = 600
+    return sl
+
+
+def _sharded_ops():
+    """tests/test_live.py's sharded churn and split, on the integer rig: a
+    batch to the least-loaded shard, deletes by owner (fresh, initial,
+    unknown), then a batch larger than any shard's free space (it splits),
+    more deletes past the consolidation threshold."""
+    big = _ints(520, 21)
+    return [("insert", _ints(40, 20)), ("delete", np.r_[600:608, 0:300:7, 10**6]),
+            ("maybe", None), ("insert", big), ("delete", np.r_[300:600:2, 640:700]),
+            ("maybe", None), ("delete", np.arange(700, 900)), ("maybe", None)]
+
+
+def _apply(sl, op, arg):
+    if op == "insert":
+        return sl.insert(arg)
+    if op == "delete":
+        return sl.delete(arg)
+    return sl.maybe_consolidate()
+
+
+def test_sharded_routing_and_state_match_jax(masked, shard_graphs):
+    """Owners, external ids, per-shard live counts and every shard's state
+    equal JAX's after each operation; a 2-replica group passes
+    ``assert_replica_parity`` throughout, and each of its members equals
+    the lone (unreplicated) reference shard under the same mutations, so no
+    field a clone shares is written twice."""
+    j = _sharded(shard_graphs, "jax")
+    t = _sharded(shard_graphs, "port", replicas=2)
+    for op, arg in _sharded_ops():
+        a, b = _apply(j, op, arg), _apply(t, op, arg)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(b, a)
+        else:
+            assert b == a, op
+        assert t._owner == j._owner and t.next_ext_id == j.next_ext_id
+        assert [sh.n_live for sh in t.shards] == [sh.n_live for sh in j.shards]
+        t.assert_replica_parity()
+        for g, jsh in zip(t.groups, j.shards):
+            for member in g:
+                _assert_state(member, jsh)
+    owners = [t._owner[int(e)] for e in range(600, 640)]
+    assert len(set(owners)) == 1                      # one batch, one owner
+    assert {t._owner[int(e)] for e in range(640, 1160)} == {0, 1}   # the split
+    assert t.n_live == j.n_live and sum(sh.epoch for sh in t.shards) > 6
+    with pytest.raises(ValueError, match="free capacity"):
+        t.insert(_ints(t.shards[0].capacity * 2, 22))
+
+
+def test_sharded_range_equals_the_shards_union(shard_graphs):
+    """``LiveShardedIndex.range`` over a one-rank mesh: external ids, bit for
+    bit the union of the shards' own ``LiveSnapshot.range`` (fused, merged
+    in shard order by distance), no deleted id, no id outside the live-set
+    oracle (integer distances: exact), and 85 % of the oracle's ids (the
+    walk is approximate: 195 of 217 here)."""
+    import torch.distributed as dist
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist.sharded_engine import union_merge
+    t = _sharded(shard_graphs, "port", replicas=2)
+    for op, arg in _sharded_ops()[:5]:
+        _apply(t, op, arg)
+    qs = np.concatenate([shard_graphs[0][0][:6], shard_graphs[1][0][:6]]) + 0.5
+    radii = np.where(np.arange(12) % 2 == 0, 40.5, 120.5).astype(np.float32)
+    _, cfg = _int_cfgs()
+    fresh = not dist.is_initialized()
+    mesh = make_mesh((1, 1), device_type="cpu")
+    try:
+        got = t.range(mesh, qs, radii, cfg)
+        again = t.range(mesh, qs, radii, cfg)     # the cached view
+    finally:
+        if fresh:
+            dist.destroy_process_group()
+    per = [sh.snapshot().range(qs, radii, cfg=cfg, compacted=False) for sh in t.shards]
+    ids, dists = union_merge(torch.cat([p.ids for p in per], 1),
+                             torch.cat([p.dists for p in per], 1), cfg.result_cap)
+    assert torch.equal(got.ids, ids) and torch.equal(got.dists, dists)
+    assert torch.equal(got.count, torch.clamp(sum(p.count for p in per), max=cfg.result_cap))
+    assert got.ids.dtype == torch.int64 and torch.equal(again.ids, got.ids)
+    dead = set(range(600, 608)) | set(range(0, 300, 7)) | set(range(300, 600, 2))
+    assert not dead & set(got.ids.numpy().ravel().tolist())
+    want = _oracle_sets(t, qs, radii)
+    found = sum(len(row) for row in _sets(got))
+    assert all(row <= want[i] for i, row in enumerate(_sets(got)))   # no false positive
+    assert found >= 0.85 * sum(len(w) for w in want) and found > 0
+
+
+@pytest.mark.parametrize("kind", ["float32", "tiered"])
+def test_clone_live_index_is_independent(clustered, kind):
+    """A clone and its original mutate apart: an insert, a delete and a
+    consolidation of the original leave the clone's state (the tier's host
+    store and cache included) as it was, and the clone then takes the same
+    mutations to the same state."""
+    from repro_torch.live import clone_live_index
+    a = _live(clustered, "int8" if kind == "tiered" else "float32", tier=kind == "tiered")
+    b = clone_live_index(a)
+    before = _state(b)
+    if kind == "tiered":
+        assert b.points.store is not a.points.store and b.points.cache is not a.points.cache
+    stream = clustered[2]
+    for idx in (a,):
+        idx.insert(stream[:20])
+        idx.delete(np.arange(0, 700, 3))
+        idx.consolidate()
+    for k, v in _state(b).items():
+        np.testing.assert_array_equal(v, before[k], err_msg=k)
+    assert b.wal is None and b.n_live == 700
+    b.insert(stream[:20])
+    b.delete(np.arange(0, 700, 3))
+    b.consolidate()
+    sa, sb = _state(a), _state(b)
+    for k in sa:
+        np.testing.assert_array_equal(sb[k], sa[k], err_msg=k)
+
+
+def test_rebuild_replica_from_checkpoint_and_wal_matches_jax(masked, shard_graphs, tmp_path):
+    """A lost replica rebuilt from its group primary's checkpoint and WAL
+    tail rejoins bit for bit: parity holds, and every member equals the
+    lone JAX shard under the same mutations."""
+    from repro_torch.fault import WriteAheadLog
+    j = _sharded(shard_graphs, "jax")
+    t = _sharded(shard_graphs, "port", replicas=2)
+    t.groups[1][0].attach_wal(WriteAheadLog(str(tmp_path / "shard1.wal")))
+    cm = CheckpointManager(str(tmp_path / "ck"))
+    ops = _sharded_ops()
+    for op, arg in ops[:3]:
+        _apply(j, op, arg)
+        _apply(t, op, arg)
+    t.groups[1][0].save(cm)
+    for op, arg in ops[3:6]:
+        _apply(j, op, arg)
+        _apply(t, op, arg)
+    t.groups[1][1] = None                     # replica (1, 1) is lost
+    rebuilt = t.rebuild_replica(1, 1, cm, wal=WriteAheadLog(str(tmp_path / "shard1.wal")))
+    assert rebuilt.wal is None and t.groups[1][0].wal is not None
+    assert rebuilt.wal_seq == t.groups[1][0].wal_seq == 3
+    t.assert_replica_parity()
+    for g, jsh in zip(t.groups, j.shards):
+        for member in g:
+            st, sj = _state(member), _state(jsh)
+            st["counters"] = st["counters"][:3]   # the JAX shards keep no WAL: wal_seq 0
+            sj["counters"] = sj["counters"][:3]
+            for k in sj:
+                if k == "meta":
+                    np.testing.assert_allclose(st[k], sj[k], **META_TOL, err_msg=k)
+                else:
+                    np.testing.assert_array_equal(st[k], sj[k], err_msg=k)

@@ -425,9 +425,9 @@ def test_server_bounded_admission_queue(small_engine):
 
 def test_server_requests_and_arguments_of_later_slices(small_engine):
     """insert/delete raise the reference's "need a live index" without one;
-    ``live=`` constructs a server over a ``LiveIndex``; the constructor
-    arguments of later slices raise NotImplementedError naming their
-    ROADMAP item; malformed requests raise at submit."""
+    ``live=`` constructs a server over a ``LiveIndex``; ``replicas=`` without
+    a sharded corpus raises the reference's ValueError; malformed requests
+    raise at submit."""
     pts, eng = small_engine
     cfg = _lock_cfg(16, 64, 128)
     srv = RangeServer(eng, cfg)
@@ -448,9 +448,11 @@ def test_server_requests_and_arguments_of_later_slices(small_engine):
     live_srv = RangeServer(None, cfg, live=live)
     assert live_srv.submit(Request(req_id=0, op="insert", query=pts[0])) is None
     assert live_srv.live is live and live_srv.stats["epoch"] == 0
-    for name in ("replicas", "hedge"):
-        with pytest.raises(NotImplementedError, match=rf"{name}=.*§1, item 4"):
-            RangeServer(eng, cfg, **{name: 2 if name == "replicas" else object()})
+    # replication needs a sharded corpus, as in the reference; a hedge policy
+    # without a fleet has nothing to hedge to
+    with pytest.raises(ValueError, match="replicas > 1 needs a sharded corpus"):
+        RangeServer(eng, cfg, replicas=2)
+    assert RangeServer(eng, cfg, hedge=object()).fleet is None
     with pytest.raises(ValueError, match="pass sharded="):
         RangeServer(eng, cfg, injector=object())
     with pytest.raises(ValueError, match="need an engine"):
