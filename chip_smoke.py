@@ -185,7 +185,32 @@ Phases, each printed as it ends:
      global layer at prefill and at a decode step, with its route (and
      split count), its time against the bound (TFLOP/s or GB/s and the
      share of the bound), the plain version and one
-     scaled_dot_product_attention call (and the ratio to it).
+     scaled_dot_product_attention call (and the ratio to it);
+ 10b. [lm moe], right after [lm]: qwen2-moe-a2.7b at full width and depth
+     (24 layers, d_model 2048, 16 heads over 16 kv heads, dh 128; MoE 60
+     experts in 64 allocated rows, top-4, d_expert 1408, 4 shared; vocab
+     151,936 untied; 15.15 B parameters, 30.3 GB) in bf16 from seed 0: 4
+     prompts of 4,096 tokens prefilled (cache 4,128) and 32 greedy decode
+     steps (tokens/s, ms a step, peak memory; flashattn's launches and
+     routes asserted, 24 wgmma a prefill, 24 decode_split a step; each MoE
+     layer's dropped share at prefill (8 groups of 2,048, capacity 171) and
+     at a decode step (capacity 1)); the kernel path against the plain path
+     at full depth in bf16 (printed with the tokens routed differently, not
+     gated) and at depth 4 in f32 (relative L2 of the logits <= 1e-4,
+     argmax and every top-k routing equal); flashattn on layer 0's prefill
+     and decode inputs against its plain version and SDPA; one full-width
+     MoE layer in f32 on the card against the CPU at 4,096 tokens (two
+     groups) and 4 (y within 1e-4 relative L2, the drops and the routing
+     equal; two calls on the card bit for bit equal);
+ 10c. [lm mla]: deepseek-v2-236b at full width, its depth cut to 7 layers
+     (the dense layer, d_ff 12,288, then 6 MoE layers: MLA 128 heads,
+     q_lora 1,536, kv_lora 512, rope 64; 160 experts top-6, d_expert
+     1,536, 2 shared; 25.2 B parameters, 50.4 GB) in bf16 from seed 0: 4
+     prompts of 1,024 tokens (cache 1,056) and 32 greedy decode steps
+     (tokens/s, ms a step, peak memory, the MLA cache's bytes against a GQA
+     cache of the same heads, each MoE layer's dropped share; flashattn
+     never launched: MLA's core is sdpa, as in the reference); then the
+     one-layer MoE gate with the experts cut to 16.
 
 The search configuration is the repo's single-shard deployment,
 ``EngineDeployConfig()`` (src/repro_torch/configs/range_engine.py, the
@@ -195,7 +220,8 @@ visit_cap=256, E=4, greedy, result_cap=1024, frontier_rounds=2048,
 and the filtered workload through ``overrides()``. The two-tower phase serves the configuration of
 src/repro_torch/configs/two_tower_retrieval.py with the search settings of
 examples/two_tower_range.py (k=256; beam=32, visit_cap=128, greedy,
-result_cap=512); the LM phase serves src/repro_torch/configs/gemma3_27b.py.
+result_cap=512); the LM phases serve src/repro_torch/configs/gemma3_27b.py,
+qwen2_moe_a27b.py and deepseek_v2_236b.py.
 Any failure exits non-zero. The last line is the device JSON.
 """
 from __future__ import annotations
@@ -231,6 +257,14 @@ LM_PARAMS = 27_009_002_240  # gemma3-27b's parameters (sum of the table shapes)
 LM_MAX_LEN = LM_PROMPT_LEN + LM_STEPS
 LM_BF16_REL = 5e-2          # kernel vs plain path, bf16, full depth: rel. L2 of logits
 LM_F32_REL = 1e-4           # the same in f32 at depth 6
+MOE_PARAMS = 15_146_059_776  # qwen2-moe-a2.7b's parameters (64 allocated expert rows)
+MOE_F32_DEPTH = 4           # the kernel-vs-plain gate's depth in f32
+MOE_REL = 1e-4              # that gate's, and the one-layer card-vs-CPU gate's, rel. L2
+MLA_LAYERS = 7              # deepseek-v2 at full width: first_dense 1 + 6 MoE layers
+MLA_PARAMS = 25_219_261_440
+MLA_PROMPT_LEN = 1024
+MLA_MAX_LEN = MLA_PROMPT_LEN + LM_STEPS
+MLA_GATE_EXPERTS = 16       # the one-layer gate's experts: an f32 CPU copy of 1.5 GB
 FLASH_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),    # sum order, q scaled first
              "bfloat16": dict(rtol=1e-2, atol=1e-2)}   # one bf16 ulp of the output
 FLASH_CASES = [   # tests/test_kernels.py's five: b, hq, hkv, sq, skv, dh, causal,
@@ -797,6 +831,80 @@ def profile_run(fn, wall_s: float, name: str, kernels=None) -> None:
         if traced != counted:
             raise AssertionError(f"{name}: the trace holds launches {traced}, the "
                                  f"wrappers counted {counted}")
+
+
+GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass")   # cuBLAS's kernel names
+
+
+def profile_layers(fn, wall_s: float, name: str) -> None:
+    """One traced run of an LM call ``fn`` with its attention and MoE
+    layers each in a ``record_function`` range: the device time of the
+    attention layers (the flash kernel's share), of the MoE layers split
+    into GEMM kernels (router, experts, shared experts) and the rest
+    (routing, sort, position scan, scatter, gather, combine), and of the
+    rest of the call, against ``wall_s``; the MoE layers' largest non-GEMM
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import transformer
+    names = ("gqa_attention", "mla_attention", "moe_layer")
+    inner = {n: getattr(transformer, n) for n in names}
+
+    def ranged(n, f):
+        def call(*args, **kw):
+            with record_function(f"lm.{n}"):
+                return f(*args, **kw)
+        return call
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        for n, f in inner.items():
+            setattr(transformer, n, ranged(n, f))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for n, f in inner.items():
+            setattr(transformer, n, f)
+
+    def kernels(evt):
+        yield from evt.kernels
+        for child in evt.cpu_children:
+            yield from kernels(child)
+
+    # every device row of the trace; flashattn's launches go through ctypes,
+    # outside the op tree, so its time is read here and not under a range
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith(("lm.", "ProfilerStep"))]   # not the ranges
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    flash = sum(e.self_device_time_total for e in rows if "flash" in e.key) / 1e3
+    split = {n: [] for n in names}
+    for e in prof.events():
+        if e.name.startswith("lm.") and e.name[3:] in split:
+            split[e.name[3:]].extend(kernels(e))
+    if total <= 0:
+        raise AssertionError(f"{name}: the profiler recorded no device time")
+    attn = [k for k in split["gqa_attention"] + split["mla_attention"] if "flash" not in k.name]
+    moe = split["moe_layer"]
+    ms = lambda ks: sum(k.duration for k in ks) / 1e3   # noqa: E731
+    gemm = [k for k in moe if any(g in k.name for g in GEMM_KERNELS)]
+    glue = [k for k in moe if not any(g in k.name for g in GEMM_KERNELS)]
+    by_name: dict = {}
+    for k in glue:
+        by_name[k.name] = by_name.get(k.name, 0.0) + k.duration / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[profile] {name}: device busy {total:.2f} ms of {wall_s * 1e3:.2f} ms wall "
+        f"({total / wall_s / 10:.1f}%); attention layers {ms(attn):.2f} ms over "
+        f"{len(attn)} kernels (projections, norms, rope, cache writes; MLA's core) and "
+        f"flashattn {flash:.2f}; MoE layers {ms(moe):.2f} ms: GEMM (router, experts, "
+        f"shared) {ms(gemm):.2f} over {len(gemm)} kernels, the rest (routing, sort, "
+        f"scan, scatter, gather, combine) {ms(glue):.2f} over {len(glue)}; everything "
+        f"else {total - ms(attn) - flash - ms(moe):.2f}; "
+        f"the MoE layers' largest non-GEMM kernels: "
+        + "; ".join(f"{v:.3f} ms {k[:60]}" for k, v in top))
 
 
 def _check_shapes(res, qn, cap, name):
@@ -1406,8 +1514,6 @@ def flash_checks(captured: dict, dev) -> dict:
     decode step's global layer)."""
     import torch
     from repro_torch.kernels.flashattn import flash_attention_cuda, flash_attention_ref
-    from repro_torch.kernels.flashattn.ops import decode_splits, visible_key_range
-    from repro_torch.kernels.flashattn.ref import visible_mask
     gen = torch.Generator(device=dev).manual_seed(SEED)
     max_err = 0.0
     for (b, hq, hkv, sq, skv, dh, causal, window, cap, qoff) in FLASH_CASES:
@@ -1429,52 +1535,8 @@ def flash_checks(captured: dict, dev) -> dict:
                  decode_source="src/repro_torch/kernels/flashattn/csrc/flashattn.cu",
                  replaces="src/repro/kernels/flashattn/kernel.py:33")
     for tag, (q, k, v, kw) in captured.items():
-        route = kernel_route(flash_attention_cuda, lambda: flash_attention_cuda(q, k, v, **kw))
-        got = flash_attention_cuda(q, k, v, **kw)
-        want = flash_attention_ref(q, k, v, **kw)
-        lib_fn = sdpa_library(q, k, v, kw)
-        lib_out = lib_fn()
-        torch.cuda.synchronize()
-        err = check_close(f"flashattn {tag}", got.float(), want.float(),
-                          FLASH_TOL["bfloat16"])
-        lib_err = float((lib_out.float() - want.float()).abs().max())
+        times, err, route = flash_case(tag, q, k, v, kw, dev)
         max_err = max(max_err, err)
-        b, hq, sq, dh = q.shape
-        skv = k.shape[2]
-        decode = sq == 1
-        ms = time_ms(lambda: flash_attention_cuda(q, k, v, **kw),
-                     reps=200 if decode else 10, repeats=5)
-        plain = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
-                        reps=20 if decode else 2, repeats=3, graph=False)
-        lib = time_ms(lib_fn, reps=200 if decode else 10, repeats=5)
-        mask = visible_mask(sq, skv, causal=kw["causal"], window=kw["window"],
-                            q_offset=kw["q_offset"], device=dev)
-        flops = 4.0 * dh * int(mask.sum()) * b * hq
-        # q and the output once each, and K and V of the keys some row sees
-        # (at a local layer's decode step, its window)
-        n_bytes = (2 * q.numel() + 2 * int(mask.any(0).sum()) * b * k.shape[1] * dh
-                   ) * q.element_size()
-        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
-        if decode:   # the split count as ops.py plans it for these inputs
-            lo, hi = visible_key_range(sq, skv, causal=kw["causal"], window=kw["window"],
-                                       q_offset=kw["q_offset"])
-            splits = decode_splits(hi - lo, b * k.shape[1])
-            how, rate = f"{splits} splits, ", f"{n_bytes / ms / 1e6:.1f} GB/s"
-        else:
-            how, rate = "", f"{flops / ms / 1e9:.1f} TFLOP/s"
-        log(f"[kernel] flashattn {tag} B={b} Hq={hq} Hkv={k.shape[1]} Sq={sq} Skv={skv} "
-            f"dh={dh} window={kw['window']} q_offset={kw['q_offset']} bf16: route {route} "
-            f"({how}{rate}, {b_ms / ms:.1%} of the bound), "
-            f"max_abs_err={err:.3g} (SDPA vs plain {lib_err:.3g}), ms={ms:.4f}, "
-            f"plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}: {flops:.3g} flops at "
-            f"989 TFLOP/s, {n_bytes / 1e6:.1f} MB at 3.35 TB/s; at the f32 rate "
-            f"{flops / F32_FLOPS * 1e3:.4f} ms), library_ms={lib:.4f} "
-            f"(scaled_dot_product_attention), {ms / lib:.3f}x SDPA, "
-            f"{ms / b_ms:.2f}x the bound")
-        want_route = "decode_split" if decode else "wgmma"
-        if route != want_route:
-            raise AssertionError(f"flashattn {tag}: route {route}, not {want_route}")
-        times = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         if tag == "prefill global":
             entry.update(times, prefill_route=route)
         elif tag == "prefill local":
@@ -1483,10 +1545,66 @@ def flash_checks(captured: dict, dev) -> dict:
             entry.update({f"decode_{k}": v for k, v in times.items()}, decode_route=route)
         else:
             entry.update({f"decode_local_{k}": v for k, v in times.items()})
-        del got, want, lib_out
         torch.cuda.empty_cache()
     entry["max_abs_err"] = max_err
     return entry
+
+
+def flash_case(tag: str, q, k, v, kw: dict, dev) -> tuple[dict, float, str]:
+    """flashattn on one captured input of the LM path, against its plain
+    version (bf16 tolerance) and one SDPA call: its route (asserted:
+    decode_split at one query row, else wgmma), split count, TFLOP/s or
+    GB/s and share of the bound, each timed by CUDA-graph replay. Returns
+    ({ms, plain_ms, bound_ms, bound_by, library_ms}, max_abs_err, route)."""
+    import torch
+    from repro_torch.kernels.flashattn import flash_attention_cuda, flash_attention_ref
+    from repro_torch.kernels.flashattn.ops import decode_splits, visible_key_range
+    from repro_torch.kernels.flashattn.ref import visible_mask
+    route = kernel_route(flash_attention_cuda, lambda: flash_attention_cuda(q, k, v, **kw))
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    lib_fn = sdpa_library(q, k, v, kw)
+    lib_out = lib_fn()
+    torch.cuda.synchronize()
+    err = check_close(f"flashattn {tag}", got.float(), want.float(), FLASH_TOL["bfloat16"])
+    lib_err = float((lib_out.float() - want.float()).abs().max())
+    del got, want, lib_out
+    b, hq, sq, dh = q.shape
+    skv = k.shape[2]
+    decode = sq == 1
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, **kw),
+                 reps=200 if decode else 10, repeats=5)
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                    reps=20 if decode else 2, repeats=3, graph=False)
+    lib = time_ms(lib_fn, reps=200 if decode else 10, repeats=5)
+    mask = visible_mask(sq, skv, causal=kw["causal"], window=kw["window"],
+                        q_offset=kw["q_offset"], device=dev)
+    flops = 4.0 * dh * int(mask.sum()) * b * hq
+    # q and the output once each, and K and V of the keys some row sees
+    # (at a local layer's decode step, its window)
+    n_bytes = (2 * q.numel() + 2 * int(mask.any(0).sum()) * b * k.shape[1] * dh
+               ) * q.element_size()
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    if decode:   # the split count as ops.py plans it for these inputs
+        lo, hi = visible_key_range(sq, skv, causal=kw["causal"], window=kw["window"],
+                                   q_offset=kw["q_offset"])
+        splits = decode_splits(hi - lo, b * k.shape[1])
+        how, rate = f"{splits} splits, ", f"{n_bytes / ms / 1e6:.1f} GB/s"
+    else:
+        how, rate = "", f"{flops / ms / 1e9:.1f} TFLOP/s"
+    log(f"[kernel] flashattn {tag} B={b} Hq={hq} Hkv={k.shape[1]} Sq={sq} Skv={skv} "
+        f"dh={dh} window={kw['window']} q_offset={kw['q_offset']} bf16: route {route} "
+        f"({how}{rate}, {b_ms / ms:.1%} of the bound), "
+        f"max_abs_err={err:.3g} (SDPA vs plain {lib_err:.3g}), ms={ms:.4f}, "
+        f"plain_ms={plain:.4f}, bound_ms={b_ms:.4f} ({b_by}: {flops:.3g} flops at "
+        f"989 TFLOP/s, {n_bytes / 1e6:.1f} MB at 3.35 TB/s; at the f32 rate "
+        f"{flops / F32_FLOPS * 1e3:.4f} ms), library_ms={lib:.4f} "
+        f"(scaled_dot_product_attention), {ms / lib:.3f}x SDPA, "
+        f"{ms / b_ms:.2f}x the bound")
+    want_route = "decode_split" if decode else "wgmma"
+    if route != want_route:
+        raise AssertionError(f"flashattn {tag}: route {route}, not {want_route}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib), err, route
 
 
 def lm_paths(model, toks, cfg, steps: int, feed=None):
@@ -1496,9 +1614,10 @@ def lm_paths(model, toks, cfg, steps: int, feed=None):
     hidden state at the prompt's last position)."""
     import torch
     from repro_torch.models import decode_step, greedy_token, prefill
-    hidden = []
+    hidden = []   # a Block returns (x, the MoE's aux dict or None)
     hooks = [layer.register_forward_hook(
-        lambda mod, args, out: hidden.append(out[0, -1].float()) if out.shape[1] > 1 else None)
+        lambda mod, args, out: hidden.append(out[0][0, -1].float())
+        if out[0].shape[1] > 1 else None)
         for layer in model.layers]
     try:
         logits, cache, pos = prefill(model, toks, cfg, max_len=toks.shape[1] + steps)
@@ -1515,30 +1634,81 @@ def lm_paths(model, toks, cfg, steps: int, feed=None):
     return torch.stack(out), chosen, hidden
 
 
-def lm_compare(model, toks, cfg, steps: int, limit: float, name: str) -> float:
+class MoECapture:
+    """Swaps the transformer's ``moe_layer`` for one that also keeps, call
+    by call, the token count, the aux dict and (with ``ids``) each token's
+    top-k expert ids, sorted (the router's decision on the same input:
+    ``layers.moe.route``; the dispatch's slots are a function of them). It
+    runs what it wraps; call i of a run is MoE layer i % L_moe of its
+    i // L_moe-th forward."""
+
+    def __init__(self, ids: bool = False):
+        from repro_torch.models import transformer
+        self.mod, self.ids, self.calls = transformer, ids, []
+
+    def __enter__(self):
+        from repro_torch.layers.moe import route
+        inner = self.inner = self.mod.moe_layer
+
+        def moe(params, h, cfg, capacity=None):
+            y, aux = inner(params, h, cfg, capacity)
+            ids = None
+            if self.ids:
+                ids = route(params, h.reshape(-1, h.shape[-1]), cfg)[2].sort(dim=-1).values
+            self.calls.append((h.shape[0] * h.shape[1], aux, ids))
+            return y, aux
+
+        self.mod.moe_layer = moe
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_layer = self.inner
+
+    def dropped(self) -> list:
+        return [float(aux["dropped_frac"]) for _, aux, _ in self.calls]
+
+
+def lm_compare(model, toks, cfg, steps: int, limit: float, name: str,
+               routing_equal: bool = False) -> float:
     """The kernel path against the plain path (``use_kernels=False``) on
     the same model and prompt, the plain path fed the kernel path's tokens:
     the relative L2 error of the last-token logits at the prefill and each
     step must stay within ``limit``; the share of equal argmaxes and each
-    layer's hidden-state error at the prompt's last position are printed."""
+    layer's hidden-state error at the prompt's last position are printed.
+    For a MoE model, the tokens whose top-k expert ids differ between the
+    paths are counted by layer (prefill and steps), and must be none with
+    ``routing_equal``."""
     import torch
-    lk, chosen, hk = lm_paths(model, toks, cfg, steps)
-    lp, _, hp = lm_paths(model, toks, dataclasses.replace(cfg, use_kernels=False),
-                         steps, feed=chosen[:-1])
+    with MoECapture(ids=cfg.is_moe) as kcap:
+        lk, chosen, hk = lm_paths(model, toks, cfg, steps)
+    with MoECapture(ids=cfg.is_moe) as pcap:
+        lp, _, hp = lm_paths(model, toks, dataclasses.replace(cfg, use_kernels=False),
+                             steps, feed=chosen[:-1])
     torch.cuda.synchronize()
     errs = [rel_l2(a, b) for a, b in zip(lk, lp)]
     same = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     layer_errs = [rel_l2(a, b) for a, b in zip(hk, hp)]
     del lk, lp, hk, hp
+    routing = ""
+    if cfg.is_moe:
+        n_moe = cfg.n_layers - cfg.first_dense
+        differ = np.zeros(n_moe, np.int64)
+        for i, ((_, _, a), (_, _, b)) in enumerate(zip(kcap.calls, pcap.calls)):
+            differ[i % n_moe] += int((a != b).any(dim=-1).sum())
+        routing = (f"; tokens routed differently by MoE layer (prefill and steps, of "
+                   f"{sum(t for t, _, _ in kcap.calls) // n_moe} a layer): "
+                   f"{' '.join(str(int(n)) for n in differ)} ({int(differ.sum())} in all)")
     log(f"[lm] kernel vs plain path, {name}: relative L2 error of the last-token "
         f"logits max {max(errs):.3g} (prefill {errs[0]:.3g}; steps "
         f"{' '.join(f'{e:.2g}' for e in errs[1:])}), limit {limit:g}; argmax equal "
         f"on a share {same:.4f} of {len(errs)} (prefill + {steps} steps); "
         f"hidden-state error by layer at the prompt's last position: "
-        f"{' '.join(f'{e:.2g}' for e in layer_errs)}")
+        f"{' '.join(f'{e:.2g}' for e in layer_errs)}{routing}")
     if max(errs) > limit:
         raise AssertionError(f"{name}: the kernel and plain paths part by "
                              f"{max(errs):.3g} > {limit:g}")
+    if routing_equal and differ.any():
+        raise AssertionError(f"{name}: {int(differ.sum())} tokens routed differently")
     return same
 
 
@@ -1557,21 +1727,12 @@ def lm_phase(dev, kernels, profile: bool = False) -> dict:
     windows, _ = cfg.layer_meta()
     n_layers = cfg.n_layers
     local, glob = int(np.flatnonzero(windows > 0)[0]), int(np.flatnonzero(windows == 0)[0])
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = init_transformer(cfg, seed=SEED, device=dev)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    model, t_build, w_bytes = lm_build(cfg, dev, LM_PARAMS, ARCH.arch_id)
     log(f"[lm] {ARCH.arch_id}: {n_layers} layers ({int((windows > 0).sum())} local "
         f"window {cfg.window}, {int((windows == 0).sum())} global), d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv} kv heads, dh {cfg.d_head}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab:,}, tied; built from seed {SEED} in "
-        f"{t_build:.2f} s: {n_params:,} parameters, {w_bytes / 1e9:.2f} GB")
-    if n_params != LM_PARAMS:
-        raise AssertionError(f"{ARCH.arch_id} has {n_params:,} parameters, not {LM_PARAMS:,}")
+        f"{t_build:.2f} s: {LM_PARAMS:,} parameters, {w_bytes / 1e9:.2f} GB")
     tokens = torch.as_tensor(lm_batch(LMDataConfig(
         vocab=cfg.vocab, seq_len=LM_PROMPT_LEN, batch=LM_PROMPTS, seed=SEED), 0)["tokens"],
         device=dev)
@@ -1589,42 +1750,13 @@ def lm_phase(dev, kernels, profile: bool = False) -> dict:
     torch.cuda.empty_cache()
 
     # the served run, launches counted
-    flash = kernels["flashattn"]
-    for kern in kernels.values():
-        kern.launches = 0
-    flash.routes = dict.fromkeys(flash.routes, 0)
-    t0 = time.perf_counter()
-    logits, cache, pos = prefill(model, tokens, cfg, max_len=LM_MAX_LEN)
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    n_prefill = flash.launches
-    prefill_routes = dict(flash.routes)
-    tok = greedy_token(logits)
-    chosen, step_s = [tok], []
-    for _ in range(LM_STEPS):
-        t0 = time.perf_counter()
-        logits, cache = decode_step(model, tok, cache, pos, cfg)
-        tok = greedy_token(logits)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        pos += 1
-        chosen.append(tok)
-    counts = {n: k.launches for n, k in kernels.items()}
-    decode_routes = {r: n - prefill_routes[r] for r, n in flash.routes.items()}
+    (t_prefill, step_s, n_prefill, counts, prefill_routes, decode_routes, logits, cache,
+     chosen) = lm_served(model, tokens, cfg, LM_MAX_LEN, kernels, n_layers)
     if profile:
         # the last step again (its cache row rewritten): the cache is full
-        profile_run(lambda: decode_step(model, tok, cache, pos - 1, cfg),
+        tok = chosen[-1]
+        profile_run(lambda: decode_step(model, tok, cache, LM_MAX_LEN - 1, cfg),
                     float(np.median(step_s)), "lm decode step")
-    if n_prefill != n_layers or counts["flashattn"] != n_layers * (LM_STEPS + 1):
-        raise AssertionError(f"flashattn launches: {n_prefill} at prefill, "
-                             f"{counts['flashattn']} in all")
-    if (prefill_routes != {"wgmma": n_layers, "tile_f32": 0, "decode_split": 0}
-            or decode_routes != {"wgmma": 0, "tile_f32": 0,
-                                 "decode_split": n_layers * LM_STEPS}):
-        raise AssertionError(f"flashattn routes: {prefill_routes} at prefill, "
-                             f"{decode_routes} over the steps")
-    if tuple(logits.shape) != (LM_PROMPTS, 1, cfg.vocab) or not torch.isfinite(logits).all():
-        raise AssertionError(f"decode logits {tuple(logits.shape)} not finite")
     toks_out = torch.cat(chosen, dim=1).cpu().numpy()
     peak = torch.cuda.max_memory_allocated()
     step_ms = np.median(step_s) * 1e3
@@ -1672,6 +1804,298 @@ def lm_phase(dev, kernels, profile: bool = False) -> dict:
     del model
     torch.cuda.empty_cache()
     return entry
+
+
+def moe_layer_gate(mcfg, dev, name: str) -> None:
+    """One full-width MoE layer drawn in f32 on the card from the seed and
+    copied to the CPU, on a prefill-sized input (4,096 tokens: two dispatch
+    groups) and a decode-sized one (4 tokens: capacity 1): y within
+    MOE_REL relative L2 of the CPU's, the drops and every token's top-k ids
+    equal (so every kept slot: the slots are a function of the ids), and
+    two calls on the card bit for bit equal."""
+    import copy
+
+    import torch
+    from repro_torch.layers.moe import dispatch_plan, init_moe, moe_layer, route
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    layer = init_moe(mcfg, generator=gen, device=dev, dtype=torch.float32)
+    cpu = copy.deepcopy(layer).cpu()
+    n_bytes = sum(p.numel() * p.element_size() for p in cpu.parameters())
+    for b, s_len in ((1, 4096), (4, 1)):
+        x = torch.randn((b, s_len, mcfg.d_model), generator=gen, device=dev)
+        y, aux = moe_layer(layer, x, mcfg)
+        y2, aux2 = moe_layer(layer, x, mcfg)
+        ids = route(layer, x.reshape(-1, mcfg.d_model), mcfg)[2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xc = x.cpu()
+        yc, auxc = moe_layer(cpu, xc, mcfg)
+        probs, _, ids_c = route(cpu, xc.reshape(-1, mcfg.d_model), mcfg)
+        t_cpu = time.perf_counter() - t0
+        top = probs.topk(mcfg.top_k + 1, dim=-1).values
+        margin = float((top[:, -2] - top[:, -1]).min())
+        groups, tg, c = dispatch_plan(b * s_len, mcfg)
+        n = groups * tg * mcfg.top_k
+        kept = (round((1 - float(aux["dropped_frac"])) * n),
+                round((1 - float(auxc["dropped_frac"])) * n))
+        err = rel_l2(y.cpu(), yc)
+        bitwise = torch.equal(y, y2) and torch.equal(aux["dropped_frac"], aux2["dropped_frac"])
+        same_ids = torch.equal(ids.cpu(), ids_c)
+        log(f"[{name}] one MoE layer f32 ({mcfg.n_experts} experts, {mcfg.e_alloc} "
+            f"allocated, top-{mcfg.top_k}, d_expert {mcfg.d_expert}, {mcfg.n_shared} "
+            f"shared; {n_bytes / 1e9:.2f} GB on the CPU), T={b * s_len}: {groups} groups "
+            f"of {tg}, capacity {c}; card vs CPU relative L2 {err:.3g} (limit "
+            f"{MOE_REL:g}), kept assignments {kept[0]} and {kept[1]} of {n}, top-k ids "
+            f"{'equal' if same_ids else 'DIFFER'} (smallest k-th/(k+1)-th prob gap on "
+            f"the CPU {margin:.3g}), aux loss {float(aux['aux_loss']):.6f} and "
+            f"{float(auxc['aux_loss']):.6f}; two calls on the card "
+            f"{'bit for bit equal' if bitwise else 'DIFFER'}; CPU {t_cpu:.2f} s")
+        if err > MOE_REL or kept[0] != kept[1] or not same_ids or not bitwise:
+            raise AssertionError(f"{name}: the MoE layer on the card and on the CPU part")
+        del x, y, y2, yc, xc, probs
+    del layer, cpu
+    torch.cuda.empty_cache()
+
+
+def lm_served(model, tokens, cfg, max_len: int, kernels: dict, n_flash: int):
+    """The served run: every launch count set to 0, ``prefill`` of
+    ``tokens`` and LM_STEPS greedy decode steps, each timed to a
+    synchronize; flashattn launched ``n_flash`` times a call (its GQA
+    layers), on ``wgmma`` at prefill and ``decode_split`` at each step, and
+    the last logits finite (each asserted). Returns (prefill s, step
+    seconds, flashattn's launches at prefill, every kernel's count after
+    the steps, flashattn's routes at prefill and over the steps, the last
+    logits, the cache, the chosen tokens)."""
+    import torch
+    from repro_torch.models import decode_step, greedy_token, prefill
+    flash = kernels["flashattn"]
+    for kern in kernels.values():
+        kern.launches = 0
+    flash.routes = dict.fromkeys(flash.routes, 0)
+    t0 = time.perf_counter()
+    logits, cache, pos = prefill(model, tokens, cfg, max_len=max_len)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    at_prefill = {n: k.launches for n, k in kernels.items()}
+    prefill_routes = dict(flash.routes)
+    tok = greedy_token(logits)
+    chosen, step_s = [tok], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = decode_step(model, tok, cache, pos, cfg)
+        tok = greedy_token(logits)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        pos += 1
+        chosen.append(tok)
+    counts = {n: k.launches for n, k in kernels.items()}
+    decode_routes = {r: n - prefill_routes[r] for r, n in flash.routes.items()}
+    n_prefill = at_prefill["flashattn"]
+    if n_prefill != n_flash or counts["flashattn"] != n_flash * (LM_STEPS + 1):
+        raise AssertionError(f"flashattn launches: {n_prefill} at prefill, "
+                             f"{counts['flashattn']} in all")
+    if (prefill_routes != {"wgmma": n_flash, "tile_f32": 0, "decode_split": 0}
+            or decode_routes != {"wgmma": 0, "tile_f32": 0,
+                                 "decode_split": n_flash * LM_STEPS}):
+        raise AssertionError(f"flashattn routes: {prefill_routes} at prefill, "
+                             f"{decode_routes} over the steps")
+    if tuple(logits.shape) != (tokens.shape[0], 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"decode logits {tuple(logits.shape)} not finite")
+    return (t_prefill, step_s, n_prefill, counts, prefill_routes, decode_routes, logits,
+            cache, chosen)
+
+
+def lm_build(cfg, dev, want_params: int, name: str):
+    """``init_transformer(cfg)`` from SEED on the card, its parameter count
+    asserted; returns (model, build seconds, bytes)."""
+    import torch
+    from repro_torch.models import init_transformer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_transformer(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != want_params:
+        raise AssertionError(f"{name} has {n_params:,} parameters, not {want_params:,}")
+    return model, t_build, sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def lm_moe_phase(dev, kernels, profile: bool = False) -> dict:
+    """qwen2-moe-a2.7b serving at full width and depth (24 layers of GQA,
+    16 heads over 16 kv heads, and MoE: 60 experts in 64 rows, top-4, 4
+    shared; bf16 from seed 0): 4 prompts of 4,096 tokens prefilled and 32
+    greedy decode steps (flashattn's launches and routes asserted, each
+    layer's dropped share at prefill and at a decode step); the kernel path
+    against the plain path at full depth in bf16 (printed) and at depth 4
+    in f32 (gated: logits, argmax, routing); one full-width MoE layer on the
+    card against the CPU; flashattn on this path's inputs against SDPA.
+    ``profile`` traces a prefill and a decode step. Returns the flashattn
+    JSON keys of this path."""
+    import torch
+    from repro_torch.configs.qwen2_moe_a27b import ARCH
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.layers.moe import dispatch_plan
+    from repro_torch.models import decode_step, greedy_token, init_transformer, prefill
+    cfg = ARCH.model_cfg
+    mcfg = cfg.moe_cfg()
+    L = cfg.n_layers
+    model, t_build, w_bytes = lm_build(cfg, dev, MOE_PARAMS, ARCH.arch_id)
+    log(f"[lm moe] {ARCH.arch_id}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"over {cfg.n_kv} kv heads, dh {cfg.d_head}; MoE {cfg.n_experts} experts "
+        f"({mcfg.e_alloc} allocated) top-{cfg.top_k}, d_expert {cfg.d_expert}, "
+        f"{cfg.n_shared} shared, router f32; vocab {cfg.vocab:,}, untied; built from seed "
+        f"{SEED} in {t_build:.2f} s: {MOE_PARAMS:,} parameters, {w_bytes / 1e9:.2f} GB")
+    tokens = torch.as_tensor(lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=LM_PROMPT_LEN, batch=LM_PROMPTS, seed=SEED), 0)["tokens"],
+        device=dev)
+
+    # warm-up: a prefill and one decode step, keeping layer 0's attention
+    # inputs and every MoE layer's dropped share
+    with AttentionCapture({0: "moe prefill", L: "moe decode"}) as cap, MoECapture() as mcap:
+        logits, cache, pos = prefill(model, tokens, cfg, max_len=LM_MAX_LEN)
+        warm = logits[:, -1].clone()
+        decode_step(model, greedy_token(logits), cache, pos, cfg)
+    torch.cuda.synchronize()
+    drops = mcap.dropped()
+    for when, sl, t in (("prefill", drops[:L], LM_PROMPTS * LM_PROMPT_LEN),
+                        ("a decode step", drops[L:], LM_PROMPTS)):
+        g, tg, c = dispatch_plan(t, mcfg)
+        log(f"[lm moe] dropped share by layer at {when} (T={t}: {g} groups of {tg}, "
+            f"capacity {c}): {' '.join(f'{d:.4f}' for d in sl)}")
+    del logits, cache, mcap
+    torch.cuda.empty_cache()
+
+    (t_prefill, step_s, n_prefill, counts, prefill_routes, decode_routes, logits, cache,
+     chosen) = lm_served(model, tokens, cfg, LM_MAX_LEN, kernels, L)
+    same_prefill = torch.equal(warm, prefill(model, tokens, cfg, LM_MAX_LEN)[0][:, -1])
+    toks_out = torch.cat(chosen, dim=1).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = np.median(step_s) * 1e3
+    log(f"[lm moe] served {LM_PROMPTS} prompts x {LM_PROMPT_LEN} tokens (lm_batch seed "
+        f"{SEED}), cache {tuple(cache.k.shape)} x 2 bf16 "
+        f"({2 * cache.k.numel() * 2 / 1e9:.2f} GB): prefill {t_prefill * 1e3:.1f} ms "
+        f"({LM_PROMPTS * LM_PROMPT_LEN / t_prefill:.1f} tokens/s); {LM_STEPS} greedy "
+        f"decode steps, median {step_ms:.2f} ms a step (min {min(step_s) * 1e3:.2f}, "
+        f"max {max(step_s) * 1e3:.2f}; {LM_PROMPTS / step_ms * 1e3:.1f} tokens/s); "
+        f"peak device memory {peak / 1e9:.2f} GB; flashattn launches {n_prefill} at "
+        f"prefill, {(counts['flashattn'] - n_prefill) // LM_STEPS} a step "
+        f"({counts['flashattn']} in all), routes {prefill_routes} at prefill and "
+        f"{decode_routes} over the steps; the prefill's logits again "
+        f"{'bit for bit equal' if same_prefill else 'not bit for bit equal'} to the "
+        f"warm-up's; tokens of prompt 0 {toks_out[0, :8].tolist()}...")
+    if profile:
+        profile_layers(lambda: prefill(model, tokens, cfg, max_len=LM_MAX_LEN),
+                       t_prefill, "lm moe prefill")
+        tok = chosen[-1]   # the last step again (its cache row rewritten)
+        profile_layers(lambda: decode_step(model, tok, cache, LM_MAX_LEN - 1, cfg),
+                       float(np.median(step_s)), "lm moe decode step")
+    del logits, cache, chosen, warm
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path: full depth, bf16, prompt 0
+    # (printed: bf16 routing is discontinuous, a flipped expert moves a token)
+    lm_compare(model, tokens[:1], cfg, LM_STEPS, float("inf"),
+               f"{ARCH.arch_id} full depth bf16, prompt 0, {LM_STEPS} steps (not gated)")
+    del model
+    torch.cuda.empty_cache()
+
+    # flashattn on this path's inputs (G=1), on the card emptied of the model
+    entry = {"lm_moe_launches": counts["flashattn"]}
+    for tag, (q, k, v, kw) in cap.kept.items():
+        times, _, _ = flash_case(tag, q, k, v, kw, dev)
+        key = tag.replace(" prefill", "")
+        entry.update({f"{key.replace(' ', '_')}_{n}": t for n, t in times.items()})
+    del cap
+    torch.cuda.empty_cache()
+
+    # full width, depth 4, f32: gated
+    cfg4 = dataclasses.replace(cfg, n_layers=MOE_F32_DEPTH, dtype=torch.float32)
+    model = init_transformer(cfg4, seed=SEED, device=dev)
+    same = lm_compare(model, tokens[:1], cfg4, 8, MOE_REL,
+                      f"full width, depth {MOE_F32_DEPTH}, f32, prompt 0, 8 steps",
+                      routing_equal=True)
+    if same != 1.0:
+        raise AssertionError(f"depth {MOE_F32_DEPTH} f32: an argmax differs between the paths")
+    del model
+    torch.cuda.empty_cache()
+    moe_layer_gate(mcfg, dev, "lm moe")
+    log(f"[lm moe] peak device memory after the served run "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return entry
+
+
+def lm_mla_phase(dev, kernels, profile: bool = False) -> None:
+    """deepseek-v2-236b at full width, its depth cut to 7 layers (the
+    leading dense layer and 6 MoE layers: MLA with 128 heads, q_lora 1,536,
+    kv_lora 512, rope 64; 160 experts top-6, d_expert 1,536, 2 shared; bf16
+    from seed 0): 4 prompts of 1,024 tokens prefilled (cache 1,056) and 32
+    greedy decode steps, each layer's dropped share, flashattn never
+    launched (MLA's core is sdpa); then one full-width MoE layer (its
+    experts cut to 16) on the card against the CPU. ``profile`` traces a
+    prefill and a decode step."""
+    import torch
+    from repro_torch.configs.deepseek_v2_236b import ARCH
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.layers.moe import dispatch_plan
+    from repro_torch.models import decode_step, greedy_token, prefill
+    cfg = dataclasses.replace(ARCH.model_cfg, n_layers=MLA_LAYERS)
+    mcfg = cfg.moe_cfg()
+    n_moe = cfg.n_layers - cfg.first_dense
+    model, t_build, w_bytes = lm_build(cfg, dev, MLA_PARAMS, ARCH.arch_id)
+    log(f"[lm mla] {ARCH.arch_id} at full width, depth cut to {cfg.n_layers} of "
+        f"{ARCH.model_cfg.n_layers} ({cfg.first_dense} dense, d_ff {cfg.d_ff}, then "
+        f"{n_moe} MoE): d_model {cfg.d_model}, MLA {cfg.n_heads} heads, q_lora "
+        f"{cfg.q_lora}, kv_lora {cfg.kv_lora}, nope {cfg.qk_nope_dim} + rope "
+        f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}; {cfg.n_experts} experts top-{cfg.top_k}, "
+        f"d_expert {cfg.d_expert}, {cfg.n_shared} shared; vocab {cfg.vocab:,}, untied; "
+        f"built from seed {SEED} in {t_build:.2f} s: {MLA_PARAMS:,} parameters, "
+        f"{w_bytes / 1e9:.2f} GB")
+    tokens = torch.as_tensor(lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=MLA_PROMPT_LEN, batch=LM_PROMPTS, seed=SEED), 0)["tokens"],
+        device=dev)
+    with MoECapture() as mcap:
+        logits, cache, pos = prefill(model, tokens, cfg, max_len=MLA_MAX_LEN)
+        decode_step(model, greedy_token(logits), cache, pos, cfg)
+    torch.cuda.synchronize()
+    drops = mcap.dropped()
+    for when, sl, t in (("prefill", drops[:n_moe], LM_PROMPTS * MLA_PROMPT_LEN),
+                        ("a decode step", drops[n_moe:], LM_PROMPTS)):
+        g, tg, c = dispatch_plan(t, mcfg)
+        log(f"[lm mla] dropped share by MoE layer at {when} (T={t}: {g} groups of "
+            f"{tg}, capacity {c}): {' '.join(f'{d:.4f}' for d in sl)}")
+    del logits, cache, mcap
+    torch.cuda.empty_cache()
+
+    # MLA's core is sdpa: flashattn is never launched
+    t_prefill, step_s, _, _, _, _, logits, cache, chosen = lm_served(
+        model, tokens, cfg, MLA_MAX_LEN, kernels, 0)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = np.median(step_s) * 1e3
+    # a GQA cache of the same heads: k of dn + dr and v of dv, every head
+    gqa = cfg.n_layers * LM_PROMPTS * MLA_MAX_LEN * cfg.n_heads * (
+        cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim) * 2
+    mla = (cache.k.numel() + cache.v.numel()) * 2
+    toks_out = torch.cat(chosen, dim=1).cpu().numpy()
+    log(f"[lm mla] served {LM_PROMPTS} prompts x {MLA_PROMPT_LEN} tokens (lm_batch seed "
+        f"{SEED}), cache {tuple(cache.k.shape)} + {tuple(cache.v.shape)} bf16: "
+        f"{mla / 1e6:.1f} MB against {gqa / 1e6:.1f} MB for a GQA cache of the same "
+        f"heads ({gqa / mla:.1f}x); prefill {t_prefill * 1e3:.1f} ms "
+        f"({LM_PROMPTS * MLA_PROMPT_LEN / t_prefill:.1f} tokens/s); {LM_STEPS} greedy "
+        f"decode steps, median {step_ms:.2f} ms a step (min {min(step_s) * 1e3:.2f}, "
+        f"max {max(step_s) * 1e3:.2f}; {LM_PROMPTS / step_ms * 1e3:.1f} tokens/s); "
+        f"peak device memory {peak / 1e9:.2f} GB; flashattn launches 0; tokens of "
+        f"prompt 0 {toks_out[0, :8].tolist()}...")
+    if profile:
+        profile_layers(lambda: prefill(model, tokens, cfg, max_len=MLA_MAX_LEN),
+                       t_prefill, "lm mla prefill")
+        tok = chosen[-1]
+        profile_layers(lambda: decode_step(model, tok, cache, MLA_MAX_LEN - 1, cfg),
+                       float(np.median(step_s)), "lm mla decode step")
+    del model, logits, cache, chosen
+    torch.cuda.empty_cache()
+    moe_layer_gate(dataclasses.replace(mcfg, n_experts=MLA_GATE_EXPERTS), dev, "lm mla")
 
 
 def graph_checks(nbrs, start) -> dict:
@@ -3400,7 +3824,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
     ap.add_argument("--profile", action="store_true",
                     help="also trace each mode's main-path run, the two-tower "
-                         "brute-force batch and one LM decode step with "
+                         "brute-force batch, one gemma3 decode step and a MoE "
+                         "and an MLA prefill and decode step with "
                          "torch.profiler and print the device-time breakdown")
     ap.add_argument("--result-cap", type=int, default=1024,
                     help="result buffer per query (the deployment's 1024); "
@@ -3468,6 +3893,18 @@ def main() -> int:
     # -- 10. LM serving (second: its 54 GB of weights need the card too) -----
     with torch.inference_mode():
         lm_entry = lm_phase(dev, {"flashattn": flash_attention_cuda}, args.profile)
+    torch.cuda.empty_cache()
+
+    # -- 10b, 10c. the MoE and MLA members of the LM family ------------------
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lm_entry.update(lm_moe_phase(dev, {"flashattn": flash_attention_cuda}, args.profile))
+    log(f"[lm moe] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lm_mla_phase(dev, {"flashattn": flash_attention_cuda}, args.profile)
+    log(f"[lm mla] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3739,7 +4176,10 @@ def main() -> int:
              "int8_query_main_shape_bound_ms", "fetch_route", "cold_ms",
              "old_route_cold_ms", "build_launches", "fallback_launches", "tier_launches",
              "serve_launches", "live_launches", "sharded_launches", "replicated_launches",
-             "live_sharded_launches")
+             "live_sharded_launches", "lm_moe_launches", "moe_ms", "moe_plain_ms",
+             "moe_bound_ms", "moe_bound_by", "moe_library_ms", "moe_decode_ms",
+             "moe_decode_plain_ms", "moe_decode_bound_ms", "moe_decode_bound_by",
+             "moe_decode_library_ms")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

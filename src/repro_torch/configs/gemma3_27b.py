@@ -29,7 +29,7 @@ ARCH = ArchSpec(
         d_head=128, d_ff=21504, vocab=262_144, window=1024, local_ratio=5,
         rope_theta=1_000_000.0, rope_theta_local=10_000.0, qk_norm=True,
         sandwich_norm=True, embed_scale=True, tie_embeddings=True,
-        dtype=torch.bfloat16),
+        dtype=torch.bfloat16, attn_chunk=1024),
     shapes=lm_shapes(),
     source="hf:google/gemma-3 family (27b geometry); unverified tier",
     technique_note=(

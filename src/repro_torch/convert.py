@@ -20,10 +20,11 @@ from .core.corpus import QuantizedCorpus
 from .core.engine import RangeSearchEngine
 from .core.graph import Graph
 from .core.labels import as_label_rows
-from .layers.attention import GQA
+from .layers.attention import GQA, MLA
 from .layers.mlp import MLP, DenseStack
+from .layers.moe import MoE
 from .models.recsys import RecsysConfig, Tower, TwoTower
-from .models.transformer import Block, Transformer, TransformerConfig, _check_supported
+from .models.transformer import Block, Transformer, TransformerConfig
 from .utils import resolve_device
 
 
@@ -103,39 +104,55 @@ def recsys_params_from_jax(params: dict, cfg: RecsysConfig,
     return TwoTower(tower(params["user"]), tower(params["item"]))
 
 
+_NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
+_F32_LEAVES = ("q_norm", "k_norm", "kv_norm", "router")   # kept f32, as norm scales
+
+
 def transformer_params_from_jax(params: dict, cfg: TransformerConfig,
                                 device="cuda") -> Transformer:
-    """The reference's ``init_transformer`` tree, given as numpy arrays with
-    the layers stacked on axis 0 ({"embed": (V, d), "final_norm": (d,),
-    "layers": {"attn": {"wq": (L, d, H, dh), ...}, "attn_norm": (L, d),
-    "mlp": {...}, ...}}, "unembed" when untied), as the port's
-    ``Transformer``. Layouts are kept, so nothing is transposed: the layers
-    are unstacked, dense weights cast to ``cfg.dtype`` (as the reference
-    casts them at each use) and norm scales kept in f32."""
-    _check_supported(cfg)
+    """The reference's ``init_transformer`` tree, given as numpy arrays, as
+    the port's ``Transformer``: ``embed`` (V, d), ``final_norm`` (d,), the
+    leading dense layers ``dense_layer{i}`` (unstacked), ``layers`` (the
+    rest, stacked on axis 0: ``attn`` GQA or MLA leaves, the norms, ``mlp``
+    or ``moe`` with its ``shared`` experts), ``unembed`` when untied.
+    Layouts are kept, so nothing is transposed: the stacked layers are
+    unstacked after the dense ones, weights cast to ``cfg.dtype`` (as the
+    reference casts them at each use), norm scales and routers kept in f32."""
     dev = resolve_device(device)
 
     def tensor(x, dtype=torch.float32):
         return torch.as_tensor(np.array(x, np.float32), device=dev).to(dtype).contiguous()
 
-    def dense(x):
-        return tensor(x, cfg.dtype)
+    def leaf(name, x):
+        return tensor(x) if name in _F32_LEAVES else tensor(x, cfg.dtype)
 
-    lp = params["layers"]
-    norm_names = [n for n in ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
-                  if n in lp]
-    layers = []
-    for i in range(cfg.n_layers):
-        a, m = lp["attn"], lp["mlp"]
-        qk = [tensor(a[n][i]) for n in ("q_norm", "k_norm") if n in a]
-        attn = GQA(dense(a["wq"][i]), dense(a["wk"][i]), dense(a["wv"][i]),
-                   dense(a["wo"][i]), *qk)
-        ffn = MLP(dense(m["w_up"][i]), dense(m["w_down"][i]),
-                  dense(m["w_gate"][i]) if "w_gate" in m else None)
-        layers.append(Block(attn, ffn, {n: tensor(lp[n][i]) for n in norm_names}))
-    unembed_table = None if cfg.tie_embeddings else dense(params["unembed"])
-    return Transformer(dense(params["embed"]), tensor(params["final_norm"]), layers,
-                       unembed_table)
+    def mlp(m):
+        return MLP(leaf("w_up", m["w_up"]), leaf("w_down", m["w_down"]),
+                   leaf("w_gate", m["w_gate"]) if "w_gate" in m else None)
+
+    def block(lp):
+        a = {n: leaf(n, x) for n, x in lp["attn"].items()}
+        if cfg.attn_kind == "mla":
+            attn = MLA(**a)
+        else:
+            attn = GQA(a["wq"], a["wk"], a["wv"], a["wo"], a.get("q_norm"), a.get("k_norm"))
+        if "moe" in lp:
+            m = lp["moe"]
+            ffn = MoE(*(leaf(n, m[n]) for n in ("router", "w_gate", "w_up", "w_down")),
+                      mlp(m["shared"]) if "shared" in m else None)
+        else:
+            ffn = mlp(lp["mlp"])
+        return Block(attn, ffn, {n: tensor(lp[n]) for n in _NORMS if n in lp})
+
+    def unstack(tree, i):
+        return {k: unstack(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    layers = [block(params[f"dense_layer{i}"]) for i in range(cfg.first_dense)]
+    layers += [block(unstack(params["layers"], i))
+               for i in range(cfg.n_layers - cfg.first_dense)]
+    unembed_table = None if cfg.tie_embeddings else leaf("unembed", params["unembed"])
+    return Transformer(leaf("embed", params["embed"]), tensor(params["final_norm"]),
+                       layers, unembed_table)
 
 
 def effort_params_from_jax(params: dict, device="cuda") -> dict:

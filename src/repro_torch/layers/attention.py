@@ -1,4 +1,5 @@
-"""Attention layers: GQA (with qk-norm, sliding window and soft cap).
+"""Attention layers: GQA (with qk-norm, sliding window and soft cap) and
+MLA (deepseek-v2).
 
 The layer's attention core is the flash-attention kernel
 (``kernels.flashattn``): ``flash_attention`` on the card (its plain version
@@ -12,7 +13,11 @@ the given ``KVCache`` at ``q_offset`` and returns the same object (the
 reference returns a new cache; on the card a second 8 GB cache would not
 fit beside gemma3-27b).
 
-MLA (deepseek-v2) is ROADMAP.md §1 item 6.
+MLA compresses queries and keys to low-rank latents; its cache holds the
+``kv_lora`` latent (in ``k``) and the shared ``qk_rope_dim`` rope key (in
+``v``) a token, written in place as GQA's is. Its core is ``sdpa``, as in
+the reference: the flash-attention kernel takes one head dim for q, k and
+v, and MLA's are 192, 192 and 128.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ BIG_WINDOW = 2**30
 @dataclasses.dataclass
 class KVCache:
     """Decode-time cache. GQA: k/v are (B, S_max, Hkv, dh) for one layer,
-    (L, B, S_max, Hkv, dh) for a model."""
+    (L, B, S_max, Hkv, dh) for a model. MLA: k is the latent (B, S_max,
+    kv_lora), v the rope key (B, S_max, qk_rope_dim)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -58,7 +64,9 @@ def _chunk_logits(qg, k_chunk, c0, *, causal, window, softcap, scale,
     if causal:
         mask &= k_pos <= q_pos
     mask &= (q_pos - k_pos) < (window if window > 0 else BIG_WINDOW)
-    if kv_valid_len is not None:
+    if isinstance(kv_valid_len, int):   # a Python int needs no copy to the card
+        mask &= k_pos < kv_valid_len
+    elif kv_valid_len is not None:
         kvv = torch.as_tensor(kv_valid_len, device=qg.device)
         mask &= k_pos < kvv.reshape(-1, 1, 1, 1, 1)
     return logits.masked_fill(~mask, -1e30)
@@ -187,4 +195,95 @@ def gqa_attention(params: GQA, x: torch.Tensor, cfg: GQAConfig, *,
                causal=cfg.causal, window=window, softcap=cfg.softcap,
                q_offset=q_offset, scale=cfg.d_head ** -0.5)
     y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params.wo.to(dt))
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    softcap: float = 0.0
+    causal: bool = True
+    kv_chunk: int = 0   # sdpa's online-softmax chunk on the cache path
+
+
+class MLA(nn.Module):
+    """w_dq (d, q_lora), q_norm (q_lora,) f32, w_uq (q_lora, H, dn + dr),
+    w_dkv (d, kv_lora), kv_norm (kv_lora,) f32, w_uk (kv_lora, H, dn),
+    w_uv (kv_lora, H, dv), w_kr (d, dr), wo (H, dv, d): the reference's
+    layouts."""
+
+    NAMES = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv", "w_kr", "wo")
+
+    def __init__(self, **weights):
+        super().__init__()
+        for name in self.NAMES:
+            self.register_parameter(name, nn.Parameter(weights[name], requires_grad=False))
+
+
+def init_mla(cfg: MLAConfig, *, generator=None, device="cuda",
+             dtype=torch.float32) -> MLA:
+    """Fan-in truncated-normal projections drawn in f32, stored in
+    ``dtype``; the two latent norms' scales are f32 ones."""
+    dev = resolve_device(device, meta=True)
+    draw = dict(generator=generator, device=dev, dtype=dtype)
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return MLA(
+        w_dq=draw_dense((d, cfg.q_lora), d, **draw),
+        q_norm=torch.ones((cfg.q_lora,), device=dev),
+        w_uq=draw_dense((cfg.q_lora, h, dn + dr), cfg.q_lora, **draw),
+        w_dkv=draw_dense((d, cfg.kv_lora), d, **draw),
+        kv_norm=torch.ones((cfg.kv_lora,), device=dev),
+        w_uk=draw_dense((cfg.kv_lora, h, dn), cfg.kv_lora, **draw),
+        w_uv=draw_dense((cfg.kv_lora, h, dv), cfg.kv_lora, **draw),
+        w_kr=draw_dense((d, dr), d, **draw),
+        wo=draw_dense((h, dv, d), h * dv, **draw))
+
+
+def mla_attention(params: MLA, x: torch.Tensor, cfg: MLAConfig, *,
+                  q_offset: int, rope_theta: float, window: int,
+                  cache: Optional[KVCache] = None,
+                  kv_valid_len: Optional[int] = None
+                  ) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """x (B, S, D) at positions ``q_offset + arange(S)`` -> (y (B, S, D),
+    cache). With a cache, the latent and the rope key are written into it
+    in place and the keys are the whole cache, masked past
+    ``kv_valid_len`` as the reference does, so ``sdpa`` takes the
+    reference's branch (chunked when the cache is a multiple of
+    ``kv_chunk`` above twice it and S > 1)."""
+    dt = x.dtype
+    b, s = x.shape[:2]
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    positions = torch.arange(q_offset, q_offset + s, device=x.device)
+
+    cq = rms_norm(x @ params.w_dq.to(dt), params.q_norm)
+    q = torch.einsum("bsl,lhk->bshk", cq, params.w_uq.to(dt))
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, rope_theta)
+    ckv = rms_norm(x @ params.w_dkv.to(dt), params.kv_norm)          # (B, S, kv_lora)
+    k_rope = apply_rope((x @ params.w_kr.to(dt))[:, :, None, :], positions,
+                        rope_theta)[:, :, 0, :]                       # (B, S, dr)
+
+    if cache is not None:
+        cache.k[:, q_offset:q_offset + s] = ckv
+        cache.v[:, q_offset:q_offset + s] = k_rope
+        ckv, k_rope = cache.k.to(dt), cache.v.to(dt)
+
+    k_nope = torch.einsum("btl,lhk->bthk", ckv, params.w_uk.to(dt))
+    v = torch.einsum("btl,lhk->bthk", ckv, params.w_uv.to(dt))
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], dr)], dim=-1)
+    out = sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=cfg.causal,
+               window=window, softcap=cfg.softcap, scale=(dn + dr) ** -0.5,
+               q_positions=positions.expand(b, s), kv_valid_len=kv_valid_len,
+               kv_chunk=cfg.kv_chunk if cache is not None else 0)
+    y = torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
     return y, cache

@@ -1,5 +1,5 @@
-"""Models of the port: the two-tower retrieval model, the dense LM and the
-serving layer's effort regressor."""
+"""Models of the port: the two-tower retrieval model, the LM family (dense,
+MoE and MLA) and the serving layer's effort regressor."""
 from .effort import (
     EffortConfig,
     EffortPredictor,

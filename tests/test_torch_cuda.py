@@ -1652,3 +1652,98 @@ def test_live_sharded_index_create_on_the_card(cuda_device):
     assert torch.equal(got.ids, ids) and torch.equal(got.dists, dists)
     assert int(got.count.sum()) > 0
     assert not np.isin(got.ids.cpu().numpy(), np.r_[0:1200:5]).any()
+
+
+# ---------------------------------------------------------------------------
+# the MoE and MLA members of the LM family: plain PyTorch on the card (no
+# TPU kernel covers them), held to the same code on the CPU; the MoE layer
+# bit for bit deterministic (its combine gathers, it never scatter-adds)
+# ---------------------------------------------------------------------------
+
+def _moe_on_card_and_cpu(cfg, dev, dtype=torch.float32):
+    import copy
+
+    from repro_torch.layers import init_moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layer = init_moe(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev,
+                     dtype=dtype)
+    return layer, copy.deepcopy(layer).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,n_groups", [(4, 1, 32), (2, 2050, 3), (1, 4096, 32)])
+def test_moe_layer_on_the_card_equals_cpu(cuda_device, b, s, n_groups):
+    """f32: y within 1e-5 of the CPU's, the routing (so every kept slot:
+    the slots are a function of the ids) and the drops equal; two calls on
+    the card bit for bit equal (decode-sized, padded groups, two groups)."""
+    from repro_torch.layers import MoEConfig, moe_layer
+    from repro_torch.layers.moe import dispatch_plan, route
+    cfg = MoEConfig(d_model=64, n_experts=12, n_experts_alloc=16, top_k=4, d_expert=48,
+                    n_shared=2, n_groups=n_groups)
+    layer, cpu = _moe_on_card_and_cpu(cfg, cuda_device)
+    x = torch.randn((b, s, 64), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device)
+    y, aux = moe_layer(layer, x, cfg)
+    y2, aux2 = moe_layer(layer, x, cfg)
+    yc, auxc = moe_layer(cpu, x.cpu(), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(aux["dropped_frac"], aux2["dropped_frac"])
+    assert torch.equal(route(layer, x.reshape(-1, 64), cfg)[2].cpu(),
+                       route(cpu, x.cpu().reshape(-1, 64), cfg)[2])
+    groups, tg, c = dispatch_plan(b * s, cfg)
+    n = groups * tg * cfg.top_k
+    assert round(float(aux["dropped_frac"]) * n) == round(float(auxc["dropped_frac"]) * n)
+    torch.testing.assert_close(y.cpu(), yc, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux["aux_loss"].cpu(), auxc["aux_loss"], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_moe_layer_bf16_is_deterministic_on_the_card(cuda_device):
+    from repro_torch.layers import MoEConfig, moe_layer
+    cfg = MoEConfig(d_model=128, n_experts=60, n_experts_alloc=64, top_k=4, d_expert=64,
+                    n_shared=4, n_groups=32)
+    layer, _ = _moe_on_card_and_cpu(cfg, cuda_device, torch.bfloat16)
+    assert layer.router.dtype == torch.float32
+    x = torch.randn((4, 2048, 128), device=cuda_device).to(torch.bfloat16)
+    outs = [moe_layer(layer, x, cfg) for _ in range(3)]
+    torch.cuda.synchronize()
+    for y, aux in outs[1:]:
+        assert torch.equal(y, outs[0][0])
+        assert torch.equal(aux["dropped_frac"], outs[0][1]["dropped_frac"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_moe_a27b", "deepseek_v2_236b"])
+def test_moe_and_mla_models_on_the_card_equal_cpu(cuda_device, arch):
+    """The reduced qwen2-moe (GQA through flashattn) and deepseek-v2 (MLA
+    through sdpa, a leading dense layer) in f32 at capacity factor 1.0 (so
+    decode steps drop): prefill and 4 greedy steps on the card within 1e-4
+    of the same model on the CPU, the tokens equal; flashattn launched once
+    a GQA layer a call, never for MLA. The reduced qwen2-moe's head dim,
+    12, is not one the kernel takes (16, 32, 64, 128): it runs here at 16."""
+    import copy
+    import importlib
+
+    from repro_torch.models import decode_step, greedy_token, init_transformer, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(importlib.import_module(f"repro_torch.configs.{arch}").reduced(),
+                              capacity_factor=1.0)
+    if cfg.attn_kind == "gqa":
+        cfg = dataclasses.replace(cfg, d_head=16)
+    model = init_transformer(cfg, seed=0, device=cuda_device)
+    cpu = copy.deepcopy(model).cpu()
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(0))
+    runs, launches = [], []
+    for m, dev in ((model, cuda_device), (cpu, torch.device("cpu"))):
+        before = flash_attention_cuda.launches
+        lg, cache, pos = prefill(m, toks.to(dev), cfg, max_len=32)
+        out, tok = [lg.cpu()], greedy_token(lg)
+        for _ in range(4):
+            lg, cache = decode_step(m, tok, cache, pos, cfg)
+            tok, pos = greedy_token(lg), pos + 1
+            out.append(lg.cpu())
+        launches.append(flash_attention_cuda.launches - before)
+        runs.append(torch.stack(out))
+    assert launches == [0 if cfg.attn_kind == "mla" else 5 * cfg.n_layers, 0]
+    torch.testing.assert_close(runs[0], runs[1], rtol=1e-4, atol=1e-4)
+    assert torch.equal(runs[0].argmax(-1), runs[1].argmax(-1))

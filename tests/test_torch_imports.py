@@ -41,7 +41,9 @@ NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
          "repro_torch.dist.embedding", "repro_torch.dist.compression",
          "repro_torch.fault.injector", "repro_torch.fault.degraded",
          "repro_torch.fault.replica", "repro_torch.live.sharded", "repro_torch.launch",
-         "repro_torch.launch.serve")
+         "repro_torch.launch.serve", "repro_torch.layers.moe",
+         "repro_torch.configs.qwen2_moe_a27b", "repro_torch.configs.deepseek_v2_236b",
+         "repro_torch.configs.qwen3_14b", "repro_torch.configs.starcoder2_7b")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -62,14 +64,15 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
-    from repro_torch.configs import gemma3_27b
+    from repro_torch.configs import deepseek_v2_236b, gemma3_27b
     from repro_torch.configs.two_tower_retrieval import reduced
     from repro_torch.convert import (
         effort_params_from_jax, engine_from_arrays, recsys_params_from_jax,
         transformer_params_from_jax)
     from repro_torch.kernels import rangescan
     from repro_torch.layers import (
-        GQAConfig, MLPConfig, init_dense_stack, init_gqa, init_mlp, init_token_embedding)
+        GQAConfig, MLAConfig, MLPConfig, MoEConfig, init_dense_stack, init_gqa, init_mla,
+        init_mlp, init_moe, init_token_embedding)
     from repro_torch.models import (
         EffortConfig, EffortPredictor, init_cache, init_effort, init_recsys, init_tower,
         init_transformer)
@@ -112,6 +115,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         lambda: transformer_params_from_jax(lm_params, lm),
         lambda: init_mlp(MLPConfig(d_model=8, d_ff=16)),
         lambda: init_gqa(GQAConfig(d_model=8, n_heads=2, n_kv=1, d_head=4)),
+        lambda: init_mla(MLAConfig(d_model=8, n_heads=2, q_lora=4, kv_lora=4)),
+        lambda: init_moe(MoEConfig(d_model=8, n_experts=4, top_k=2, d_expert=8)),
+        lambda: init_transformer(deepseek_v2_236b.reduced()),
+        lambda: init_cache(deepseek_v2_236b.reduced(), 1, 8),
         lambda: init_token_embedding(16, 8),
         lambda: build_vamana(pts),
         lambda: RangeSearchEngine.build(pts),

@@ -5,7 +5,7 @@ come across from JAX's ``init_transformer`` through
 ``convert.transformer_params_from_jax`` (the two frameworks' generators
 cannot give the same draws). Everything here is f32, as the reduced
 configurations are; on the CPU the port's attention core is the
-flash-attention kernel's plain version.
+flash-attention kernel's plain version (MLA's is ``sdpa`` everywhere).
 
 Tolerances, each with its reason:
 * norms, embeddings, MLP, attention layers: ``rtol=1e-5, atol=1e-5``
@@ -17,9 +17,13 @@ Tolerances, each with its reason:
   position, and at positions below 20 the comparison holds to 1e-5;
 * models (gemma3 with its 16-token window shorter than the prompt, dual
   theta and sandwich norms; qwen3 with qk-norm, untied; starcoder2 with
-  the plain GELU MLP and MQA): logits within 1e-4 and caches within 1e-5
-  (absolute, on O(1) values) over prefill and 8 decode steps, and the
-  greedy tokens equal on every step.
+  the plain GELU MLP and MQA; qwen2-moe (GQA + MoE) and deepseek-v2 (MLA +
+  MoE, a leading dense layer), each also at capacity factor 1.0, where
+  decode steps drop assignments): logits within 1e-4 and caches within
+  1e-5 (absolute, on O(1) values) over prefill and 8 decode steps, the
+  greedy tokens equal on every step; the MoE aux loss within 1e-6, and
+  every MoE call's output within 1e-5 of JAX's ``moe_layer`` on the same
+  input, its dropped assignments equal in number.
 """
 import dataclasses
 import importlib
@@ -30,17 +34,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import deepseek_v2_236b as jax_deepseek
 from repro.configs import gemma3_27b as jax_gemma
+from repro.configs import qwen2_moe_a27b as jax_qwen_moe
 from repro.configs import qwen3_14b as jax_qwen
 from repro.configs import starcoder2_7b as jax_star
 from repro.data.lm import LMDataConfig as JaxLMDataConfig
 from repro.data.lm import lm_batch as jax_lm_batch
 from repro.layers import attention as jatt
 from repro.layers import embedding as jemb
+from repro.layers import moe as jmoe
 from repro.layers import norm as jnorm
 from repro.layers import rope as jrope
 from repro.models import transformer as jtf
-from repro_torch.configs import gemma3_27b
+from repro_torch.configs import (
+    deepseek_v2_236b, gemma3_27b, qwen2_moe_a27b, qwen3_14b, starcoder2_7b)
 from repro_torch.convert import transformer_params_from_jax
 from repro_torch.data import LMDataConfig, lm_batch
 from repro_torch.layers import (
@@ -49,19 +57,26 @@ from repro_torch.layers import (
 from repro_torch.models import (
     TransformerConfig, cache_shapes, decode_step, forward, greedy_token,
     init_cache, init_transformer, logits_from_hidden, prefill)
+from repro_torch.layers.moe import dispatch_plan
+from repro_torch.models import transformer as port_tf
 from repro_torch.models.transformer import chunked_ce_loss, loss_fn
 
 jmlp = importlib.import_module("repro.layers.mlp")   # the package's ``mlp`` is the function
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TN_STD = 0.9865881  # std of a unit normal truncated at +-3
-# the reference's fields the port's TransformerConfig leaves out (MLA, MoE,
-# XLA execution, training), and the port's own
-LEFT_OUT = {"q_lora", "kv_lora", "qk_nope_dim", "qk_rope_dim", "v_head_dim",
-            "n_experts_alloc", "moe_groups", "n_shared", "top_k", "d_expert",
-            "capacity_factor", "aux_loss_weight", "remat", "scan_unroll",
-            "attn_chunk", "loss_chunk"}
+# the reference's fields the port's TransformerConfig leaves out (XLA
+# execution, training), and the port's own
+LEFT_OUT = {"remat", "scan_unroll", "loss_chunk"}
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port_config(jcfg) -> TransformerConfig:
@@ -194,18 +209,76 @@ def test_gqa_attention_matches_jax(window, softcap):
 # models
 # ---------------------------------------------------------------------------
 
+def _capacity_1(make):
+    return lambda: dataclasses.replace(make(), capacity_factor=1.0)
+
+
 MODELS = {"gemma3": jax_gemma.reduced, "qwen3": jax_qwen.reduced,
-          "starcoder2": jax_star.reduced}
+          "starcoder2": jax_star.reduced, "qwen2moe": jax_qwen_moe.reduced,
+          "deepseek": jax_deepseek.reduced,
+          # capacity factor 1.0: a decode step of 2 tokens gets capacity 1
+          "qwen2moe-drop": _capacity_1(jax_qwen_moe.reduced),
+          "deepseek-drop": _capacity_1(jax_deepseek.reduced)}
+DROP_FREE = ["gemma3", "qwen3", "starcoder2", "qwen2moe", "deepseek"]
+
+
+@pytest.fixture(scope="module")
+def jax_inits():
+    """JAX's parameter trees by reduced model name (a "-drop" variant's
+    capacity factor changes no weight, so it shares its model's)."""
+    return {}
 
 
 @pytest.fixture(scope="module", params=list(MODELS))
-def model_pair(request):
+def model_pair(request, jax_inits):
     jcfg = MODELS[request.param]()
-    params = jtf.init_transformer(jax.random.PRNGKey(0), jcfg)
+    base = request.param.removesuffix("-drop")
+    if base not in jax_inits:
+        jax_inits[base] = jax.jit(jtf.init_transformer, static_argnums=1)(
+            jax.random.PRNGKey(0), MODELS[base]())
+    params = jax_inits[base]
     cfg = port_config(jcfg)
     model = transformer_params_from_jax(jax.tree.map(np.asarray, params), cfg,
                                         device="cpu")
     return jcfg, params, cfg, model
+
+
+class MoESpy:
+    """Records every call of the port's ``moe_layer`` inside the model (the
+    layer, its input and its results) and holds each, after the run, to
+    JAX's ``moe_layer`` on the same input with that layer's JAX weights."""
+
+    def __init__(self, monkeypatch, model, params, jcfg):
+        self.calls, self.layer_of = [], {}
+        fd = jcfg.first_dense
+        for i, layer in enumerate(model.layers):
+            if layer.moe is not None:
+                self.layer_of[id(layer.moe)] = jax.tree.map(
+                    lambda a, j=i - fd: a[j], params["layers"]["moe"])
+        inner = port_tf.moe_layer
+
+        def spy(p, h, cfg, capacity=None):
+            y, aux = inner(p, h, cfg, capacity)
+            self.calls.append((id(p), h.numpy().copy(), y.numpy().copy(), aux))
+            return y, aux
+        monkeypatch.setattr(port_tf, "moe_layer", spy)
+        self.jmoe = jax.jit(lambda p, h: jmoe.moe_layer(p, h, jcfg.moe_cfg()))
+        self.mcfg = port_config(jcfg).moe_cfg()
+
+    def check(self) -> int:
+        """Returns the number of assignments dropped over all calls."""
+        dropped = 0
+        for key, h, y, aux in self.calls:
+            jy, jaux = self.jmoe(self.layer_of[key], h)
+            np.testing.assert_allclose(y, _np(jy), rtol=1e-5, atol=1e-5)
+            groups, tg, _ = dispatch_plan(h.shape[0] * h.shape[1], self.mcfg)
+            n = groups * tg * self.mcfg.top_k
+            got = int(round(float(aux["dropped_frac"]) * n))
+            assert got == int(round(float(jaux["dropped_frac"]) * n))
+            np.testing.assert_allclose(float(aux["aux_loss"]), float(jaux["aux_loss"]),
+                                       rtol=0, atol=1e-6)
+            dropped += got
+        return dropped
 
 
 def test_gemma3_reduced_is_the_port_config():
@@ -228,20 +301,24 @@ def test_lm_data_is_the_reference_stream():
                 np.testing.assert_array_equal(got[key], want[key])
 
 
-def test_forward_prefill_decode_match_jax(model_pair):
+def test_forward_prefill_decode_match_jax(model_pair, monkeypatch):
     jcfg, params, cfg, model = model_pair
+    spy = MoESpy(monkeypatch, model, params, jcfg) if cfg.is_moe else None
     toks = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=20, batch=2, seed=1), 0)["tokens"]
     max_len = 32
     with torch.inference_mode():
-        h, _ = forward(model, torch.from_numpy(toks), cfg)
-        jh, _, _ = jtf.forward(params, toks, jcfg)
+        h, _, aux = forward(model, torch.from_numpy(toks), cfg)
+        jh, _, jaux = jax.jit(jtf.forward, static_argnums=(2,))(params, toks, jcfg)
         np.testing.assert_allclose(logits_from_hidden(model, h, cfg).numpy(),
                                    _np(jtf.logits_from_hidden(params, jh, jcfg)),
                                    rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=0, atol=1e-6)
+        assert cfg.is_moe == (float(aux) > 0)
         lg, cache, pos = prefill(model, torch.from_numpy(toks), cfg, max_len)
         jlg, jcache, jpos = jax.jit(jtf.prefill, static_argnums=(2, 3))(
             params, toks, jcfg, max_len)
         assert pos == int(jpos) == 20
+        assert tuple(cache.k.shape) == jcache.k.shape and tuple(cache.v.shape) == jcache.v.shape
         jstep = jax.jit(jtf.decode_step, static_argnums=(4,))
         for step in range(9):
             np.testing.assert_allclose(lg.numpy(), _np(jlg), rtol=1e-4, atol=1e-4)
@@ -254,22 +331,30 @@ def test_forward_prefill_decode_match_jax(model_pair):
             lg, cache = decode_step(model, tok, cache, pos, cfg)
             jlg, jcache = jstep(params, jtok, jcache, jnp.asarray(pos, jnp.int32), jcfg)
             pos += 1
+    if spy is not None:
+        n_moe = cfg.n_layers - cfg.first_dense
+        assert len(spy.calls) == n_moe * (1 + 1 + 8)    # forward, prefill, 8 steps
+        dropped = spy.check()
+        assert (dropped > 0) == (cfg.capacity_factor == 1.0)
 
 
+@pytest.mark.parametrize("model_pair", DROP_FREE, indirect=True)
 def test_decode_matches_teacher_forcing(model_pair):
-    """The port of tests/test_models.py::test_lm_decode_matches_teacher_forcing."""
+    """The port of tests/test_models.py::test_lm_decode_matches_teacher_forcing
+    (on the drop-free configurations: where a MoE drops, capacity depends
+    on the token count, so a decode step and a full forward differ)."""
     _, _, cfg, model = model_pair
     toks = torch.from_numpy(lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=12,
                                                   batch=2, seed=2), 0)["tokens"])
     with torch.inference_mode():
         lg_p, cache, kvlen = prefill(model, toks, cfg, max_len=16)
-        h_full, _ = forward(model, toks, cfg)
+        h_full, _, _ = forward(model, toks, cfg)
         np.testing.assert_allclose(
             lg_p.numpy(), logits_from_hidden(model, h_full[:, -1:], cfg).numpy(),
             rtol=1e-5, atol=1e-5)
         nt = greedy_token(lg_p)
         lg_d, _ = decode_step(model, nt, cache, kvlen, cfg)
-        h2, _ = forward(model, torch.cat([toks, nt], dim=1), cfg)
+        h2, _, _ = forward(model, torch.cat([toks, nt], dim=1), cfg)
         np.testing.assert_allclose(
             lg_d.numpy(), logits_from_hidden(model, h2[:, -1:], cfg).numpy(),
             rtol=1e-5, atol=1e-5)
@@ -298,34 +383,94 @@ def test_layer_meta_matches_jax():
     assert set(thetas[windows == 0]) == {1e6} and set(thetas[windows > 0]) == {1e4}
 
 
-def test_full_width_shapes_on_meta_match_jax():
-    cfg = gemma3_27b.ARCH.model_cfg
-    model = init_transformer(cfg, device="meta")
+def _meta_shapes(port_cfg, jax_cfg) -> dict:
+    """The port's full-width state dict on the meta device, held name for
+    name and shape for shape to ``jax.eval_shape`` of the reference's init
+    (``dense_layer{i}`` is the port's layer i, the stacked layers follow);
+    returns {name: (shape, dtype)}."""
+    model = init_transformer(port_cfg, device="meta")
     shapes = {k: (tuple(v.shape), v.dtype) for k, v in model.state_dict().items()}
-    jshapes = jax.eval_shape(lambda: jtf.init_transformer(jax.random.PRNGKey(0),
-                                                          jax_gemma.ARCH.model_cfg))
-    want = {}
+    jshapes = jax.eval_shape(lambda: jtf.init_transformer(jax.random.PRNGKey(0), jax_cfg))
+    want, fd = {}, port_cfg.first_dense
     for path, leaf in jax.tree_util.tree_flatten_with_path(jshapes)[0]:
         keys = [str(p.key) for p in path]
         if keys[0] == "layers":
-            for i in range(cfg.n_layers):
+            for i in range(fd, port_cfg.n_layers):
                 want[".".join(["layers", str(i)] + keys[1:])] = leaf.shape[1:]
+        elif keys[0].startswith("dense_layer"):
+            want[".".join(["layers", keys[0][len("dense_layer"):]] + keys[1:])] = leaf.shape
         else:
             want[".".join(keys)] = leaf.shape
     assert {k: s for k, (s, _) in shapes.items()} == want
+    return shapes
+
+
+def test_full_width_shapes_on_meta_match_jax():
+    cfg = gemma3_27b.ARCH.model_cfg
+    shapes = _meta_shapes(cfg, jax_gemma.ARCH.model_cfg)
     # dense weights in bf16 (the reference's f32 masters, cast once), norms f32
     assert shapes["layers.0.attn.wq"] == ((5376, 32, 128), torch.bfloat16)
     assert shapes["layers.61.mlp.w_down"] == ((21504, 5376), torch.bfloat16)
     assert shapes["embed"] == ((262_144, 5376), torch.bfloat16)
     assert shapes["layers.0.post_ffn_norm"] == ((5376,), torch.float32)
     assert shapes["layers.0.attn.q_norm"] == ((128,), torch.float32)
-    assert sum(v.numel() for v in model.state_dict().values()) == 27_009_002_240
+    assert sum(np.prod(s) for s, _ in shapes.values()) == 27_009_002_240
     # the serving cache: 4 prompts of 4,096 + 32 decoded tokens
     k, v = cache_shapes(cfg, 4, 4128)
     jk, jv = jtf.cache_shapes(jax_gemma.ARCH.model_cfg, 4, 4128)
     assert tuple(k.shape) == jk.shape == tuple(v.shape) == jv.shape == (62, 4, 4128, 16, 128)
     assert k.dtype == torch.bfloat16 and jk.dtype == jnp.bfloat16
     assert 2 * 2 * k.numel() == 8_386_510_848       # 8.39 GB in bf16
+
+
+LM_FAMILY = {   # port config module, JAX config module, parameters
+    "qwen2-moe-a2.7b": (qwen2_moe_a27b, jax_qwen_moe, 15_146_059_776),
+    "deepseek-v2-236b": (deepseek_v2_236b, jax_deepseek, 235_741_434_880),
+    "qwen3-14b": (qwen3_14b, jax_qwen, 14_768_307_200),
+    "starcoder2-7b": (starcoder2_7b, jax_star, 7_172_559_360),
+}
+
+
+@pytest.mark.parametrize("arch", list(LM_FAMILY))
+def test_lm_family_full_width_shapes_on_meta_match_jax(arch):
+    mod, jmod, n_params = LM_FAMILY[arch]
+    cfg = mod.ARCH.model_cfg
+    shapes = _meta_shapes(cfg, jmod.ARCH.model_cfg)
+    assert sum(np.prod(s) for s, _ in shapes.values()) == n_params
+    k, v = cache_shapes(cfg, 4, 1056)
+    jk, jv = jtf.cache_shapes(jmod.ARCH.model_cfg, 4, 1056)
+    assert (tuple(k.shape), tuple(v.shape)) == (jk.shape, jv.shape)
+    assert k.dtype == v.dtype == torch.bfloat16
+    if cfg.is_moe:   # the router f32, the experts bf16 in their allocated rows
+        name = f"layers.{cfg.first_dense}.moe"
+        assert shapes[f"{name}.router"] == ((cfg.d_model, cfg.n_experts), torch.float32)
+        assert shapes[f"{name}.w_gate"] == (
+            (max(cfg.n_experts, cfg.n_experts_alloc), cfg.d_model, cfg.d_expert), torch.bfloat16)
+        fs = cfg.n_shared * cfg.d_expert
+        assert shapes[f"{name}.shared.w_down"] == ((fs, cfg.d_model), torch.bfloat16)
+    if cfg.attn_kind == "mla":   # the latent and the rope key: 576 values a token
+        assert tuple(k.shape) == (60, 4, 1056, 512) and tuple(v.shape) == (60, 4, 1056, 64)
+        assert shapes["layers.0.mlp.w_up"] == ((5120, 12288), torch.bfloat16)
+        assert shapes["layers.0.attn.kv_norm"] == ((512,), torch.float32)
+        assert shapes["layers.1.attn.w_uq"] == ((1536, 128, 192), torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch", list(LM_FAMILY))
+def test_lm_family_configs_are_the_reference_configs(arch):
+    mod, jmod, _ = LM_FAMILY[arch]
+    assert port_config(jmod.ARCH.model_cfg) == mod.ARCH.model_cfg
+    assert port_config(jmod.reduced()) == mod.reduced()
+    assert mod.ARCH.arch_id == jmod.ARCH.arch_id and mod.ARCH.source == jmod.ARCH.source
+    assert mod.ARCH.shapes == {k: type(mod.ARCH.shapes[k])(**vars(v))
+                               for k, v in jmod.ARCH.shapes.items()}
+    # what the reference's transformer builds from the fields
+    jcfg, cfg = jmod.ARCH.model_cfg, mod.ARCH.model_cfg
+    for port, ref in ((cfg.attn_cfg(), jcfg.attn_cfg()), (cfg.mlp_cfg(), jcfg.mlp_cfg())):
+        assert type(port).__name__ == type(ref).__name__
+        shared = {f.name for f in dataclasses.fields(port)} & set(vars(ref))
+        assert {n: getattr(port, n) for n in shared} == {n: getattr(ref, n) for n in shared}
+    if cfg.is_moe:
+        assert vars(cfg.moe_cfg()) == vars(jcfg.moe_cfg())
 
 
 def test_init_statistics():
@@ -357,15 +502,22 @@ def test_init_statistics():
 
 
 def test_unported_parts_raise():
-    for bad in (dict(attn_kind="mla"), dict(n_experts=4), dict(first_dense=1)):
-        cfg = dataclasses.replace(gemma3_27b.reduced(), **bad)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_transformer(cfg, device="cpu")
+    """The training loss is §1 item 6's next part; MoE, MLA and leading
+    dense layers, which raised here before, now build and serve."""
     cfg = gemma3_27b.reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6 \\(training\\)"):
         loss_fn(None, {}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6 \\(training\\)"):
         chunked_ce_loss(None, None, None, None, cfg)
+    for port in (qwen2_moe_a27b.reduced(), deepseek_v2_236b.reduced(),
+                 dataclasses.replace(cfg, first_dense=2)):
+        model = init_transformer(port, device="cpu")
+        kinds = ["moe" if layer.moe is not None else "mlp" for layer in model.layers]
+        assert kinds == ["mlp"] * port.first_dense + (
+            ["moe" if port.is_moe else "mlp"] * (port.n_layers - port.first_dense))
+        with torch.inference_mode():
+            lg, _, _ = prefill(model, torch.zeros((1, 4), dtype=torch.long), port, 6)
+        assert tuple(lg.shape) == (1, 1, port.vocab) and bool(torch.isfinite(lg).all())
 
 
 def test_layer_inits_draw_what_they_store():
