@@ -150,6 +150,31 @@ Phases, each printed as it ends:
      --replicas 2 --hedge-ms 5 --down-replicas 1:0,3:1``, which must stay
      whole; ``--churn 0.05``), each exiting 0, its AP and rate lines
      re-printed with its wall;
+ 20. [train lm], after [cli] (training launches no kernel): qwen3-14b at
+     full width, depth cut from 40 to 4 layers (2.88 B f32 masters from
+     seed 0, 46.0 GB with gradients and moments), computed in bf16 with
+     remat and GQA through ``sdpa``; 8 steps of the Trainer's step
+     at the config's opt_cfg over 2 x 4,096 tokens of the LM stream
+     (train_4k's length; its global batch of 256 cut): tokens/s, ms a step
+     split into forward+backward and the update, peak memory; gates:
+     finite losses and grad norms, masters still f32, no flashattn launch;
+     the trained weights cast to bf16 and served, one prefill with 4
+     flashattn launches on wgmma; one f32 step of a 2-layer qwen3 on the
+     card against the CPU (every leaf within 1e-4 relative L2);
+ 21. [train recsys]: 5 steps on 65,536 rows (train_batch) of wide-deep
+     and autoint at full width and vocabulary, dlrm-rm2 with its vocabulary
+     cut to 2,097,152 a field and two-tower to 1,048,576 (rows/s, ms a step,
+     the update's share, peak); the three CTR kinds' forward at full
+     vocabulary on serve_p99 (512) and serve_bulk (262,144) rows; each
+     reduced config one step on the card against the CPU (1e-4);
+ 22. [train gcn]: gcn-cora's geometry on make_sbm_graph(2708, 7, 1433,
+     avg_degree=4), 200 steps (training accuracy), one step card vs CPU
+     (1e-5); the ogb_products scale (2,449,029 nodes, avg_degree 25: 61.2 M
+     edges, 100 features, 47 classes), 5 steps (ms a step, peak);
+ 23. [train cli]: ``python -m repro_torch.launch.train --arch <id> --smoke
+     --steps 20``, then ``--resume --steps 30`` (which must print ``resumed
+     from step 20``), for gemma3-27b, gcn-cora and dlrm-rm2, the three archs
+     at once;
   9. [two_tower], run right after the build so its 43 GB tables find the
      card empty: the two-tower-retrieval model at full width (16 + 16
      fields, vocab 10,485,760, d_embed 64, towers 1024-1024-512-256, both
@@ -3819,6 +3844,406 @@ def cli_phase() -> None:
             + " | ".join(ln[len("[serve] "):] for ln in keep) + f"; card {card}")
 
 
+# ---------------------------------------------------------------------------
+# 20-23. Training: the LM, the recsys family, the GCN, the training CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_LM_LAYERS = 4         # qwen3-14b at full width, depth cut from 40
+TRAIN_LM_BATCH = 2          # train_4k's sequence length; its global batch of 256 cut
+TRAIN_LM_SEQ = 4096
+TRAIN_LM_STEPS = 8
+TRAIN_LM_STATE_GB = 46.0    # f32 masters, gradients, m and v: 16 B a parameter
+TRAIN_REL = 1e-4            # card against CPU, one f32 step, every leaf (rel. L2)
+TRAIN_GCN_REL = 1e-5
+TRAIN_RECSYS_ROWS = 65_536  # the train_batch shape
+TRAIN_RECSYS_STEPS = 5
+TRAIN_RECSYS = (            # (config module, vocab a field: None keeps the published one)
+    ("wide_deep", None), ("autoint", None), ("dlrm_rm2", 2_097_152),
+    ("two_tower_retrieval", 1_048_576))
+SERVE_RECSYS = ("wide_deep", "dlrm_rm2", "autoint")
+GCN_CORA_STEPS = 200
+GCN_PRODUCTS = dict(n_nodes=2_449_029, n_classes=47, d_feat=100, avg_degree=25)
+GCN_PRODUCTS_STEPS = 5
+TRAIN_CLI_ARCHS = ("gemma3-27b", "gcn-cora", "dlrm-rm2")
+TRAIN_CLI_RUNS = (("--steps", "20"), ("--steps", "30", "--resume"))
+TRAIN_CLI_TIMEOUT_S = 120
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev).clone()
+
+
+def train_card_vs_cpu(family: str, cfg, opt, batch, dev, tol: float, name: str) -> float:
+    """One f32 training step (the Trainer's) from the same weights
+    on the CPU and on the card; every updated leaf within ``tol`` relative
+    L2 and the loss within 1e-5 (asserted). Returns the largest leaf error."""
+    import functools
+
+    import torch
+    from repro_torch.launch.train import init_params
+    from repro_torch.models import gcn_loss, loss_fn, recsys_loss
+    from repro_torch.optim import init_adamw, make_train_step
+    from repro_torch.optim.adamw import _leaves
+    loss = functools.partial({"lm": loss_fn, "gnn": gcn_loss, "recsys": recsys_loss}[family],
+                             cfg=cfg)
+    start = init_params(family, cfg, SEED, torch.device("cpu"))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        tree = _tree_to(start, d)
+        tree, _, metrics = make_train_step(loss, opt)(
+            tree, init_adamw(tree, opt), batch)
+        out[d.type] = (_leaves(tree), float(metrics["loss"]))
+    (cpu, lc), (card, lg) = out["cpu"], out["cuda"]
+    worst = max(rel_l2(a.cpu(), b) for a, b in zip(card, cpu))
+    if worst > tol or abs(lc - lg) > 1e-5 * abs(lc):
+        raise AssertionError(f"{name}: card against CPU, leaf error {worst:.3g} "
+                             f"(limit {tol}), loss {lg} against {lc}")
+    return worst
+
+
+class UpdateTimer:
+    """Wraps the optimizer's update, which ``make_train_step`` calls by its
+    module name, between two CUDA events: the update's share of a step."""
+
+    def __init__(self):
+        from repro_torch.optim import adamw
+        self.mod, self.spans = adamw, []
+
+    def __enter__(self):
+        import torch
+        inner = self.inner = self.mod.adamw_update
+
+        def timed(*a, **k):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = inner(*a, **k)
+            ev[1].record()
+            self.spans.append(ev)
+            return out
+
+        self.mod.adamw_update = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.adamw_update = self.inner
+
+    def ms(self) -> list:
+        return [a.elapsed_time(b) for a, b in self.spans]
+
+
+def timed_steps(step, tree, state, batches, dev):
+    """Run ``step`` over ``batches`` (numpy, moved to ``dev``), each to a
+    synchronize: (tree, state, per-step seconds, per-step update ms, the
+    metrics of each step as floats)."""
+    import torch
+    secs, metrics = [], []
+    with UpdateTimer() as ut:
+        for b in batches:
+            b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree, state, m = step(tree, state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return tree, state, secs, ut.ms(), metrics
+
+
+def _check_finite(metrics: list, name: str) -> None:
+    for i, m in enumerate(metrics):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{name}: step {i + 1} metrics not finite: {m}")
+
+
+def train_lm_phase(dev, flash) -> dict:
+    """[train lm]: qwen3-14b at full width on TRAIN_LM_LAYERS layers, f32
+    masters from SEED computed in bf16 with remat, TRAIN_LM_STEPS steps of
+    the Trainer's step at the config's opt_cfg over TRAIN_LM_BATCH x
+    TRAIN_LM_SEQ tokens of the LM stream; then the trained weights in bf16
+    served: one prefill, flashattn on wgmma once a layer; then the card
+    against the CPU on a narrow 2-layer qwen3 in f32."""
+    import functools
+
+    import torch
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import (
+        init_transformer, loss_fn, prefill, transformer_from_tree, transformer_tree)
+    from repro_torch.optim import init_adamw, make_train_step
+    from repro_torch.optim.adamw import _leaves
+    card = card_line()
+    cfg = dataclasses.replace(qwen3_14b.ARCH.model_cfg, n_layers=TRAIN_LM_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = transformer_tree(init_transformer(cfg, seed=SEED, device=dev, f32_masters=True), cfg)
+    opt_state = init_adamw(tree, qwen3_14b.ARCH.opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(tree))
+    state_gb = 4 * n_params * 4 / 1e9
+    log(f"[train lm] qwen3-14b at full width (d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"over {cfg.n_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab:,} untied), depth cut from "
+        f"{qwen3_14b.ARCH.model_cfg.n_layers} to {cfg.n_layers}: {n_params:,} f32 masters "
+        f"from seed {SEED}, built with the AdamW moments in {time.perf_counter() - t0:.1f} s; "
+        f"state (masters, gradients, m, v) {state_gb:.2f} GB; card {card}")
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=TRAIN_LM_SEQ, batch=TRAIN_LM_BATCH, seed=SEED)
+    batches = [lm_batch(data, s) for s in range(TRAIN_LM_STEPS)]
+    step = make_train_step(functools.partial(loss_fn, cfg=cfg), qwen3_14b.ARCH.opt_cfg)
+    flash.launches = 0
+    tree, opt_state, secs, upd_ms, metrics = timed_steps(step, tree, opt_state, batches, dev)
+    train_launches = flash.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _check_finite(metrics, "[train lm]")
+    if train_launches != 0:
+        raise AssertionError(f"[train lm]: flashattn launched {train_launches} times in training")
+    if not all(t.dtype == torch.float32 for t in _leaves(tree)):
+        raise AssertionError("[train lm]: a master left f32")
+    toks = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+    steady = secs[1:]
+    log(f"[train lm] {TRAIN_LM_STEPS} steps of {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens "
+        f"(bf16 compute, remat, sdpa core, CE chunk {cfg.loss_chunk}): step 1 "
+        f"{secs[0] * 1e3:.1f} ms, steps 2-{TRAIN_LM_STEPS} median "
+        f"{np.median(steady) * 1e3:.1f} ms (forward+backward "
+        f"{(np.median(steady) * 1e3 - np.median(upd_ms[1:])):.1f} ms, update "
+        f"{np.median(upd_ms[1:]):.1f} ms), {toks / np.median(steady):.1f} tokens/s; "
+        f"losses {[round(m['loss'], 4) for m in metrics]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}, lr {metrics[-1]['lr']:.3g}; "
+        f"peak device memory {peak:.2f} GB (state {state_gb:.2f} GB); flashattn launches "
+        f"{train_launches}; masters f32; card {card}")
+    log(json.dumps({"[train lm]": {
+        "step_ms": float(np.median(steady)) * 1e3,
+        "update_ms": float(np.median(upd_ms[1:])),
+        "tokens_per_s": toks / float(np.median(steady)),
+        "peak_gb": peak, "state_gb": state_gb, "card": card}}))
+    del opt_state
+    torch.cuda.empty_cache()
+    model = transformer_from_tree(tree, cfg)           # the trained weights, in bf16
+    del tree
+    torch.cuda.empty_cache()
+    reset_counts({"flashattn": flash})
+    prompt = torch.as_tensor(batches[0]["tokens"][:1], device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, _ = prefill(model, prompt, cfg, max_len=TRAIN_LM_SEQ)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    launches, routes = flash.launches, dict(flash.routes)
+    if launches != cfg.n_layers or routes["wgmma"] != cfg.n_layers:
+        raise AssertionError(f"[train lm] served prefill: flashattn {launches} launches, "
+                             f"routes {routes}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("[train lm] served prefill: logits not finite")
+    log(f"[train lm] the trained weights in bf16 served: one prefill of 1 x {TRAIN_LM_SEQ} "
+        f"in {t_prefill * 1e3:.1f} ms, flashattn {launches} launches, routes {routes}, "
+        f"logits finite")
+    del model, logits
+    torch.cuda.empty_cache()
+    narrow = dataclasses.replace(qwen3_14b.reduced(), n_layers=2, remat=True)
+    batch = lm_batch(LMDataConfig(vocab=narrow.vocab, seq_len=128, batch=2, seed=SEED), 0)
+    err = train_card_vs_cpu("lm", narrow, dataclasses.replace(
+        qwen3_14b.ARCH.opt_cfg, warmup_steps=1), batch, dev, TRAIN_REL, "[train lm]")
+    log(f"[train lm] card against CPU: one f32 step of a 2-layer qwen3 (d_model "
+        f"{narrow.d_model}, 2 x 128 tokens), every leaf within {err:.3g} relative L2 "
+        f"(limit {TRAIN_REL})")
+    return {"train_launches": train_launches, "train_prefill_launches": launches}
+
+
+def train_recsys_phase(dev) -> None:
+    """[train recsys]: TRAIN_RECSYS_STEPS steps of the Trainer's step on
+    TRAIN_RECSYS_ROWS rows of the recsys stream for each of TRAIN_RECSYS
+    (wide-deep and autoint at full width and vocabulary; dlrm-rm2 and
+    two-tower with the vocabulary cut), rows/s, ms a step and peak memory;
+    the three CTR kinds' forward served at full vocabulary on serve_p99 and
+    serve_bulk rows; each reduced config one step on the card against the
+    CPU."""
+    import functools
+    import importlib
+
+    import torch
+    from repro_torch.data import RecsysDataConfig, recsys_batch
+    from repro_torch.models import init_recsys, recsys_forward, recsys_loss, recsys_tree
+    from repro_torch.optim import init_adamw, make_train_step
+    from repro_torch.optim.adamw import _leaves
+    card = card_line()
+
+    def data(cfg, rows, step):
+        return recsys_batch(RecsysDataConfig(
+            n_dense=cfg.n_dense, n_sparse=cfg.n_sparse, vocab=cfg.vocab, batch=rows,
+            seed=SEED, two_tower=cfg.kind == "two_tower", n_sparse_item=cfg.n_sparse_item),
+            step)
+
+    for mod_name, vocab in TRAIN_RECSYS:
+        mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+        cfg = mod.ARCH.model_cfg
+        cut = "" if vocab is None else f", vocabulary cut from {cfg.vocab:,} to {vocab:,} a field"
+        if vocab is not None:
+            cfg = dataclasses.replace(cfg, vocab=vocab)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = recsys_tree(init_recsys(cfg, seed=SEED, device=dev))
+        state = init_adamw(tree, mod.ARCH.opt_cfg)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(tree))
+        batches = [data(cfg, TRAIN_RECSYS_ROWS, s) for s in range(TRAIN_RECSYS_STEPS)]
+        step = make_train_step(functools.partial(recsys_loss, cfg=cfg), mod.ARCH.opt_cfg)
+        tree, state, secs, upd_ms, metrics = timed_steps(step, tree, state, batches, dev)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        _check_finite(metrics, f"[train recsys] {mod.ARCH.arch_id}")
+        steady = float(np.median(secs[1:]))
+        log(f"[train recsys] {mod.ARCH.arch_id} ({cfg.kind}{cut}): {n_params:,} f32 "
+            f"parameters ({4 * n_params / 1e9:.2f} GB, {16 * n_params / 1e9:.2f} GB with "
+            f"gradients and moments), built in {t_init:.1f} s; {TRAIN_RECSYS_STEPS} steps of "
+            f"{TRAIN_RECSYS_ROWS:,} rows: step 1 {secs[0] * 1e3:.1f} ms, then median "
+            f"{steady * 1e3:.1f} ms (update {np.median(upd_ms[1:]):.1f} ms), "
+            f"{TRAIN_RECSYS_ROWS / steady:,.0f} rows/s; losses "
+            f"{[round(m['loss'], 4) for m in metrics]}; peak {peak:.2f} GB; card {card}")
+        del tree, state
+        torch.cuda.empty_cache()
+    for mod_name in SERVE_RECSYS:
+        mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+        cfg = mod.ARCH.model_cfg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            tree = recsys_tree(init_recsys(cfg, seed=SEED, device=dev))
+            parts = []
+            for shape in ("serve_p99", "serve_bulk"):
+                rows = mod.ARCH.shapes[shape].global_batch
+                b = {k: torch.as_tensor(v, device=dev) for k, v in data(cfg, rows, 0).items()
+                     if k != "label"}
+                recsys_forward(tree, b, cfg)          # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    logit = recsys_forward(tree, b, cfg)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / 5 * 1e3
+                if tuple(logit.shape) != (rows,) or not torch.isfinite(logit).all():
+                    raise AssertionError(f"[train recsys] {mod.ARCH.arch_id} {shape}: "
+                                         f"logits {tuple(logit.shape)} not finite")
+                parts.append(f"{shape} ({rows:,} rows) {ms:.3f} ms, {rows / ms * 1e3:,.0f} rows/s")
+        log(f"[train recsys] {mod.ARCH.arch_id} served at full vocabulary "
+            f"({cfg.vocab:,} a field, {sum(t.numel() for t in _leaves(tree)) * 4 / 1e9:.2f} GB): "
+            + "; ".join(parts) + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del tree
+        torch.cuda.empty_cache()
+    for mod_name, _ in TRAIN_RECSYS:
+        mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+        cfg = mod.reduced()
+        err = train_card_vs_cpu("recsys", cfg, dataclasses.replace(
+            mod.ARCH.opt_cfg, warmup_steps=1), data(cfg, 1024, 0), dev, TRAIN_REL,
+            f"[train recsys] {mod.ARCH.arch_id}")
+        log(f"[train recsys] card against CPU: one f32 step of reduced {mod.ARCH.arch_id} "
+            f"on 1,024 rows, every leaf within {err:.3g} relative L2 (limit {TRAIN_REL})")
+
+
+def train_gcn_phase(dev) -> None:
+    """[train gcn]: gcn-cora's published geometry on make_sbm_graph(2708, 7,
+    1433, avg_degree=4), GCN_CORA_STEPS steps of its opt_cfg (training
+    accuracy); the ogb_products scale (GCN_PRODUCTS), GCN_PRODUCTS_STEPS
+    steps (ms a step, peak memory); the card against the CPU at Cora size."""
+    import functools
+
+    import torch
+    from repro_torch.configs import gcn_cora
+    from repro_torch.data import make_sbm_graph
+    from repro_torch.models import gcn_loss, init_gcn
+    from repro_torch.optim import init_adamw, make_train_step
+    card = card_line()
+    cfg, opt = gcn_cora.ARCH.model_cfg, gcn_cora.ARCH.opt_cfg
+    g = make_sbm_graph(2708, cfg.n_classes, cfg.d_feat, avg_degree=4, seed=SEED)
+    batch = {"feats": g.feats, "edge_src": g.edge_src, "edge_dst": g.edge_dst,
+             "labels": g.labels}
+    params = init_gcn(cfg, seed=SEED, device=dev)
+    step = make_train_step(functools.partial(gcn_loss, cfg=cfg), opt)
+    params, state, secs, _, metrics = timed_steps(step, params, init_adamw(params, opt),
+                                                  [batch] * GCN_CORA_STEPS, dev)
+    _check_finite(metrics, "[train gcn] cora")
+    log(f"[train gcn] gcn-cora (2 layers, hidden {cfg.d_hidden}, {cfg.d_feat} features, "
+        f"{cfg.n_classes} classes) on an SBM graph of 2,708 nodes and {g.n_edges:,} edges: "
+        f"{GCN_CORA_STEPS} steps, median {np.median(secs[1:]) * 1e3:.2f} ms a step; loss "
+        f"{metrics[0]['loss']:.4f} -> {metrics[-1]['loss']:.4f}, training accuracy "
+        f"{metrics[0]['acc']:.4f} -> {metrics[-1]['acc']:.4f}; card {card}")
+    del params, state
+    err = train_card_vs_cpu("gnn", cfg, opt, batch, dev, TRAIN_GCN_REL, "[train gcn]")
+    log(f"[train gcn] card against CPU: one f32 step at Cora size, every leaf within "
+        f"{err:.3g} relative L2 (limit {TRAIN_GCN_REL})")
+    p = GCN_PRODUCTS
+    big = dataclasses.replace(cfg, d_feat=p["d_feat"], n_classes=p["n_classes"])
+    t0 = time.perf_counter()
+    g = make_sbm_graph(p["n_nodes"], p["n_classes"], p["d_feat"], avg_degree=p["avg_degree"],
+                       seed=SEED)
+    t_graph = time.perf_counter() - t0
+    batch = {k: torch.as_tensor(getattr(g, k), device=dev)
+             for k in ("feats", "edge_src", "edge_dst", "labels")}
+    del g
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_gcn(big, seed=SEED, device=dev)
+    step = make_train_step(functools.partial(gcn_loss, cfg=big), opt)
+    params, state, secs, _, metrics = timed_steps(step, params, init_adamw(params, opt),
+                                                  [batch] * GCN_PRODUCTS_STEPS, dev)
+    _check_finite(metrics, "[train gcn] products")
+    n_edges = batch["edge_src"].numel()
+    log(f"[train gcn] ogb_products scale: {p['n_nodes']:,} nodes, {n_edges:,} edges "
+        f"(avg_degree {p['avg_degree']}; the shape has 61,859,140), {p['d_feat']} features, "
+        f"{p['n_classes']} classes (graph made on the host in {t_graph:.1f} s): "
+        f"{GCN_PRODUCTS_STEPS} steps, step 1 {secs[0] * 1e3:.1f} ms, then median "
+        f"{np.median(secs[1:]) * 1e3:.1f} ms, {n_edges / np.median(secs[1:]):,.0f} edges/s; "
+        f"loss {metrics[0]['loss']:.4f} -> {metrics[-1]['loss']:.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (layer 2's messages alone "
+        f"{n_edges * p['n_classes'] * 4 / 1e9:.2f} GB); card {card}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+
+def train_cli_phase() -> None:
+    """[train cli]: ``python -m repro_torch.launch.train --arch <id> --smoke
+    --steps 20`` for each of TRAIN_CLI_ARCHS, then ``--resume --steps 30``
+    on the same checkpoint directory (under build/): each exits 0, and the
+    second prints ``resumed from step 20``. The three archs run at once
+    (their models are small; most of a run's wall is starting up), each
+    arch's two runs in turn."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="train_cli_", dir=os.path.join(ROOT, "build"))
+    card = card_line()
+
+    def runs(arch: str) -> str:
+        lines = []
+        for extra in TRAIN_CLI_RUNS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+                   "--smoke", "--ckpt-dir", os.path.join(ckpt_root, arch), *extra]
+            t0 = time.perf_counter()
+            p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                               timeout=TRAIN_CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if p.returncode != 0:
+                raise AssertionError(f"[train cli] {arch} {' '.join(extra)} exited "
+                                     f"{p.returncode}:\n{(p.stdout + p.stderr)[-3000:]}")
+            if "--resume" in extra and "[train] resumed from step 20" not in p.stdout:
+                raise AssertionError(f"[train cli] {arch}: did not resume:\n{p.stdout[-3000:]}")
+            last = [ln for ln in p.stdout.splitlines() if ln.startswith("[trainer] step")]
+            lines.append(f"{' '.join(extra)}: exit 0 in {wall:.1f} s, "
+                         f"{last[-1] if last else 'no step line'}")
+        return f"[train cli] {arch} --smoke: " + " | ".join(lines) + f"; card {card}"
+
+    try:
+        with ThreadPoolExecutor(len(TRAIN_CLI_ARCHS)) as pool:
+            for line in pool.map(runs, TRAIN_CLI_ARCHS):
+                log(line)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
@@ -4137,6 +4562,24 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_phase()
     log(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
+    del points, queries, graph, sample
+    torch.cuda.empty_cache()
+
+    # -- 20-23. training: the LM, the recsys family, the GCN, the CLI ------------
+    t_train = time.perf_counter()
+    t0 = time.perf_counter()
+    lm_entry.update(train_lm_phase(dev, flash_attention_cuda))
+    log(f"[train lm] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_recsys_phase(dev)
+    log(f"[train recsys] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_gcn_phase(dev)
+    log(f"[train gcn] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_cli_phase()
+    log(f"[train cli] phase took {time.perf_counter() - t0:.1f} s")
+    log(f"[train] the four training phases took {time.perf_counter() - t_train:.1f} s")
 
     for name in ("expand", "gatherdist"):
         entries[name]["launches"] = launches["greedy"][name]
@@ -4179,7 +4622,7 @@ def main() -> int:
              "live_sharded_launches", "lm_moe_launches", "moe_ms", "moe_plain_ms",
              "moe_bound_ms", "moe_bound_by", "moe_library_ms", "moe_decode_ms",
              "moe_decode_plain_ms", "moe_decode_bound_ms", "moe_decode_bound_by",
-             "moe_decode_library_ms")
+             "moe_decode_library_ms", "train_launches", "train_prefill_launches")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

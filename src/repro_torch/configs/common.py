@@ -2,13 +2,15 @@
 
 Every configuration module exports ``ARCH`` (the exact published config)
 and ``reduced()`` (a CPU-test version of the same family). ``rules`` are
-the parameters' sharding rules (``dist.sharding.Rule``s; the reference
-requires them, the port's configs that do not shard leave them empty) and
-``opt_cfg`` the optimizer settings."""
+the parameters' sharding rules (``dist.sharding.Rule``s, the reference's
+tables), ``param_dtype`` and ``accum_steps`` the reference's training
+knobs and ``opt_cfg`` the optimizer settings."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional
+
+import torch
 
 from ..optim.adamw import AdamWConfig
 
@@ -39,6 +41,8 @@ class ArchSpec:
     model_cfg: Any
     shapes: dict[str, ShapeSpec]
     rules: Any = ()                    # sharding Rule list
+    param_dtype: Any = torch.float32   # storage dtype (bf16 for the 236B)
+    accum_steps: int = 1               # grad-accumulation microbatches of train cells
     opt_cfg: AdamWConfig = AdamWConfig()
     source: str = ""
     technique_note: str = ""           # paper-technique applicability
@@ -66,4 +70,18 @@ def recsys_shapes() -> dict[str, ShapeSpec]:
         "serve_bulk": ShapeSpec("serve_bulk", "serve", global_batch=262_144),
         "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
                                     global_batch=1, n_candidates=1_000_000),
+    }
+
+
+def gnn_shapes() -> dict[str, ShapeSpec]:
+    return {
+        "full_graph_sm": ShapeSpec("full_graph_sm", "graph_full",
+                                   n_nodes=2_708, n_edges=10_556, d_feat=1_433),
+        "minibatch_lg": ShapeSpec("minibatch_lg", "graph_sampled",
+                                  n_nodes=232_965, n_edges=114_615_892,
+                                  batch_nodes=1_024, fanout=(15, 10), d_feat=602),
+        "ogb_products": ShapeSpec("ogb_products", "graph_full",
+                                  n_nodes=2_449_029, n_edges=61_859_140, d_feat=100),
+        "molecule": ShapeSpec("molecule", "graph_batched", n_graphs=128,
+                              nodes_per_graph=30, edges_per_graph=64),
     }

@@ -11,7 +11,9 @@ layer and the untied embedding and unembedding), through
 """
 import torch
 
+from ..dist.sharding import LM_RULES
 from ..models.transformer import TransformerConfig
+from ..optim.adamw import AdamWConfig
 from .common import ArchSpec, lm_shapes
 
 
@@ -22,7 +24,7 @@ def reduced() -> TransformerConfig:
         qk_rope_dim=8, v_head_dim=16, d_ff=128, n_experts=8, n_shared=2,
         top_k=2, d_expert=32, first_dense=1, vocab=512,
         capacity_factor=8.0,  # drop-free at smoke scale (decode parity)
-        dtype=torch.float32)
+        dtype=torch.float32, remat=False, loss_chunk=32)
 
 
 ARCH = ArchSpec(
@@ -36,6 +38,11 @@ ARCH = ArchSpec(
         capacity_factor=1.25, vocab=102_400, rope_theta=10_000.0,
         tie_embeddings=False, dtype=torch.bfloat16, attn_chunk=1024),
     shapes=lm_shapes(),
+    rules=LM_RULES,
+    param_dtype=torch.bfloat16,
+    accum_steps=4,
+    opt_cfg=AdamWConfig(lr=2.4e-4, total_steps=100_000, warmup_steps=2_000,
+                        moment_dtype=torch.bfloat16, accum_dtype=torch.bfloat16),
     source="arXiv:2405.04434 (DeepSeek-V2); hf tier",
     technique_note=(
         "MoE LM: expert top-k routing is a selection over 160 experts — "

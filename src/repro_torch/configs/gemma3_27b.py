@@ -9,7 +9,9 @@ ships no weights).
 """
 import torch
 
+from ..dist.sharding import LM_RULES
 from ..models.transformer import TransformerConfig
+from ..optim.adamw import AdamWConfig
 from .common import ArchSpec, lm_shapes
 
 
@@ -18,7 +20,7 @@ def reduced() -> TransformerConfig:
         name="gemma3-smoke", n_layers=6, d_model=64, n_heads=4, n_kv=2,
         d_head=16, d_ff=128, vocab=512, window=16, local_ratio=5,
         rope_theta=1_000_000.0, rope_theta_local=10_000.0, qk_norm=True,
-        sandwich_norm=True, embed_scale=True, dtype=torch.float32)
+        sandwich_norm=True, embed_scale=True, dtype=torch.float32, remat=False, loss_chunk=32)
 
 
 ARCH = ArchSpec(
@@ -31,6 +33,8 @@ ARCH = ArchSpec(
         sandwich_norm=True, embed_scale=True, tie_embeddings=True,
         dtype=torch.bfloat16, attn_chunk=1024),
     shapes=lm_shapes(),
+    rules=LM_RULES,
+    opt_cfg=AdamWConfig(lr=3e-4, total_steps=100_000, warmup_steps=2_000),
     source="hf:google/gemma-3 family (27b geometry); unverified tier",
     technique_note=(
         "LM: range engine applies as downstream embedding consumer only "

@@ -9,7 +9,9 @@ from a seed.
 """
 import torch
 
+from ..dist.sharding import LM_RULES
 from ..models.transformer import TransformerConfig
+from ..optim.adamw import AdamWConfig
 from .common import ArchSpec, lm_shapes
 
 
@@ -18,7 +20,7 @@ def reduced() -> TransformerConfig:
         name="qwen2moe-smoke", n_layers=3, d_model=48, n_heads=4, n_kv=4,
         d_head=12, d_ff=96, n_experts=10, n_shared=4, top_k=4, d_expert=24,
         vocab=512, capacity_factor=8.0,  # drop-free at smoke scale
-        dtype=torch.float32, aux_loss_weight=0.001)
+        dtype=torch.float32, remat=False, loss_chunk=32, aux_loss_weight=0.001)
 
 
 ARCH = ArchSpec(
@@ -32,6 +34,8 @@ ARCH = ArchSpec(
         rope_theta=1_000_000.0, tie_embeddings=False, dtype=torch.bfloat16,
         attn_chunk=1024),
     shapes=lm_shapes(),
+    rules=LM_RULES,
+    opt_cfg=AdamWConfig(lr=3e-4, total_steps=100_000, warmup_steps=2_000),
     source="hf:Qwen/Qwen1.5-MoE-A2.7B; hf tier",
     technique_note="MoE LM: technique inapplicable inside the model "
                    "(DESIGN.md §6).",

@@ -3,7 +3,9 @@ vocab=151936; qk_norm, GQA. [hf:Qwen/Qwen3-8B; hf]
 """
 import torch
 
+from ..dist.sharding import LM_RULES
 from ..models.transformer import TransformerConfig
+from ..optim.adamw import AdamWConfig
 from .common import ArchSpec, lm_shapes
 
 
@@ -11,7 +13,7 @@ def reduced() -> TransformerConfig:
     return TransformerConfig(
         name="qwen3-smoke", n_layers=4, d_model=64, n_heads=8, n_kv=2,
         d_head=16, d_ff=160, vocab=512, qk_norm=True, tie_embeddings=False,
-        dtype=torch.float32)
+        dtype=torch.float32, remat=False, loss_chunk=32)
 
 
 ARCH = ArchSpec(
@@ -23,6 +25,8 @@ ARCH = ArchSpec(
         qk_norm=True, tie_embeddings=False, dtype=torch.bfloat16,
         attn_chunk=1024),
     shapes=lm_shapes(),
+    rules=LM_RULES,
+    opt_cfg=AdamWConfig(lr=3e-4, total_steps=100_000, warmup_steps=2_000),
     source="hf:Qwen/Qwen3 family (14b geometry); hf tier",
     technique_note=(
         "LM: technique inapplicable inside the model (full attention, "

@@ -5,7 +5,9 @@ The paper's home-turf architecture: the item tower's embeddings are the
 corpus the range engine indexes; ``retrieval_cand`` is served both by brute
 force (the rangescan kernel) and through the graph-based range engine.
 """
+from ..dist.sharding import RECSYS_RULES
 from ..models.recsys import RecsysConfig
+from ..optim.adamw import AdamWConfig
 from .common import ArchSpec, recsys_shapes
 
 
@@ -23,6 +25,8 @@ ARCH = ArchSpec(
         n_sparse_item=16, vocab=10_485_760, d_embed=64,
         mlp_dims=(1024, 512), d_out=256),
     shapes=recsys_shapes(),
+    rules=RECSYS_RULES,
+    opt_cfg=AdamWConfig(lr=1e-3, total_steps=50_000, warmup_steps=1_000),
     source="Yi et al., RecSys'19 (YouTube two-tower); unverified tier",
     technique_note=(
         "DIRECT integration: item-tower output embeddings feed "

@@ -8,8 +8,10 @@ can be run on the same graph. An int8 reference corpus comes across as its
 the identical quantized corpus. ``sharded_from_arrays`` does the same for a
 reference ``ShardedCorpus`` (its stacked per-shard arrays), keeping only a
 rank's own shards when given a mesh. ``recsys_params_from_jax`` carries a JAX
-two-tower parameter tree across, ``transformer_params_from_jax`` a JAX LM's,
-``effort_params_from_jax`` the effort regressor's.
+recsys parameter tree across (every kind), ``transformer_params_from_jax`` a
+JAX LM's (as served, or as f32 masters for training),
+``gcn_params_from_jax`` a GCN's, ``effort_params_from_jax`` the effort
+regressor's.
 """
 from __future__ import annotations
 
@@ -20,11 +22,9 @@ from .core.corpus import QuantizedCorpus
 from .core.engine import RangeSearchEngine
 from .core.graph import Graph
 from .core.labels import as_label_rows
-from .layers.attention import GQA, MLA
-from .layers.mlp import MLP, DenseStack
-from .layers.moe import MoE
+from .layers.mlp import DenseStack
 from .models.recsys import RecsysConfig, Tower, TwoTower
-from .models.transformer import Block, Transformer, TransformerConfig
+from .models.transformer import Transformer, TransformerConfig, transformer_from_tree
 from .utils import resolve_device
 
 
@@ -81,84 +81,58 @@ def sharded_from_arrays(points, neighbors, start_ids, offsets, n_total: int, *,
         first_shard=held.start, total_shards=n_shards)
 
 
-def recsys_params_from_jax(params: dict, cfg: RecsysConfig,
-                           device="cuda") -> TwoTower:
-    """The reference's ``init_recsys`` tree for a two-tower model, given as
-    numpy arrays ({"user"|"item": {"tables": (F, V, d), "mlp": {"w{i}":
-    (in, out), "b{i}": (out,)}}}), as the port's ``TwoTower``. The port
-    keeps the (in, out) weight layout, so nothing is transposed."""
-    if cfg.kind != "two_tower":
-        raise NotImplementedError(f"recsys kind {cfg.kind!r}")
-    dev = resolve_device(device)
+def _tensors(node, dev):
+    """A tree of numpy arrays as a tree of f32 tensors on ``dev``."""
+    if isinstance(node, dict):
+        return {k: _tensors(v, dev) for k, v in node.items()}
+    return torch.as_tensor(np.array(node, np.float32), device=dev).contiguous()
 
-    def tensor(x):
-        return torch.as_tensor(np.array(x, np.float32), device=dev).contiguous()
+
+def recsys_params_from_jax(params: dict, cfg: RecsysConfig, device="cuda"):
+    """The reference's ``init_recsys`` tree, given as numpy arrays, as the
+    port's model of ``cfg.kind``: two-tower ({"user"|"item": {"tables":
+    (F, V, d), "mlp": {"w{i}": (in, out), "b{i}": (out,)}}}) as a
+    ``TwoTower``; Wide&Deep, DLRM and AutoInt as the same tree of tensors.
+    The port keeps the (in, out) weight layout, so nothing is transposed;
+    ``models.recsys.recsys_tree`` of the result is the same tree."""
+    dev = resolve_device(device)
+    tree = _tensors(params, dev)
+    if cfg.kind != "two_tower":
+        return tree
 
     def tower(p):
         mlp = p["mlp"]
         n = len(mlp) // 2
-        stack = DenseStack([tensor(mlp[f"w{i}"]) for i in range(n)],
-                           [tensor(mlp[f"b{i}"]) for i in range(n)])
-        return Tower(tensor(p["tables"]), stack, cfg.dtype)
+        stack = DenseStack([mlp[f"w{i}"] for i in range(n)], [mlp[f"b{i}"] for i in range(n)])
+        return Tower(p["tables"], stack, cfg.dtype)
 
-    return TwoTower(tower(params["user"]), tower(params["item"]))
+    return TwoTower(tower(tree["user"]), tower(tree["item"]))
 
 
-_NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
-_F32_LEAVES = ("q_norm", "k_norm", "kv_norm", "router")   # kept f32, as norm scales
+def gcn_params_from_jax(params: dict, device="cuda") -> dict:
+    """The reference's ``init_gcn`` tree ({"w{i}": (in, out), "b{i}":
+    (out,)}, numpy) as the port's: the same dict of f32 tensors."""
+    return _tensors(params, resolve_device(device))
 
 
 def transformer_params_from_jax(params: dict, cfg: TransformerConfig,
-                                device="cuda") -> Transformer:
+                                device="cuda", *, f32_masters: bool = False) -> Transformer:
     """The reference's ``init_transformer`` tree, given as numpy arrays, as
     the port's ``Transformer``: ``embed`` (V, d), ``final_norm`` (d,), the
     leading dense layers ``dense_layer{i}`` (unstacked), ``layers`` (the
     rest, stacked on axis 0: ``attn`` GQA or MLA leaves, the norms, ``mlp``
     or ``moe`` with its ``shared`` experts), ``unembed`` when untied.
-    Layouts are kept, so nothing is transposed: the stacked layers are
-    unstacked after the dense ones, weights cast to ``cfg.dtype`` (as the
-    reference casts them at each use), norm scales and routers kept in f32."""
-    dev = resolve_device(device)
-
-    def tensor(x, dtype=torch.float32):
-        return torch.as_tensor(np.array(x, np.float32), device=dev).to(dtype).contiguous()
-
-    def leaf(name, x):
-        return tensor(x) if name in _F32_LEAVES else tensor(x, cfg.dtype)
-
-    def mlp(m):
-        return MLP(leaf("w_up", m["w_up"]), leaf("w_down", m["w_down"]),
-                   leaf("w_gate", m["w_gate"]) if "w_gate" in m else None)
-
-    def block(lp):
-        a = {n: leaf(n, x) for n, x in lp["attn"].items()}
-        if cfg.attn_kind == "mla":
-            attn = MLA(**a)
-        else:
-            attn = GQA(a["wq"], a["wk"], a["wv"], a["wo"], a.get("q_norm"), a.get("k_norm"))
-        if "moe" in lp:
-            m = lp["moe"]
-            ffn = MoE(*(leaf(n, m[n]) for n in ("router", "w_gate", "w_up", "w_down")),
-                      mlp(m["shared"]) if "shared" in m else None)
-        else:
-            ffn = mlp(lp["mlp"])
-        return Block(attn, ffn, {n: tensor(lp[n]) for n in _NORMS if n in lp})
-
-    def unstack(tree, i):
-        return {k: unstack(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
-
-    layers = [block(params[f"dense_layer{i}"]) for i in range(cfg.first_dense)]
-    layers += [block(unstack(params["layers"], i))
-               for i in range(cfg.n_layers - cfg.first_dense)]
-    unembed_table = None if cfg.tie_embeddings else leaf("unembed", params["unembed"])
-    return Transformer(leaf("embed", params["embed"]), tensor(params["final_norm"]),
-                       layers, unembed_table)
+    Layouts are kept, so nothing is transposed (``transformer_from_tree``):
+    weights cast to ``cfg.dtype``, norm scales and routers kept in f32; with
+    ``f32_masters`` every weight stays f32, the reference's own storage, so
+    both packages train from the same masters (``transformer_tree`` gives
+    the reference's tree back)."""
+    return transformer_from_tree(_tensors(params, resolve_device(device)), cfg,
+                                 f32_masters=f32_masters)
 
 
 def effort_params_from_jax(params: dict, device="cuda") -> dict:
     """The reference's ``init_effort`` / fitted ``EffortPredictor.params``
     ({"w{i}": (in, out), "b{i}": (out,)}, numpy) as the port's effort
     tensors: the same (in, out) layout, so nothing is transposed."""
-    dev = resolve_device(device)
-    return {k: torch.as_tensor(np.array(v, np.float32), device=dev).contiguous()
-            for k, v in params.items()}
+    return _tensors(params, resolve_device(device))

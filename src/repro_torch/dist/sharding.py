@@ -40,7 +40,10 @@ port is SPMD over ``torch.distributed``, one rank per device:
 ``shape``, so the shape logic needs no process group.
 
 ``activation_sharding`` and ``shard_activation`` (the reference's
-activation layout pins) serve training and MoE: ROADMAP.md §1, item 6.
+activation layout pins) serve the mesh trainer (``Trainer(mesh=,
+param_rules=)``), which is not ported: ROADMAP.md §1, item 10. Outside a
+mesh scope the reference's pins are identities, and the port's
+single-device models leave them out.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ AxisSym = Union[str, tuple, None]
 
 MODEL_AXIS = "model"
 
-_ACTIVATIONS = "ROADMAP.md §1, item 6: LM family and training"
+MESH_TRAINER = "ROADMAP.md §1 item 10 (the mesh trainer)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,11 +273,11 @@ def bind_shardings(mesh, specs: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 def activation_sharding(mesh):
-    raise NotImplementedError(f"activation_sharding is not ported yet ({_ACTIVATIONS})")
+    raise NotImplementedError(f"activation_sharding is not ported yet: {MESH_TRAINER}")
 
 
 def shard_activation(x, *axes: AxisSym):
-    raise NotImplementedError(f"shard_activation is not ported yet ({_ACTIVATIONS})")
+    raise NotImplementedError(f"shard_activation is not ported yet: {MESH_TRAINER}")
 
 
 # ---------------------------------------------------------------------------

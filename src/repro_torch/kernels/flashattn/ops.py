@@ -19,6 +19,14 @@ TPU concerns (the Pallas route, its CPU emulation, its VMEM blocks) and have
 no counterpart here: the kernel picks its own tiles, masks ragged Sq and Skv
 itself and reads its inputs through their strides, so nothing is padded or
 copied.
+
+The kernel computes the forward only, as the reference's does: a launch
+through ctypes records no autograd node, so under grad mode it would hand
+back an output with no path to q, k and v, and the gradients of the
+projections that made them would silently be lost. ``flash_attention``
+and ``flash_attention_cuda`` therefore raise when grad mode is on and an
+input requires grad; training runs the attention core through
+``layers.attention.sdpa`` (``GQAConfig(sdpa=True)``).
 """
 from __future__ import annotations
 
@@ -43,11 +51,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, Hq, Sq, dh), k/v (B, Hkv, Skv, dh) -> (B, Hq, Sq, dh) in q's
     dtype. ``q_offset`` is the absolute position of query row 0, a Python
     int (at decode, the cache position)."""
+    _forward_only(q, k, v)
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, **kw)
     return flash_attention_cuda(q, k, v, **kw)
+
+
+def _forward_only(q, k, v) -> None:
+    """Raise where a caller would need a gradient the kernel cannot give."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (nor has the reference's kernel): "
+            "it was called under grad mode on inputs that require grad, whose "
+            "gradients it would drop. Train through layers.attention.sdpa "
+            "(GQAConfig(sdpa=True), as loss_fn does), or call it under "
+            "torch.no_grad() / torch.inference_mode().")
 
 
 def visible_key_range(sq: int, skv: int, *, causal: bool, window: int,
@@ -121,6 +142,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     of each route."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
+    _forward_only(q, k, v)
     if q.dtype not in ROW_DTYPES:
         raise ValueError(f"q has dtype {q.dtype}, expected one of {tuple(ROW_DTYPES)}")
     for name, t in (("q", q), ("k", k), ("v", v)):

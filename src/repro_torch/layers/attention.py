@@ -1,12 +1,16 @@
 """Attention layers: GQA (with qk-norm, sliding window and soft cap) and
 MLA (deepseek-v2).
 
-The layer's attention core is the flash-attention kernel
-(``kernels.flashattn``): ``flash_attention`` on the card (its plain version
-on the CPU), or ``flash_attention_ref`` on any device when the config's
-``use_kernels`` is off. The reference runs ``sdpa`` here, its XLA
-formulation of the same function; the port keeps ``sdpa`` (both branches)
-to hold its plain attention to the reference's, not on the layer's path.
+The layer's attention core is chosen by its config, never by a failure:
+- serving: the flash-attention kernel (``kernels.flashattn``):
+  ``flash_attention`` on the card (its plain version on the CPU), or
+  ``flash_attention_ref`` on any device when ``use_kernels`` is off;
+- training (``GQAConfig.sdpa``, which ``models.transformer.loss_fn`` sets):
+  ``sdpa``, the reference's XLA formulation of the same function, through
+  which the reference trains (unchunked: the reference chunks KV only on a
+  cache). The kernel has no backward
+  (nor has the reference's), and ``flash_attention`` refuses inputs that
+  require grad.
 
 Caches are updated in place: ``gqa_attention`` writes the new k and v into
 the given ``KVCache`` at ``q_offset`` and returns the same object (the
@@ -126,6 +130,7 @@ class GQAConfig:
     softcap: float = 0.0
     causal: bool = True
     use_kernels: bool = True   # the flash-attention kernel, or its plain version
+    sdpa: bool = False         # the reference's sdpa instead (training)
 
 
 class GQA(nn.Module):
@@ -190,11 +195,15 @@ def gqa_attention(params: GQA, x: torch.Tensor, cfg: GQAConfig, *,
         t = cache.k.shape[1] if kv_valid_len is None else kv_valid_len
         k, v = cache.k[:, :t].to(dt), cache.v[:, :t].to(dt)
 
-    core = flash_attention if cfg.use_kernels else flash_attention_ref
-    out = core(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-               causal=cfg.causal, window=window, softcap=cfg.softcap,
-               q_offset=q_offset, scale=cfg.d_head ** -0.5)
-    y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params.wo.to(dt))
+    if cfg.sdpa:   # unchunked, as the reference's training path (no cache)
+        out = sdpa(q, k, v, causal=cfg.causal, window=window, softcap=cfg.softcap,
+                   scale=cfg.d_head ** -0.5, q_positions=positions.expand(x.shape[0], s))
+    else:
+        core = flash_attention if cfg.use_kernels else flash_attention_ref
+        out = core(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   causal=cfg.causal, window=window, softcap=cfg.softcap,
+                   q_offset=q_offset, scale=cfg.d_head ** -0.5).transpose(1, 2)
+    y = torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
     return y, cache
 
 

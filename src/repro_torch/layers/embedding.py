@@ -1,7 +1,16 @@
-"""The LM token table: init, lookup (with gemma's sqrt(d_model) scale) and
-the tied or untied unembedding (with the logit soft cap). The recsys
-EmbeddingBag and ``multi_field_lookup`` are ROADMAP.md §1 item 8."""
+"""Embeddings: the LM token table (init, lookup with gemma's sqrt(d_model)
+scale, the tied or untied unembedding with the logit soft cap) and the
+recsys EmbeddingBag and per-field lookup.
+
+``embedding_bag`` is the reference's gather + segment sum: padded slots
+(ids < 0) add nothing; the bag's rows are summed in slot order (one
+reduction over the bag axis, no atomics). The gradient of any lookup is a
+dense index-add into the table, with atomics on the card, so its sums are
+not in a fixed order there.
+"""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -45,3 +54,38 @@ def unembed(table: torch.Tensor, x: torch.Tensor, softcap: float = 0.0) -> torch
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# EmbeddingBag (multi-hot gather-reduce)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BagConfig:
+    mode: str = "sum"  # sum | mean
+
+
+def embedding_bag(table: torch.Tensor, indices, cfg: BagConfig = BagConfig(),
+                  dtype=torch.float32) -> torch.Tensor:
+    """table (V, d), indices (B, L) ids padded with any id < 0 -> (B, d):
+    each bag's rows summed (``mean``: divided by its count of real ids, at
+    least 1)."""
+    idx = torch.as_tensor(indices, device=table.device).long()
+    valid = idx >= 0
+    rows = table[torch.where(valid, idx, 0)].to(dtype)               # (B, L, d)
+    out = torch.where(valid[..., None], rows, torch.zeros((), dtype=dtype,
+                                                          device=table.device)).sum(dim=1)
+    if cfg.mode == "mean":
+        n = torch.clamp(valid.sum(dim=1, keepdim=True), min=1)
+        out = out / n.to(dtype)
+    return out
+
+
+def multi_field_lookup(tables: torch.Tensor, indices, dtype=torch.float32) -> torch.Tensor:
+    """tables (F, V, d), indices (B, F), one id a field in [0, V) -> (B, F, d)
+    (the DLRM / AutoInt layout). The offsets into the flattened tables are
+    int64 (F * V may pass 2^31)."""
+    f, v, d = tables.shape
+    offs = torch.arange(f, dtype=torch.int64, device=tables.device) * v
+    idx = torch.as_tensor(indices, device=tables.device).long() + offs
+    return tables.reshape(f * v, d)[idx].to(dtype)

@@ -1,9 +1,9 @@
 """The LM's feed-forward block (``MLPConfig``, ``init_mlp``, ``mlp``: gated
 SwiGLU / GeGLU or the classic two-matrix FFN) and the plain dense stack of
-the recsys towers and the effort regressor (``init_dense_stack`` /
-``dense_stack`` of the reference, with ReLU, their activation; the
-reference's other activations and ``final_act`` serve models not ported
-yet, ROADMAP.md §1 item 8)."""
+the recsys models and the effort regressor (``init_dense_stack`` /
+``dense_stack`` of the reference with ReLU, the activation of every
+caller: between layers, and after the last with ``final_act``, as DLRM's
+bottom MLP)."""
 from __future__ import annotations
 
 import dataclasses
@@ -91,13 +91,14 @@ class DenseStack(nn.Module):
         return dense_stack(dict(self.named_parameters()), x, self.n)
 
 
-def dense_stack(params: dict, x: torch.Tensor, n: int) -> torch.Tensor:
+def dense_stack(params: dict, x: torch.Tensor, n: int,
+                final_act: bool = False) -> torch.Tensor:
     """The stack's function over a dict of its tensors (``w{i}``, ``b{i}``):
     what ``DenseStack`` computes, on tensors a caller may differentiate."""
     dt = x.dtype
     for i in range(n):
         x = x @ params[f"w{i}"].to(dt) + params[f"b{i}"].to(dt)
-        if i < n - 1:
+        if i < n - 1 or final_act:
             x = torch.relu(x)
     return x
 

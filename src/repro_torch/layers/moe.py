@@ -165,9 +165,13 @@ def moe_layer(params: MoE, x: torch.Tensor, cfg: MoEConfig,
     h = buf[:-1].reshape(ea, groups * c, d)
     g = ACTS[cfg.act](torch.bmm(h, params.w_gate.to(dt)))
     u = torch.bmm(h, params.w_up.to(dt))
-    out = x.new_empty((ea * groups * c + 1, d))
-    torch.bmm(g * u, params.w_down.to(dt), out=out[:-1].view(ea, groups * c, d))
-    out[-1] = 0                    # the dropped assignments' row
+    if torch.is_grad_enabled():    # bmm(out=) records no autograd node
+        out = torch.cat([torch.bmm(g * u, params.w_down.to(dt)).reshape(-1, d),
+                         x.new_zeros((1, d))])
+    else:
+        out = x.new_empty((ea * groups * c + 1, d))
+        torch.bmm(g * u, params.w_down.to(dt), out=out[:-1].view(ea, groups * c, d))
+        out[-1] = 0                # the dropped assignments' row
 
     # ---- combine: each assignment's row, back in (token, k) order, then
     # each token's k outputs summed in ascending expert id

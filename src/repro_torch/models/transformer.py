@@ -19,8 +19,27 @@ leading dense layer), for serving.
   MLA's core is the plain ``sdpa``, as in the reference, and the MoE
   dispatch is plain PyTorch (``layers/moe.py``): neither has a TPU kernel.
 
-The training loss is not ported yet: it raises ``NotImplementedError``
-naming its ROADMAP item. Serving only: parameters do not require gradients.
+Training (``loss_fn``) takes the reference's parameter tree: nested dicts
+with the reference's keys and leaves (``embed``, ``final_norm``,
+``dense_layer{i}``, ``layers`` stacked on axis 0 over the scanned layers,
+``unembed`` when untied), so a leaf walk in sorted key order (the
+optimizer's grad norm and clipping, the checkpoints) meets the same leaves
+in the same order as the reference's. ``transformer_tree`` makes that tree
+from a ``Transformer``; ``init_transformer(f32_masters=True)`` draws f32
+master weights, which every layer casts to ``cfg.dtype`` at each use, as
+the reference does. The bridge from the tree to the model's functions is
+attribute views (``utils.TreeView``; ``model_view`` unbinds the stacked
+layers), not ``torch.func.functional_call``: with ``remat`` each ``Block``
+runs under ``torch.utils.checkpoint`` (non-reentrant), which recomputes it
+during the backward pass, after a ``functional_call`` would have put the
+module's own parameters back; a view holds the tree's tensors for the
+whole step. Under ``loss_fn`` (``forward(train=True)``) GQA's core is
+``sdpa`` (the reference trains through it; the flash-attention kernel has
+no backward), selected by the config the loss passes down
+(``attn_cfg(train=True)``), and ``remat`` applies; serving does neither. The LM loss is a
+sequence-chunked cross entropy: each chunk's f32 logits are made, reduced
+and, under grad, recomputed in the backward pass (a checkpoint a chunk), so
+the (B, S, V) logits never exist at once.
 """
 from __future__ import annotations
 
@@ -29,24 +48,26 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..layers.attention import (
-    GQAConfig, KVCache, MLAConfig, gqa_attention, init_gqa, init_mla, mla_attention)
+    GQA, MLA, GQAConfig, KVCache, MLAConfig, gqa_attention, init_gqa, init_mla,
+    mla_attention)
 from ..layers.embedding import embed_tokens, init_token_embedding, unembed
-from ..layers.mlp import MLPConfig, init_mlp, mlp
+from ..layers.mlp import MLP, MLPConfig, init_mlp, mlp
 from ..layers.moe import MoE, MoEConfig, init_moe, moe_layer
 from ..layers.norm import rms_norm
-from ..utils import resolve_device
-
-_TRAINING = "ROADMAP.md §1 item 6 (training)"
+from ..utils import TreeView, param_tree, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's fields, but for its XLA execution (``remat``,
-    ``scan_unroll``: XLA's remat and scan) and training (``loss_chunk``)
-    ones. ``attn_chunk`` is read by MLA only (GQA's flash-attention kernel
+    """The reference's fields but ``scan_unroll`` (XLA's scan). ``remat``
+    checkpoints each ``Block`` under ``forward(train=True)``;
+    ``loss_chunk`` is the CE loss's sequence chunk. ``attn_chunk`` is
+    ``sdpa``'s KV chunk on a cache (MLA; GQA's flash-attention kernel
     streams KV itself). ``use_kernels`` is the port's: the flash-attention
     kernel (default) or its plain version."""
     name: str = "lm"
@@ -88,13 +109,21 @@ class TransformerConfig:
     embed_scale: bool = False        # gemma multiplies embeds by sqrt(D)
     sandwich_norm: bool = False      # gemma3 post-attn/post-ffn norms
     tie_embeddings: bool = True
+    remat: bool = True
+    loss_chunk: int = 512
     use_kernels: bool = True
 
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
-    def attn_cfg(self):
+    @property
+    def n_scanned(self) -> int:
+        return self.n_layers - self.first_dense
+
+    def attn_cfg(self, train: bool = False):
+        """The attention layer's config; ``train`` selects GQA's training
+        core, the reference's ``sdpa``."""
         if self.attn_kind == "mla":
             return MLAConfig(d_model=self.d_model, n_heads=self.n_heads,
                              q_lora=self.q_lora, kv_lora=self.kv_lora,
@@ -105,7 +134,7 @@ class TransformerConfig:
         return GQAConfig(d_model=self.d_model, n_heads=self.n_heads,
                          n_kv=self.n_kv, d_head=self.d_head,
                          qk_norm=self.qk_norm, softcap=self.attn_softcap,
-                         use_kernels=self.use_kernels)
+                         use_kernels=self.use_kernels, sdpa=train)
 
     def moe_cfg(self) -> MoEConfig:
         """As the reference's: ``normalize_weights`` keeps its default."""
@@ -138,11 +167,34 @@ class TransformerConfig:
         return windows, thetas
 
 
+def block_forward(lp, x, cfg: TransformerConfig, attn_cfg, *, q_offset: int,
+                  theta: float, window: int, cache: Optional[KVCache],
+                  kv_valid: Optional[int]):
+    """The reference's ``_layer_fwd`` on a ``Block`` or a view of a layer's
+    tree -> (x, the MoE's aux dict or None)."""
+    attn_fn = mla_attention if cfg.attn_kind == "mla" else gqa_attention
+    h = rms_norm(x, lp.attn_norm, unit_offset=cfg.sandwich_norm)
+    attn_out, cache = attn_fn(
+        lp.attn, h, attn_cfg, q_offset=q_offset, rope_theta=theta,
+        window=window, cache=cache, kv_valid_len=kv_valid)
+    if cfg.sandwich_norm:
+        attn_out = rms_norm(attn_out, lp.post_attn_norm, unit_offset=True)
+    x = x + attn_out
+    h = rms_norm(x, lp.ffn_norm, unit_offset=cfg.sandwich_norm)
+    aux = None
+    if lp.moe is not None:
+        ffn_out, aux = moe_layer(lp.moe, h, cfg.moe_cfg())
+    else:
+        ffn_out = mlp(lp.mlp, h, cfg.mlp_cfg())
+    if cfg.sandwich_norm:
+        ffn_out = rms_norm(ffn_out, lp.post_ffn_norm, unit_offset=True)
+    return x + ffn_out, aux
+
+
 class Block(nn.Module):
     """One layer: attention (GQA or MLA) and a feed-forward block (an MLP,
     or MoE), each behind an RMSNorm (and, with sandwich norms, followed by
-    one); ``forward`` is the reference's ``_layer_fwd`` and returns (x,
-    the MoE's aux dict or None)."""
+    one); ``forward`` is ``block_forward``."""
 
     def __init__(self, attn: nn.Module, ffn: nn.Module, norms: dict):
         super().__init__()
@@ -156,23 +208,8 @@ class Block(nn.Module):
 
     def forward(self, x, cfg: TransformerConfig, *, q_offset: int, theta: float,
                 window: int, cache: Optional[KVCache], kv_valid: Optional[int]):
-        attn_fn = mla_attention if cfg.attn_kind == "mla" else gqa_attention
-        h = rms_norm(x, self.attn_norm, unit_offset=cfg.sandwich_norm)
-        attn_out, cache = attn_fn(
-            self.attn, h, cfg.attn_cfg(), q_offset=q_offset, rope_theta=theta,
-            window=window, cache=cache, kv_valid_len=kv_valid)
-        if cfg.sandwich_norm:
-            attn_out = rms_norm(attn_out, self.post_attn_norm, unit_offset=True)
-        x = x + attn_out
-        h = rms_norm(x, self.ffn_norm, unit_offset=cfg.sandwich_norm)
-        aux = None
-        if self.moe is not None:
-            ffn_out, aux = moe_layer(self.moe, h, cfg.moe_cfg())
-        else:
-            ffn_out = mlp(self.mlp, h, cfg.mlp_cfg())
-        if cfg.sandwich_norm:
-            ffn_out = rms_norm(ffn_out, self.post_ffn_norm, unit_offset=True)
-        return x + ffn_out, aux
+        return block_forward(self, x, cfg, cfg.attn_cfg(), q_offset=q_offset,
+                             theta=theta, window=window, cache=cache, kv_valid=kv_valid)
 
 
 class Transformer(nn.Module):
@@ -196,14 +233,17 @@ def _norms(cfg: TransformerConfig, dev) -> dict:
 
 
 def init_transformer(cfg: TransformerConfig, *, seed: int = 0,
-                     device="cuda") -> Transformer:
+                     device="cuda", f32_masters: bool = False) -> Transformer:
     """A model drawn from ``seed``: the token table first, then each layer
     in order (its attention, then its MLP or MoE), each weight drawn in f32
-    and stored in ``cfg.dtype`` (but norm scales and routers). Layers below
+    and stored in ``cfg.dtype`` (but norm scales and routers), or kept in
+    f32 with ``f32_masters`` (training: the reference's masters, cast to
+    ``cfg.dtype`` at each use; the same draws). Layers below
     ``first_dense`` are dense. ``device="meta"`` builds shapes only."""
     dev = resolve_device(device, meta=True)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
-    draw = dict(generator=gen, device=dev, dtype=cfg.dtype)
+    draw = dict(generator=gen, device=dev,
+                dtype=torch.float32 if f32_masters else cfg.dtype)
     embed = init_token_embedding(cfg.vocab, cfg.d_model, **draw)
     init_attn = init_mla if cfg.attn_kind == "mla" else init_gqa
     layers = []
@@ -248,37 +288,181 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
 # Forward
 # ---------------------------------------------------------------------------
 
-def forward(model: Transformer, tokens: torch.Tensor, cfg: TransformerConfig, *,
+def forward(model, tokens: torch.Tensor, cfg: TransformerConfig, *,
             cache: Optional[KVCache] = None, cache_pos: int = 0,
-            kv_valid: Optional[int] = None):
+            kv_valid: Optional[int] = None, train: bool = False):
     """tokens (B, S) at positions ``cache_pos + arange(S)`` -> (hidden
     (B, S, D) after the final norm, the cache, updated in place, the MoE
-    layers' aux loss summed: an f32 scalar, 0 without MoE)."""
+    layers' aux loss summed: an f32 scalar, 0 without MoE). ``model`` is a
+    ``Transformer`` or a ``model_view`` of a tree. ``train`` runs GQA
+    through ``sdpa`` and, with ``cfg.remat``, recomputes each layer in the
+    backward pass."""
     tokens = torch.as_tensor(tokens, device=model.embed.device)
     x = embed_tokens(model.embed, tokens, cfg.dtype, scale=cfg.embed_scale)
     windows, thetas = cfg.layer_meta()
+    attn_cfg = cfg.attn_cfg(train=train)
+    remat = train and cfg.remat
     aux_total = torch.zeros((), device=x.device)
     for i, layer in enumerate(model.layers):
-        layer_cache = None if cache is None else KVCache(k=cache.k[i], v=cache.v[i])
-        x, aux = layer(x, cfg, q_offset=cache_pos, theta=float(thetas[i]),
-                       window=int(windows[i]), cache=layer_cache, kv_valid=kv_valid)
+        kw = dict(q_offset=cache_pos, theta=float(thetas[i]), window=int(windows[i]),
+                  cache=None if cache is None else KVCache(k=cache.k[i], v=cache.v[i]),
+                  kv_valid=kv_valid)
+        if remat:
+            x, aux = checkpoint(block_forward, layer, x, cfg, attn_cfg, **kw,
+                                use_reentrant=False)
+        else:
+            x, aux = block_forward(layer, x, cfg, attn_cfg, **kw)
         if aux is not None:
             aux_total = aux_total + aux["aux_loss"]
     return rms_norm(x, model.final_norm, unit_offset=cfg.sandwich_norm), cache, aux_total
 
 
-def logits_from_hidden(model: Transformer, x: torch.Tensor,
-                       cfg: TransformerConfig) -> torch.Tensor:
+def logits_from_hidden(model, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     table = model.embed if cfg.tie_embeddings else model.unembed
     return unembed(table, x, cfg.logit_softcap)
 
 
+# ---------------------------------------------------------------------------
+# Training: the reference's parameter tree, and the loss
+# ---------------------------------------------------------------------------
+
+def transformer_tree(model: Transformer, cfg: TransformerConfig) -> dict:
+    """The model's parameters as the reference's tree (see the module
+    docstring): the scanned layers' leaves stacked on a new axis 0 (a copy),
+    the other leaves the model's own tensors."""
+    layers = [param_tree(block) for block in model.layers]
+    tree = {"embed": model.embed.detach(), "final_norm": model.final_norm.detach()}
+    for i in range(cfg.first_dense):
+        tree[f"dense_layer{i}"] = layers[i]
+    scanned = layers[cfg.first_dense:]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    tree["layers"] = stack(scanned)
+    if model.unembed is not None:
+        tree["unembed"] = model.unembed.detach()
+    return tree
+
+
+_NORMS = ("attn_norm", "ffn_norm", "post_attn_norm", "post_ffn_norm")
+_F32_LEAVES = ("q_norm", "k_norm", "kv_norm", "router", "final_norm")   # kept f32
+
+
+def transformer_from_tree(tree: dict, cfg: TransformerConfig, *,
+                          f32_masters: bool = False) -> Transformer:
+    """The reference's tree (tensors, on one device) as a ``Transformer``:
+    the stacked layers unstacked after the dense ones, weights cast to
+    ``cfg.dtype`` (as the reference casts them at each use), norm scales and
+    routers kept in f32; with ``f32_masters`` every leaf stays f32.
+    Layouts are kept, so nothing is transposed."""
+    def leaf(name, x):
+        x = x.detach()
+        keep = f32_masters or name in _F32_LEAVES or name in _NORMS
+        return (x.float() if keep else x.to(cfg.dtype)).contiguous()
+
+    def mlp_of(m):
+        return MLP(leaf("w_up", m["w_up"]), leaf("w_down", m["w_down"]),
+                   leaf("w_gate", m["w_gate"]) if "w_gate" in m else None)
+
+    def block(lp):
+        a = {n: leaf(n, x) for n, x in lp["attn"].items()}
+        if cfg.attn_kind == "mla":
+            attn = MLA(**a)
+        else:
+            attn = GQA(a["wq"], a["wk"], a["wv"], a["wo"], a.get("q_norm"), a.get("k_norm"))
+        if "moe" in lp:
+            m = lp["moe"]
+            ffn = MoE(*(leaf(n, m[n]) for n in ("router", "w_gate", "w_up", "w_down")),
+                      mlp_of(m["shared"]) if "shared" in m else None)
+        else:
+            ffn = mlp_of(lp["mlp"])
+        return Block(attn, ffn, {n: leaf(n, lp[n]) for n in _NORMS if n in lp})
+
+    def unstack(node, i):
+        return {k: unstack(v, i) if isinstance(v, dict) else v[i] for k, v in node.items()}
+
+    layers = [block(tree[f"dense_layer{i}"]) for i in range(cfg.first_dense)]
+    layers += [block(unstack(tree["layers"], i)) for i in range(cfg.n_scanned)]
+    unembed_table = None if cfg.tie_embeddings else leaf("unembed", tree["unembed"])
+    return Transformer(leaf("embed", tree["embed"]), leaf("final_norm", tree["final_norm"]),
+                       layers, unembed_table)
+
+
+def model_view(tree: dict, cfg: TransformerConfig) -> TreeView:
+    """A view of the reference's tree that ``forward`` reads as a model: its
+    ``layers`` are the leading dense layers' views, then one a scanned
+    layer, whose leaves are ``torch.unbind`` views of the stacked leaves
+    (gradients flow back into the stacked tensors)."""
+    def unbind(node, n):
+        if isinstance(node, dict):
+            parts = {k: unbind(v, n) for k, v in node.items()}
+            return [{k: parts[k][i] for k in parts} for i in range(n)]
+        return list(torch.unbind(node, 0))
+
+    layers = [TreeView(tree[f"dense_layer{i}"]) for i in range(cfg.first_dense)]
+    layers += [TreeView(t) for t in unbind(tree["layers"], cfg.n_scanned)]
+    return TreeView({"embed": tree["embed"], "final_norm": tree["final_norm"],
+                     "unembed": tree.get("unembed"), "layers": layers})
+
+
+def _as_model(params, cfg: TransformerConfig):
+    return params if isinstance(params, (Transformer, TreeView)) else model_view(params, cfg)
+
+
+def _chunk_nll(table, h, labels, mask, softcap: float) -> torch.Tensor:
+    """The masked NLL sum of one sequence chunk: f32 logits (as
+    ``logits_from_hidden``), log-sum-exp, the label's logit."""
+    logits = unembed(table, h, softcap)                           # (B, c, V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((lse - ll) * mask)
+
+
 def chunked_ce_loss(model, hidden, labels, mask, cfg: TransformerConfig):
-    raise NotImplementedError(f"chunked_ce_loss: {_TRAINING}")
+    """The reference's sequence-chunked CE: hidden (B, S, D), labels (B, S)
+    in [0, V), mask (B, S) f32 -> the masked mean NLL, an f32 scalar. S is
+    padded to a multiple of ``min(loss_chunk, S)``; chunk sums are added in
+    order. Under grad each chunk is a checkpoint, so only one chunk's
+    logits live at a time, in the backward pass too."""
+    model = _as_model(model, cfg)
+    table = model.embed if cfg.tie_embeddings else model.unembed
+    b, s, _ = hidden.shape
+    chunk = min(cfg.loss_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    labels = labels.long()
+    tot = torch.zeros((), device=hidden.device)
+    n = torch.zeros((), device=hidden.device)
+    for c0 in range(0, s + pad, chunk):
+        args = (table, hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk], cfg.logit_softcap)
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            tot = tot + _chunk_nll(*args)
+        n = n + torch.sum(args[3])
+    return tot / torch.clamp(n, min=1.0)
 
 
-def loss_fn(model, batch: dict, cfg: TransformerConfig):
-    raise NotImplementedError(f"loss_fn: {_TRAINING}")
+def loss_fn(params, batch: dict, cfg: TransformerConfig):
+    """batch: tokens (B, S), labels (B, S) (< 0 masked), numpy or tensors ->
+    (loss, {"ce", "aux_loss"}): ``ce + aux_loss_weight * aux``. ``params``
+    is the reference's tree (or a ``Transformer``); GQA runs through
+    ``sdpa``."""
+    model = _as_model(params, cfg)
+    dev = model.embed.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    mask = (labels >= 0).float()
+    hidden, _, aux = forward(model, tokens, cfg, train=True)
+    ce = chunked_ce_loss(model, hidden, torch.clamp(labels, min=0), mask, cfg)
+    return ce + cfg.aux_loss_weight * aux, {"ce": ce, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------

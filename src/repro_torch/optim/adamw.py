@@ -1,7 +1,8 @@
 """AdamW + schedules + global-norm clipping + gradient accumulation.
 
-A functional optimizer over parameter trees: dicts (possibly nested) of
-tensors, walked in sorted key order as the reference's pytrees are.
+An optimizer over parameter trees: dicts (possibly nested) of tensors,
+walked in sorted key order as the reference's pytrees are; the update
+writes the parameters and moments in place.
 Gradients come from ``torch.autograd``. The arithmetic is the reference's:
 weight decay inside the update, ``p - lr * (m_hat / (sqrt(v_hat) + eps) +
 wd * p)``; bias corrections ``1 - b ** step`` in f32; clipping by the global
@@ -18,6 +19,8 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+
+UPDATE_CHUNK = 1 << 26   # elements the update (or a leaf's norm) computes at once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,15 +68,34 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of a leaf; a leaf above ``UPDATE_CHUNK``
+    elements chunk by chunk (a full-size square of a 10 GB embedding table
+    would not fit beside its gradient and moments)."""
+    if x.numel() <= UPDATE_CHUNK:
+        return torch.sum(torch.square(x.to(torch.float32)))
+    flat = x.reshape(-1)
+    return torch.sum(torch.stack([torch.sum(torch.square(flat[i:i + UPDATE_CHUNK].to(
+        torch.float32))) for i in range(0, flat.numel(), UPDATE_CHUNK)]))
+
+
 def global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in _leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+    return torch.sqrt(torch.sum(torch.stack([_square_sum(x) for x in _leaves(tree)])))
+
+
+def _clip_scale(tree, max_norm: float):
+    """(the factor that clips ``tree`` to ``max_norm``, its global norm)."""
+    gn = global_norm(tree)
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0), gn
+
+
+def _clip(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (x.to(torch.float32) * scale).to(x.dtype)
 
 
 def clip_by_global_norm(tree, max_norm: float):
-    gn = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    return _map(lambda x: (x.to(torch.float32) * scale).to(x.dtype), tree), gn
+    scale, gn = _clip_scale(tree, max_norm)
+    return _map(lambda x: _clip(x, scale), tree), gn
 
 
 def init_adamw(params, cfg: AdamWConfig) -> dict:
@@ -85,15 +107,19 @@ def init_adamw(params, cfg: AdamWConfig) -> dict:
 
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics)."""
-    grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+    """Updates ``params`` and the moments of ``state`` in place (the
+    reference's jit donates them) and returns (params, new_state, metrics).
+    Each leaf is computed ``UPDATE_CHUNK`` elements at a time, so the update
+    needs no second copy of the state and its temporaries stay a few
+    chunks."""
+    scale, gn = _clip_scale(grads, cfg.clip_norm)
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
 
     def upd(p, g, m, v):
-        gf = g.to(torch.float32)
+        gf = _clip(g, scale).to(torch.float32)
         mf = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * gf
         vf = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * gf * gf
         mhat = mf / b1c
@@ -102,12 +128,14 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
         pf = pf - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf)
         return pf.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
 
-    out = _map(upd, params, grads, state["m"], state["v"])   # (p, m, v) leaves
-
-    def part(i):
-        return _map(lambda o: o[i], out)
-
-    return (part(0), {"m": part(1), "v": part(2), "step": step},
+    for p, g, m, v in zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
+                          _leaves(state["v"])):
+        flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
+        for i in range(0, flat[0].numel(), UPDATE_CHUNK):
+            part = [t[i:i + UPDATE_CHUNK] for t in flat]
+            for dst, new in zip((part[0], part[2], part[3]), upd(*part)):
+                dst.copy_(new)
+    return (params, {"m": state["m"], "v": state["v"], "step": step},
             {"grad_norm": gn, "lr": lr})
 
 
@@ -122,7 +150,8 @@ def make_train_step(
     metrics)``. ``loss_fn(params, batch)`` returns ``(loss, metrics)``.
 
     ``accum_steps > 1`` splits the batch's leading axis into micro-batches
-    and averages their gradients (the fixed-memory large-batch recipe)."""
+    and averages their gradients (the fixed-memory large-batch recipe).
+    ``params`` and ``opt_state`` are updated in place (``adamw_update``)."""
     def grads_of(params, batch):
         leaves = _leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]

@@ -1,5 +1,5 @@
-"""Checkpointing (:mod:`repro_torch.train.checkpoint`). The trainer is a
-later slice of the port (ROADMAP.md §1, item 6)."""
+"""Training: the fault-tolerant ``Trainer`` and atomic checkpointing."""
 from .checkpoint import CheckpointManager
+from .trainer import Trainer, TrainerConfig
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "Trainer", "TrainerConfig"]

@@ -14,7 +14,8 @@
 
 Restored uint32 leaves come back as int32 tensors holding the same bits
 (the port's convention for packed bitsets and label rows: PyTorch has few
-uint32 operations). ``shardings=`` places leaves on a device mesh as
+uint32 operations). A bf16 leaf is written as its uint16 bits (numpy has
+no bf16) and ``restore`` views it as the template's bf16 again. ``shardings=`` places leaves on a device mesh as
 DTensors (the ``(mesh, placements)`` pairs of ``dist.bind_shardings``);
 every rank of the mesh makes the same restore call.
 """
@@ -75,14 +76,29 @@ def _unflatten(flat: dict, template):
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:    # numpy has no bf16: its bits
+            return leaf.view(torch.int16).cpu().numpy().view(np.uint16)
+        return leaf.cpu().numpy()
     return np.asarray(leaf)
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    elif arr.dtype == np.uint16:
+        arr = arr.view(np.int16)
+    # ascontiguousarray makes a 0-d array 1-d: keep the saved shape
+    return torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape).to(device)
+
+
+def _like(leaf, template):
+    """A restored bf16 leaf comes back as its int16 bits: view it as the
+    template's bf16."""
+    if (isinstance(template, torch.Tensor) and template.dtype == torch.bfloat16
+            and isinstance(leaf, torch.Tensor) and leaf.dtype == torch.int16):
+        return leaf.view(torch.bfloat16)
+    return leaf
 
 
 class CheckpointManager:
@@ -198,4 +214,6 @@ class CheckpointManager:
         Returns (state, step)."""
         flat_shard = None if shardings is None else _flatten_like(shardings, template)
         flat, manifest = self.restore_flat(step, flat_shard, device=device)
+        like = _flatten(template)
+        flat = {k: _like(v, like.get(k)) for k, v in flat.items()}
         return _unflatten(flat, template), manifest["step"]

@@ -33,3 +33,34 @@ def resolve_device(device, *, meta: bool = False) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def param_tree(module: torch.nn.Module) -> dict:
+    """The module's parameters as nested dicts, one level a dotted name
+    part (``user.mlp.w0`` -> ``tree["user"]["mlp"]["w0"]``), each leaf the
+    parameter's tensor detached: the reference's parameter tree wherever
+    the port's modules name their parameters as its keys."""
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = p.detach()
+    return tree
+
+
+class TreeView:
+    """Attribute access over a dict of a parameter tree: ``view.attn.wq`` is
+    ``tree["attn"]["wq"]``, a nested dict reads as another view and a
+    missing key as None (an optional weight). The model functions read a
+    module's parameters by attribute, so they run on either."""
+
+    __slots__ = ("_tree",)
+
+    def __init__(self, tree: dict):
+        object.__setattr__(self, "_tree", tree)
+
+    def __getattr__(self, name):
+        value = self._tree.get(name)
+        return TreeView(value) if isinstance(value, dict) else value

@@ -1747,3 +1747,80 @@ def test_moe_and_mla_models_on_the_card_equal_cpu(cuda_device, arch):
     assert launches == [0 if cfg.attn_kind == "mla" else 5 * cfg.n_layers, 0]
     torch.testing.assert_close(runs[0], runs[1], rtol=1e-4, atol=1e-4)
     assert torch.equal(runs[0].argmax(-1), runs[1].argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# Training on the card against the CPU (no kernel: the training path
+# launches none). Tolerance: 1e-4 relative L2 a leaf after one AdamW step
+# (the card's matmuls and index_add atomics sum in other orders; TF32 off).
+# ---------------------------------------------------------------------------
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev).clone()
+
+
+def _train_step_card_vs_cpu(family, cfg, opt, batch, cuda_device, tol=1e-4):
+    """One AdamW step of the family's loss from the same weights on
+    the CPU and on the card: every leaf within ``tol`` relative L2."""
+    import functools
+
+    from repro_torch.launch.train import init_params
+    from repro_torch.models import gcn_loss, loss_fn, recsys_loss
+    from repro_torch.optim import init_adamw, make_train_step
+    from repro_torch.optim.adamw import _leaves
+
+    loss = functools.partial({"lm": loss_fn, "gnn": gcn_loss, "recsys": recsys_loss}[family],
+                             cfg=cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = init_params(family, cfg, 0, torch.device("cpu"))
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tree = _to(start, dev)
+        step = make_train_step(loss, opt)
+        tree, _, metrics = step(tree, init_adamw(tree, opt), batch)
+        out[dev.type] = (tree, float(metrics["loss"]))
+    (cpu, lc), (card, lg) = out["cpu"], out["cuda"]
+    assert abs(lc - lg) <= 1e-5 * abs(lc)
+    for a, b in zip(_leaves(card), _leaves(cpu)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype == torch.float32
+        err = float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
+        assert err <= tol, err
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_the_card_equals_cpu(cuda_device):
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(qwen3_14b.reduced(), remat=True)
+    batch = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=64, batch=2), 0)
+    _train_step_card_vs_cpu("lm", cfg, AdamWConfig(lr=1e-3, warmup_steps=1), batch,
+                            cuda_device)
+
+
+@pytest.mark.cuda
+def test_gcn_train_step_on_the_card_equals_cpu(cuda_device):
+    from repro_torch.configs import gcn_cora
+    from repro_torch.data import make_sbm_graph
+    cfg = gcn_cora.reduced()
+    g = make_sbm_graph(400, cfg.n_classes, cfg.d_feat, avg_degree=8)
+    batch = {"feats": g.feats, "edge_src": g.edge_src, "edge_dst": g.edge_dst,
+             "labels": g.labels}
+    _train_step_card_vs_cpu("gnn", cfg, gcn_cora.ARCH.opt_cfg, batch, cuda_device, tol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["wide_deep", "dlrm_rm2", "autoint", "two_tower_retrieval"])
+def test_recsys_train_step_on_the_card_equals_cpu(cuda_device, arch):
+    import importlib
+
+    from repro_torch.data import RecsysDataConfig, recsys_batch
+    from repro_torch.optim import AdamWConfig
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").reduced()
+    batch = recsys_batch(RecsysDataConfig(
+        n_dense=cfg.n_dense, n_sparse=cfg.n_sparse, vocab=cfg.vocab, batch=256,
+        two_tower=cfg.kind == "two_tower", n_sparse_item=cfg.n_sparse_item), 0)
+    _train_step_card_vs_cpu("recsys", cfg, AdamWConfig(lr=1e-3, warmup_steps=1), batch,
+                            cuda_device)

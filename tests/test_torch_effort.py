@@ -187,8 +187,9 @@ def test_gradient_accumulation_matches_big_batch():
     loss = lambda p_, b_: effort_loss(p_, b_, cfg, mu, sigma)  # noqa: E731
     big = make_train_step(loss, opt)
     acc = make_train_step(loss, opt, accum_steps=2)
+    again = effort_params_from_jax(_np(jparams), device="cpu")
     p1, _, m1 = big(params, init_adamw(params, opt), batch)
-    p2, _, m2 = acc(params, init_adamw(params, opt), batch)
+    p2, _, m2 = acc(again, init_adamw(again, opt), batch)
     for k in p1:
         np.testing.assert_allclose(p1[k].numpy(), p2[k].numpy(), rtol=2e-3, atol=2e-4)
     jmu, jsigma = jnp.asarray(mu.numpy()), jnp.asarray(sigma.numpy())

@@ -43,7 +43,12 @@ NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
          "repro_torch.fault.replica", "repro_torch.live.sharded", "repro_torch.launch",
          "repro_torch.launch.serve", "repro_torch.layers.moe",
          "repro_torch.configs.qwen2_moe_a27b", "repro_torch.configs.deepseek_v2_236b",
-         "repro_torch.configs.qwen3_14b", "repro_torch.configs.starcoder2_7b")
+         "repro_torch.configs.qwen3_14b", "repro_torch.configs.starcoder2_7b",
+         "repro_torch.train.trainer", "repro_torch.launch.train", "repro_torch.models.gcn",
+         "repro_torch.layers.segment", "repro_torch.layers.interactions",
+         "repro_torch.data.graphs", "repro_torch.data.recsys", "repro_torch.configs.wide_deep",
+         "repro_torch.configs.dlrm_rm2", "repro_torch.configs.autoint",
+         "repro_torch.configs.gcn_cora")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -55,6 +60,40 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(n_modules) >= 50
     assert bad.strip() == "[]"
     assert set(NAMED) <= set(names.split())
+
+
+def _imported_modules(path: str) -> set:
+    """Every module an ``import`` statement of the file names, at any depth
+    (the port and chip_smoke.py import torch and the port's own modules
+    inside functions too)."""
+    import ast
+    tree = ast.parse(open(path).read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_no_import_statement_names_jax_or_repro():
+    """Statically, lazy imports included: no file of the port, nor
+    chip_smoke.py, imports jax, jaxlib or the JAX package ``repro``."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 80
+    for path in files:
+        bad = {m for m in _imported_modules(path) if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+        assert not bad, (path, bad)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))" % ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
 
 
 @pytest.fixture
@@ -82,6 +121,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from repro_torch.live import LiveConfig, LiveIndex
     from repro_torch.tier import tiered_corpus
     from repro_torch.train import CheckpointManager
+    from repro_torch.configs import dlrm_rm2, gcn_cora
+    from repro_torch.convert import gcn_params_from_jax
+    from repro_torch.data import range_graph_dataset
+    from repro_torch.layers import FieldAttnConfig, init_field_attention
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import init_gcn
 
     pts = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     nbrs = np.zeros((64, 4), np.int32)
@@ -132,6 +177,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
             torch.from_numpy(nbrs))),
         lambda: LiveIndex.restore(cm),
         lambda: cm.restore_flat(),
+        lambda: init_recsys(dlrm_rm2.reduced()),
+        lambda: init_gcn(gcn_cora.reduced()),
+        lambda: gcn_params_from_jax({"w0": np.zeros((2, 2), np.float32)}),
+        lambda: range_graph_dataset(pts, np.zeros(64), 2, k=4),
+        lambda: init_field_attention(FieldAttnConfig(n_fields=2, d_embed=4)),
+        lambda: build_training("gcn-cora", True, 4, 8),
+        lambda: init_transformer(lm, f32_masters=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -152,3 +204,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     assert init_cache(lm, 1, 8, device="cpu").k.device.type == "cpu"
     assert init_transformer(lm, device="meta").embed.is_meta
     assert init_effort(EffortConfig(dim=8), device="cpu")["w0"].device.type == "cpu"
+    assert init_gcn(gcn_cora.reduced(), device="cpu")["w0"].device.type == "cpu"
+    assert init_recsys(dlrm_rm2.reduced(), device="cpu")["tables"].device.type == "cpu"
+    assert build_training("gcn-cora", True, 4, 8, device="cpu")[0]["w1"].device.type == "cpu"

@@ -58,12 +58,10 @@ def _ids(rng, b, f, vocab):
 
 
 def test_configs_match_the_reference():
-    """Every field the port keeps holds the reference's value; the fields it
-    leaves out are the other kinds' (ROADMAP.md §1 item 8)."""
+    """Every field of the reference's config is the port's, with its value
+    (the other kinds' fields, once left out, are back)."""
     kept = [f.name for f in dataclasses.fields(reduced()) if f.name != "dtype"]
-    assert set(kept) <= set(vars(jax_reduced()))
-    assert set(vars(jax_reduced())) - set(kept) - {"dtype"} == {
-        "n_dense", "bot_mlp_dims", "attn_layers", "attn_heads", "d_attn"}
+    assert set(kept) == set(vars(jax_reduced())) - {"dtype"}
     for port, ref in ((reduced(), jax_reduced()), (ARCH.model_cfg, JAX_ARCH.model_cfg)):
         assert {k: getattr(port, k) for k in kept} == {k: getattr(ref, k) for k in kept}
         assert port.dtype == torch.float32
@@ -149,11 +147,23 @@ def test_full_width_shapes_on_meta_match_jax():
 
 
 def test_unported_kinds_and_losses_raise():
-    with pytest.raises(NotImplementedError, match="item 8 "):
-        init_recsys(reduced().__class__(kind="dlrm"), device="cpu")
-    for fn in (bce_loss, two_tower_loss, recsys_loss):
-        with pytest.raises(NotImplementedError, match="item 6 "):
-            fn(None, {}, reduced())
+    """Every kind and loss of the reference is ported now: an unknown kind
+    raises, as in the reference; the losses run (held against JAX's in
+    tests/test_torch_recsys_family.py)."""
+    with pytest.raises(ValueError, match="kind"):
+        init_recsys(dataclasses.replace(reduced(), kind="fm"), device="cpu")
+    with pytest.raises(ValueError, match="kind"):
+        recsys_forward({}, {}, dataclasses.replace(reduced(), kind="fm"))
+    model = init_recsys(reduced(), device="cpu")
+    ids = {"user_sparse": np.zeros((4, 4), np.int32), "item_sparse": np.zeros((4, 4), np.int32)}
+    for fn in (two_tower_loss, recsys_loss):
+        loss, metrics = fn(model, ids, reduced())
+        assert bool(torch.isfinite(loss)) and set(metrics) == {"in_batch_acc"}
+    ctr = dataclasses.replace(reduced(), kind="wide_deep")
+    loss, metrics = bce_loss(init_recsys(ctr, device="cpu"),
+                             {"sparse": np.zeros((4, 4), np.int32),
+                              "label": np.ones(4, np.float32)}, ctr)
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"mean_logit"}
 
 
 def _midpoint(dist, frac):

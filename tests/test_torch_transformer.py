@@ -65,9 +65,9 @@ jmlp = importlib.import_module("repro.layers.mlp")   # the package's ``mlp`` is 
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TN_STD = 0.9865881  # std of a unit normal truncated at +-3
-# the reference's fields the port's TransformerConfig leaves out (XLA
-# execution, training), and the port's own
-LEFT_OUT = {"remat", "scan_unroll", "loss_chunk"}
+# the reference's fields the port's TransformerConfig leaves out (XLA's
+# scan unrolling), and the port's own
+LEFT_OUT = {"scan_unroll"}
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -502,13 +502,21 @@ def test_init_statistics():
 
 
 def test_unported_parts_raise():
-    """The training loss is §1 item 6's next part; MoE, MLA and leading
-    dense layers, which raised here before, now build and serve."""
+    """What is left unported raises, naming its ROADMAP item: the mesh
+    trainer's activation pins (§1 item 10). The training loss, and MoE, MLA
+    and leading dense layers, which raised here before, now run."""
+    from repro_torch.dist.sharding import activation_sharding, shard_activation
     cfg = gemma3_27b.reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6 \\(training\\)"):
-        loss_fn(None, {}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6 \\(training\\)"):
-        chunked_ce_loss(None, None, None, None, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10 \\(the mesh trainer\\)"):
+        activation_sharding(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10 \\(the mesh trainer\\)"):
+        shard_activation(torch.zeros(2), None)
+    model = init_transformer(cfg, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    loss, _ = loss_fn(model, {"tokens": toks, "labels": toks}, cfg)
+    hidden, _, _ = forward(model, toks, cfg)
+    ce = chunked_ce_loss(model, hidden, toks, torch.ones((1, 4)), cfg)
+    assert bool(torch.isfinite(loss)) and abs(float(loss) - float(ce)) < 1e-6
     for port in (qwen2_moe_a27b.reduced(), deepseek_v2_236b.reduced(),
                  dataclasses.replace(cfg, first_dense=2)):
         model = init_transformer(port, device="cpu")
