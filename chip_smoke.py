@@ -70,7 +70,7 @@ Phases, each printed as it ends:
      with the reference serve CLI's settings (max_batch 128, 32 lanes, 8
      rounds a slice, the effort regressor fitted on the card on 256
      calibration requests with their exact counts): lockstep, f32 and
-     int8, on the 4,096 queries at r, every response equal to its lane of
+     int8, on the first 1,024 queries at r, every response equal to its lane of
      ``engine.range`` (f32: the distances' bits too), requests/s beside
      engine.range's QPS and exact p50/p99; benchmarks/run.py's tail
      workload (1,024 requests, every 16th at the radius of ~512 mean
@@ -94,8 +94,8 @@ Phases, each printed as it ends:
      temporary directory, half the churn, save, 2,000 inserts and deletes
      and a consolidation, a torn record; ``LiveIndex.restore(cm, wal=)``
      equals the uninterrupted index bit for bit (checkpoint bytes, save,
-     restore and replay seconds); (c) 1,024 queries shuffled with 2,000
-     inserts and 2,000 deletes through ``RangeServer(live=)``, lockstep and
+     restore and replay seconds); (c) 256 queries shuffled with 500
+     inserts and 500 deletes through ``RangeServer(live=)``, lockstep and
      continuous: every request answered once, each insert's id holding its
      vector, continuous equal to lockstep per query, requests/s, epoch,
      AP on the final live set; every search kernel launched through the
@@ -115,7 +115,7 @@ Phases, each printed as it ends:
      fan-out healthy (threaded and serial, bit for bit), with shard 1 down
      (coverage 0.75, the union of the other three) and with garbage at
      (shard 2, attempt 0) (caught, retried, healthy); ``RangeServer(mesh=,
-     sharded=)`` and ``RangeServer(sharded=, injector=)`` over 1,024
+     sharded=)`` and ``RangeServer(sharded=, injector=)`` over 256
      requests, each equal to its lane and annotated when degraded;
      ``sharded_launches`` in the kernels line;
  17. [replicated]: ``fault.replica`` over [sharded]'s f32 and int8 corpora,
@@ -128,7 +128,7 @@ Phases, each printed as it ends:
      out); (e) a breaker tripped by scripted errors, re-admitted through
      the half-open probe past an injected cooldown, and ``lose`` +
      ``maintain`` recovery; (f) both replicas of shard 2 down: coverage
-     0.75, ``shard_lost``, the survivors' union; then 1,024 requests through
+     0.75, ``shard_lost``, the survivors' union; then 256 requests through
      ``RangeServer(replicas=2)`` at the serve CLI's fault, hedge and retry
      settings, each equal to its lane and annotated 7 of 8 replicas
      (requests/s, exact p50/p99, the replication stats);
@@ -145,12 +145,31 @@ Phases, each printed as it ends:
      mutations rejoins bit for bit; AP on the final live set;
      ``live_sharded_launches`` (the churn's and the timed ``range``'s) in
      the kernels line;
- 19. [cli]: ``python -m repro_torch.launch.serve --n 100000 --queries
-     1024`` three times (``--early-stop --mixed-radius``; ``--shards 4
+ 19. [cli]: ``python -m repro_torch.launch.serve --n 50000 --queries
+     512`` three times (``--early-stop --mixed-radius``; ``--shards 4
      --replicas 2 --hedge-ms 5 --down-replicas 1:0,3:1``, which must stay
      whole; ``--churn 0.05``), each exiting 0, its AP and rate lines
      re-printed with its wall;
- 20. [train lm], after [cli] (training launches no kernel): qwen3-14b at
+ 19b. [cells], after [cli]: the cell builder (``launch/steps.py``) and the
+     roofline (``analysis/roofline.py``). Every cell of
+     ``configs.all_cells(include_engine=True)`` (42) built at full width on
+     the meta device over a one-rank NCCL mesh, each with its analytic
+     model flops, the bytes of its parameter, optimizer-state and input
+     trees, and the flops' floor at the bf16 peak; then the range-engine
+     cell on the card over the main path's corpus and k-NN graph as one
+     shard, corpus and queries scaled by 1/sqrt(r) (the cell searches at
+     1.0): search_4k in f32 and int8, search_64k in f32 on 65,536 more
+     queries of the corpus; each counted call equal to a direct
+     ``range_search_fused`` merged as one shard (ids, distance bits,
+     counts), every kernel of its path launched (``cells_launches`` in the
+     kernels line), in f32 every 64th expand launch and every gatherdist
+     launch of that call, at the batch's own 4,096 or 65,536 lanes, held
+     against its plain op at DIST_TOL, AP against ``exact_range_search``
+     at 1.0, kernel and plain path within 0.01 AP on 256 queries; the
+     median wall of 3 more calls, QPS, peak memory, and the shares of the
+     wall the engine's analytic flops (at the f32 rate) and the
+     reference's gather bytes (at HBM_BW) would take;
+ 20. [train lm], after [cells] (training launches no kernel): qwen3-14b at
      full width, depth cut from 40 to 4 layers (2.88 B f32 masters from
      seed 0, 46.0 GB with gradients and moments), computed in bf16 with
      remat and GQA through ``sdpa``; 8 steps of the Trainer's step
@@ -266,13 +285,16 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+try:   # the H100 SXM's rates: device memory, and each type's dense peak
+    from repro_torch.analysis.roofline import (
+        F32_FLOPS, HBM_BW, INT8_OPS, PEAK_FLOPS, TF32_FLOPS)
+except ModuleNotFoundError:
+    sys.exit(f"chip_smoke: the port's package is not in {ROOT}/src: run this script "
+             "from a checkout of the repo")
+
 N_QUERIES = 4096            # the deployment's search_4k batch
+N_QUERIES_64K = 65_536      # the deployment's search_64k batch ([cells])
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
-INT8_OPS = 1979e12          # H100 SXM int8 (the table's rate for the type)
-BF16_FLOPS = 989e12         # H100 SXM bf16, dense tensor cores
-TF32_FLOPS = 495e12         # H100 SXM tf32, dense tensor cores (3xTF32: three products)
 DIST_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),  # sum order differs
             "bfloat16": dict(rtol=1e-2, atol=1e-5)}
 RANGESCAN_TOL = 1e-5        # unit vectors, d=256: reordered f32 dots differ ~1e-6
@@ -399,7 +421,7 @@ def cold_ms(fn, flush, reps: int = 20) -> float:
 
 
 def bound_ms(n_bytes: float, ops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, ops / rate
+    t_b, t_o = n_bytes / HBM_BW, ops / rate
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
@@ -777,7 +799,7 @@ def rerank_at_band(eng_q, queries, r, cfg, launches: int):
         f"launch); warp route ms={warm['warp']:.4f}, cold {cold['warp']:.4f}; "
         f"floor {floor:.4f} ({blocks} blocks of {threads} threads); plain_ms={plain:.4f}, "
         f"bound_ms={b_ms:.4f} ({b_by}); every pair's row read once: "
-        f"{p * d * 4 / 1e6:.1f} MB, {p * d * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        f"{p * d * 4 / 1e6:.1f} MB, {p * d * 4 / HBM_BW * 1e3:.4f} ms")
     return dict(name="rerank_fetch", route="cuda",
                 source="src/repro_torch/kernels/rerank_fetch/csrc/rerank_fetch.cu",
                 replaces="src/repro/kernels/rerank_fetch/kernel.py:31",
@@ -1082,7 +1104,7 @@ def served_replay(kept, name: str, row_bytes: int) -> dict:
     if moved["bulk"] == 0 or moved["warp"] == 0:
         raise AssertionError(f"{name}: the replay moved the routes {moved}")
     n = len(kept)
-    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound = n_bytes / HBM_BW * 1e3
     lanes = np.array([[args[-2].shape[0], int(((args[-2] >= 0) & (args[-2] < args[-3].shape[0]))
                                              .any(1).sum())] for _, args, _ in kept])
     log(f"[served] {name}: lanes a launch median {np.median(lanes[:, 0]):.0f} (max "
@@ -1609,7 +1631,7 @@ def flash_case(tag: str, q, k, v, kw: dict, dev) -> tuple[dict, float, str]:
     # (at a local layer's decode step, its window)
     n_bytes = (2 * q.numel() + 2 * int(mask.any(0).sum()) * b * k.shape[1] * dh
                ) * q.element_size()
-    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    b_ms, b_by = bound_ms(n_bytes, flops, PEAK_FLOPS)
     if decode:   # the split count as ops.py plans it for these inputs
         lo, hi = visible_key_range(sq, skv, causal=kw["causal"], window=kw["window"],
                                    q_offset=kw["q_offset"])
@@ -2442,6 +2464,8 @@ TAIL_HEAVY_EVERY = 16
 TAIL_POINT_MATCHES = 4.0
 TAIL_HEAVY_MATCHES = 512.0
 SERVE_PLAIN_REQUESTS = 256
+SERVE_LOCKSTEP = 1_024      # the lockstep requests a dtype (the first of the main path's
+                            # queries); cut from 4,096 for the script's limit
 MAX_SERVE_AP_GAP = 0.01     # kernel path against plain path, as [plain]
 
 
@@ -2521,7 +2545,7 @@ def serve_phase(engine, points, queries, r, prof, cfg, q_cfg, kernels, gt):
     Vamana engine at 1M x 128 with the reference serve CLI's settings
     (max_batch 128, 32 lanes, 8 rounds a slice; the effort regressor fitted
     on 256 calibration requests with their exact counts). Lockstep, f32 and
-    int8: the 4,096 requests at r, each response equal to
+    int8: the first SERVE_LOCKSTEP requests at r, each response equal to
     ``engine.range``'s lane; requests/s beside engine.range's QPS, exact
     latency percentiles. Then benchmarks/run.py's tail workload (every 16th
     request at the radius of ~512 mean matches, the rest at ~4) served in
@@ -2561,21 +2585,23 @@ def serve_phase(engine, points, queries, r, prof, cfg, q_cfg, kernels, gt):
                             slice_rounds=SERVE_SLICE_ROUNDS)
     cont_cfg = dataclasses.replace(lock_cfg, continuous=True)
     engines = {"float32": (engine, cfg), "int8": (engine_q, q_cfg)}
-    radii_all = np.full(q_np.shape[0], r, np.float32)
+    lq = queries[:SERVE_LOCKSTEP]
+    radii_all = np.full(lq.shape[0], r, np.float32)
     for kind, (eng, c) in engines.items():
-        eng.range(queries, r, cfg=c)
+        eng.range(lq, r, cfg=c)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = eng.range(queries, r, cfg=c)
+        want = eng.range(lq, r, cfg=c)
         torch.cuda.synchronize()
         t_range = time.perf_counter() - t0
         srv = RangeServer(eng, c, lock_cfg)
-        (resp, wall), counts = counted(kind, lambda: drive_server(srv, q_np, radii_all),
-                                       f"lockstep {kind}")
-        excused = check_against_engine(resp, want, kind == "float32", points, queries, r,
+        (resp, wall), counts = counted(
+            kind, lambda: drive_server(srv, q_np[:SERVE_LOCKSTEP], radii_all),
+            f"lockstep {kind}")
+        excused = check_against_engine(resp, want, kind == "float32", points, lq, r,
                                        f"lockstep {kind}")
         ids, cnt = served_arrays(resp, c.result_cap)
-        ap = average_precision(gt[0], gt[1], ids, cnt)
+        ap = average_precision(gt[0][:SERVE_LOCKSTEP], gt[1][:SERVE_LOCKSTEP], ids, cnt)
         lat = np.array([x.latency_s for x in resp])
         log(f"[serve] lockstep {kind}: {len(resp)} requests at r={r:.6g}, max_batch "
             f"{SERVE_MAX_BATCH} ({srv.stats['batches']} micro-batches): "
@@ -2669,8 +2695,8 @@ LIVE_K = 10_000             # rows inserted and deleted: 1 % of n (benchmarks/ru
 LIVE_INSERT_BATCH = 128     # the serve CLI's --churn path (src/repro/launch/serve.py:165-167)
 LIVE_CHECK = 256            # queries of each gate
 LIVE_DURABLE_TAIL = 2_000   # inserts and deletes after the checkpoint
-LIVE_SERVED_QUERIES = 1_024
-LIVE_SERVED_MUTATIONS = 2_000
+LIVE_SERVED_QUERIES = 256      # cut from 1,024 (and 2,000 mutations) for the script's limit
+LIVE_SERVED_MUTATIONS = 500
 LIVE_PATH = ("expand", "gatherdist", "expand_int8", "gatherdist_int8", "rerank_fetch")
 
 
@@ -2962,7 +2988,7 @@ def live_phase(graph, points, queries, r, cfg, q_cfg, kernels, vamana_aps) -> di
 
 
 SHARDS = 4                  # S: 4 contiguous shards of 250,000 at 1M
-SHARD_SERVED = 1_024        # requests through RangeServer(mesh=, sharded=)
+SHARD_SERVED = 256          # requests through RangeServer(mesh=, sharded=); cut from 1,024
 SHARD_RANKS = 2             # ranks of the second collective run, on the one card
 SHARD_RANK_TIMEOUT_S = 400
 SHARDED_PATH = {"float32": ("expand", "gatherdist"),
@@ -3356,7 +3382,7 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
 
 
 REPLICAS = 2                # R: two bit-identical copies of every shard
-REPL_SERVED = 1_024         # requests through RangeServer(replicas=)
+REPL_SERVED = 256           # requests through RangeServer(replicas=); cut from 1,024
 REPL_HEDGE_S = 0.005        # the serve CLI's --hedge-ms 5
 STRAY_TIMEOUT_S = 120       # the wall-clock hedge's losing walks, left running
 
@@ -3801,10 +3827,283 @@ def live_sharded_phase(points, queries, r, cfg, graphs, knn_graph, kernels) -> d
     return {kk: counts[kk] for kk in ("expand", "gatherdist")}
 
 
-# each run builds its own Vamana index (1M takes 145 s): cut from 200,000 to
-# keep the whole script well inside its limit (~680 s before [live sharded])
-CLI_N = 100_000
-CLI_QUERIES = 1_024
+CELL_RUNS = (("search_4k", "float32"), ("search_4k", "int8"), ("search_64k", "float32"))
+CELL_PATH = {"float32": ("expand", "gatherdist"),
+             "int8": ("expand_int8", "gatherdist_int8", "rerank_fetch")}
+CELL_PLAIN_QUERIES = 256    # the kernel-vs-plain AP gate's lanes, as [plain]
+CELL_AP_GAP = 0.01
+CELL_ITERS = 3              # timed cell calls (the median), after one warm-up
+
+
+CELL_KEEP_EVERY = 64        # the expand launches of a cell call held against the plain op
+
+
+class CellCapture:
+    """Swaps the f32 path's two kernel wrappers (``expand_cuda``,
+    ``gatherdist_cuda``) for recorders that keep the inputs of every
+    CELL_KEEP_EVERY-th expand launch (the first included) and of every
+    gatherdist launch of one cell call: the per-iteration inputs cloned,
+    the corpus and adjacency (never written) by reference. The recorders
+    launch what they wrap, so the counts move as they would."""
+
+    CLONED = {"expand_cuda": (2, 3), "gatherdist_cuda": (1, 2)}   # frontier/ids, queries
+    EVERY = {"expand_cuda": CELL_KEEP_EVERY, "gatherdist_cuda": 1}
+
+    def __init__(self):
+        self.mods = {"expand_cuda": sys.modules["repro_torch.kernels.expand.ops"],
+                     "gatherdist_cuda": sys.modules["repro_torch.kernels.gatherdist.ops"]}
+        self.seen = dict.fromkeys(self.mods, 0)
+        self.kept = []
+
+    def _record(self, inner, args, kw):
+        name = inner.__name__
+        if self.seen[name] % self.EVERY[name] == 0:
+            self.kept.append((name, self.seen[name],
+                              [a.clone() if i in self.CLONED[name] else a
+                               for i, a in enumerate(args)], dict(kw)))
+        self.seen[name] += 1
+
+    def __enter__(self):
+        self.inner = {name: getattr(mod, name) for name, mod in self.mods.items()}
+        for name, mod in self.mods.items():
+            setattr(mod, name, _Recorder(self.inner[name], self._record))
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            setattr(mod, name, self.inner[name])
+
+    def check(self, tag: str) -> dict:
+        """Each kept launch again on its inputs against its plain op: ids
+        and n_dist equal, distances within DIST_TOL. Returns each kernel's
+        (launches held, lanes a launch, largest error)."""
+        import torch
+        from repro_torch.kernels.expand import expand_frontier_ref
+        from repro_torch.kernels.gatherdist import gatherdist_ref
+        held = {}
+        for name, i, args, kw in self.kept:
+            got = self.inner[name](*args, **kw)
+            if name == "expand_cuda":
+                want = expand_frontier_ref(*args, **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
+                    raise AssertionError(f"[cells] {tag}: expand launch {i}: ids/n_dist differ "
+                                         "from the plain version")
+                err = check_close(f"[cells] {tag}: expand launch {i}", got[1], want[1],
+                                  DIST_TOL["float32"])
+            else:
+                want = gatherdist_ref(*args, **kw)
+                torch.cuda.synchronize()
+                err = check_close(f"[cells] {tag}: gatherdist launch {i}", got, want,
+                                  DIST_TOL["float32"])
+            k = name.removesuffix("_cuda")
+            n, lanes, worst = held.get(k, (0, 0, 0.0))
+            held[k] = (n + 1, max(lanes, int(args[-1].shape[0])), max(worst, err))
+            del got, want
+        missing = {k.removesuffix("_cuda") for k in self.mods} - set(held)
+        if missing:
+            raise AssertionError(f"[cells] {tag}: no {sorted(missing)} launch was captured")
+        return held
+
+
+def cells_meta_pass(mesh) -> None:
+    """[cells] meta pass: every cell of ``all_cells(include_engine=True)``
+    built at full width on the meta device (``launch.steps.build_cell``),
+    each with its analytic model flops, the bytes of its parameter,
+    optimizer-state and input trees (``utils.tree_bytes``) and the compute
+    floor of those flops at the bf16 peak."""
+    from repro_torch.analysis.roofline import analytic_model_flops
+    from repro_torch.configs import all_cells, get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.utils import tree_bytes, tree_leaves
+    t0 = time.perf_counter()
+    cells = all_cells(include_engine=True)
+    for aid, name in cells:
+        arch = get_arch(aid)
+        shape = arch.shapes[name]
+        cell = build_cell(arch, name, mesh)
+        if any(not x.is_meta for x in tree_leaves(cell.args)):
+            raise AssertionError(f"[cells] {aid} {name}: an input was allocated")
+        flops = analytic_model_flops(arch, shape, cell.args[0])
+        if len(cell.roles) != len(cell.args):
+            raise AssertionError(f"[cells] {aid} {name}: roles {cell.roles} for "
+                                 f"{len(cell.args)} args")
+        params, opt, inputs = (
+            tree_bytes([a for a, role in zip(cell.args, cell.roles) if role == want])
+            for want in ("params", "opt_state", "inputs"))
+        log(f"[cells] {aid} {name} ({shape.kind}): model flops {flops:.4g}, params "
+            f"{params / 1e9:.3f} GB, optimizer state {opt / 1e9:.3f} GB, inputs "
+            f"{inputs / 1e9:.3f} GB, compute floor at {PEAK_FLOPS / 1e12:.0f} TFLOP/s "
+            f"{flops / PEAK_FLOPS * 1e3:.4f} ms")
+    log(f"[cells] meta pass: {len(cells)} cells built at full width on the meta device in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def cells_phase(points, graph, queries, queries_64k, r, kernels) -> dict:
+    """[cells]: the cell builder (``launch.steps``) and the roofline
+    (``analysis.roofline``). The meta pass (``cells_meta_pass``), then the
+    range-engine cell materialized on the card: one shard, the main path's
+    corpus and k-NN graph (R=32) with its medoid as the start, at
+    ``EngineDeployConfig``'s search (greedy, beam 64, visit_cap 256, E=4,
+    result_cap 1024) over a one-rank mesh (``make_mesh((1, 1))``, NCCL):
+    search_4k in f32 and int8 on the main path's queries, search_64k in f32
+    on 65,536 more of the corpus's queries. The cell searches at radius 1.0
+    and the distances are squared l2, so corpus and queries are scaled by
+    1/sqrt(r): radius 1.0 there is the main path's r. For each run: the
+    cell on the first CELL_PLAIN_QUERIES queries, kernel and plain path
+    (``use_kernels=False``; AP within CELL_AP_GAP); a direct
+    ``range_search_fused`` of the shard (which warms the full batch up);
+    then one cell call over the whole batch with every launch count set to
+    0 just before and read just after (each kernel of the dtype's path
+    launched), its ids, distance bits and counts equal to the direct call
+    merged as one shard (``host_union``); in f32 that call's kernels at
+    the batch's own lane count (``CellCapture``: every 64th expand launch
+    and every gatherdist launch) held against their plain ops at DIST_TOL;
+    AP against ``exact_range_search`` at 1.0; the median wall of
+    CELL_ITERS more calls (``utils.timeit``), QPS, peak memory over them;
+    the engine's analytic flops and their floor at the f32 rate, and the
+    reference model's gather bytes (queries x visit_cap x R x
+    ``corpus_bytes_per_distance``) and their floor at ``HBM_BW``, each as
+    a share of the wall. Returns each kernel's launches summed over the
+    counted calls."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.roofline import analytic_model_flops, corpus_bytes_per_distance
+    from repro_torch.configs.range_engine import ARCH, EngineDeployConfig
+    from repro_torch.core import (
+        Graph, QuantizedCorpus, average_precision, exact_range_search, match_histogram,
+        medoid, quantize_corpus, range_search_fused)
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.utils import block_until_ready, timeit, tree_leaves
+    dev = points.device
+    card = card_line()
+    t_phase = time.perf_counter()
+    mesh = make_mesh((1, 1), device_type=dev.type)
+    try:
+        cells_meta_pass(mesh)
+        n, dim = points.shape
+        scale = 1.0 / float(np.sqrt(r))
+        pts = points * scale
+        qsets = {"search_4k": queries * scale, "search_64k": queries_64k * scale}
+        nbrs = graph.neighbors
+        start = medoid(pts).reshape(1, 1).to(torch.int32)
+        offsets = torch.zeros(1, dtype=torch.int32, device=dev)
+        qc = quantize_corpus(pts)
+        stacked = {"float32": pts[None],
+                   "int8": QuantizedCorpus(codes=qc.codes[None], meta=qc.meta[None],
+                                           raw=qc.raw[None])}
+        unscaled = {"float32": pts, "int8": qc}
+        log(f"[cells] card pass: corpus {n} x {dim} and queries scaled by 1/sqrt(r) = "
+            f"{scale:.6g} (r={r:.6g}), so the cell's radius 1.0 is r; k-NN graph R="
+            f"{nbrs.shape[1]}, start {int(start)}; mesh (1, 1) over {dist.get_backend()}; "
+            f"card {card}")
+        oracles, launches, summary = {}, {}, {}
+        for name, cdt in CELL_RUNS:
+            deploy = EngineDeployConfig(shard_corpus=n, dim=dim, corpus_dtype=cdt)
+            batch = qsets[name].shape[0]
+            shape = dataclasses.replace(ARCH.shapes[name], global_batch=batch)
+            arch = dataclasses.replace(ARCH, model_cfg=deploy, shapes={name: shape})
+            cell = build_cell(arch, name, mesh)
+            cfg = deploy.range_cfg
+            qs = qsets[name]
+            args = (stacked[cdt], nbrs[None], start, offsets, qs)
+            want = [tuple(x.shape) for x in tree_leaves(cell.args)]
+            have = [tuple(x.shape) for x in tree_leaves(args)]
+            if want != have:
+                raise AssertionError(f"[cells] {name} {cdt}: inputs {have}, the cell's {want}")
+            # the kernel path against the plain path on the first lanes
+            sub = qs[:CELL_PLAIN_QUERIES]
+            plain_arch = dataclasses.replace(arch, model_cfg=deploy.overrides(use_kernels=False))
+            plain = build_cell(plain_arch, name, mesh)
+            gt_ids, _, gt_counts = exact_range_search(pts, sub, 1.0, device=dev)
+            gt_ids, gt_counts = gt_ids.cpu().numpy(), gt_counts.cpu().numpy()
+            ap_sub = {}
+            for path, c in (("kernel", cell), ("plain", plain)):
+                ids, _, count = c.fn(*args[:4], sub)
+                ap_sub[path] = average_precision(gt_ids, gt_counts, ids.cpu().numpy(),
+                                                 count.cpu().numpy())
+            if abs(ap_sub["kernel"] - ap_sub["plain"]) > CELL_AP_GAP:
+                raise AssertionError(f"[cells] {name} {cdt}: kernel AP {ap_sub['kernel']:.4f}, "
+                                     f"plain AP {ap_sub['plain']:.4f}")
+            # the direct search of the shard, which also warms the batch up
+            radii = torch.full((batch,), 1.0, dtype=torch.float32, device=dev)
+            direct = _host(block_until_ready(range_search_fused(
+                corpus=unscaled[cdt], graph=Graph(neighbors=nbrs), queries=qs,
+                start_ids=start[0], r=radii, cfg=cfg)))
+            want = host_union([direct], [0], n, cfg.result_cap)
+            capture = CellCapture() if cdt == "float32" and dev.type == "cuda" else None
+            reset_counts(kernels)
+            with capture or contextlib.nullcontext():
+                out = block_until_ready(cell.fn(*args))
+            counts, _ = read_counts(kernels)
+            missing = [k for k in CELL_PATH[cdt] if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"[cells] {name} {cdt}: {missing} never launched {counts}")
+            for k in CELL_PATH[cdt]:
+                launches[k] = launches.get(k, 0) + counts[k]
+            ids, dists, count = (x.cpu().numpy() for x in out)
+            bad = [f for f, a, b in (("ids", ids, want["ids"]),
+                                     ("dists", dists.view(np.int32), want["dists"].view(np.int32)),
+                                     ("count", count, want["count"]))
+                   if not np.array_equal(a, b)]
+            if bad:
+                raise AssertionError(f"[cells] {name} {cdt}: {bad} differ from the direct "
+                                     "range_search_fused merged as one shard")
+            del out, direct
+            held = capture.check(f"{name} {cdt}") if capture else {}
+            del capture
+            if held and held["expand"][1] != batch:
+                raise AssertionError(f"[cells] {name} {cdt}: the held expand launches had "
+                                     f"{held['expand'][1]} lanes, not {batch}")
+            held_txt = "; ".join(
+                f"{k} {h[0]} launches at {h[1]} lanes equal to the plain op (max_abs_err "
+                f"{h[2]:.3g})" for k, h in held.items()) or "per-kernel holds in [main]"
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            wall = timeit(lambda: cell.fn(*args), warmup=1, iters=CELL_ITERS)
+            peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+            if name not in oracles:
+                g_ids, _, g_counts = exact_range_search(pts, qs, 1.0, device=dev)
+                oracles[name] = (g_ids.cpu().numpy(), g_counts.cpu().numpy())
+            ap = average_precision(*oracles[name], ids, count)
+            flops = analytic_model_flops(arch, shape, cell.args[0])
+            flops_ms = flops / F32_FLOPS * 1e3
+            gather = batch * cfg.search.visit_cap * deploy.max_degree * \
+                corpus_bytes_per_distance(dim, cdt)
+            gather_ms = gather / HBM_BW * 1e3
+            ms = wall * 1e3
+            log(f"[cells] range-engine {name} {cdt}: {batch} queries in {ms:.2f} ms wall "
+                f"(the median of {CELL_ITERS}; {batch / wall:.1f} QPS), peak device memory "
+                f"{peak:.2f} GB, AP={ap:.4f} "
+                f"(first {CELL_PLAIN_QUERIES}: kernel {ap_sub['kernel']:.4f}, plain "
+                f"{ap_sub['plain']:.4f}); ids, distance bits and counts equal to the direct "
+                f"range_search_fused; analytic flops {flops:.4g} (floor at "
+                f"{F32_FLOPS / 1e12:.0f} TFLOP/s f32 {flops_ms:.4f} ms, "
+                f"{flops_ms / ms:.2%} of the wall); reference gather bytes {gather:.4g} "
+                f"({corpus_bytes_per_distance(dim, cdt):.0f} B a distance; floor at "
+                f"{HBM_BW / 1e12:.2f} TB/s {gather_ms:.4f} ms, {gather_ms / ms:.2%} of the "
+                f"wall); launches {counts}; {held_txt}; results {match_histogram(count)}; "
+                f"card {card}")
+            summary[f"{name} {cdt}"] = {
+                "wall_ms": ms, "qps": batch / wall, "peak_gb": peak, "ap": ap,
+                "kernel_ap": ap_sub["kernel"], "plain_ap": ap_sub["plain"],
+                "model_flops": flops, "flops_floor_ms": flops_ms, "gather_bytes": gather,
+                "gather_floor_ms": gather_ms, "launches": counts,
+                "held": {k: {"launches": h[0], "lanes": h[1], "max_abs_err": h[2]}
+                         for k, h in held.items()}}
+        log(json.dumps({"[cells]": {**summary, "card": card}}))
+    finally:
+        dist.destroy_process_group()
+    log(f"[cells] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# each run builds its own Vamana index (1M takes 145 s): cut from 200,000,
+# then from 100,000 and 1,024 queries, to keep the whole script well inside
+# its limit
+CLI_N = 50_000
+CLI_QUERIES = 512
 CLI_RUNS = (("--early-stop", "--mixed-radius"),
             ("--shards", "4", "--replicas", "2", "--hedge-ms", "5", "--down-replicas", "1:0,3:1"),
             ("--churn", "0.05"))
@@ -3885,7 +4184,7 @@ def train_card_vs_cpu(family: str, cfg, opt, batch, dev, tol: float, name: str) 
     from repro_torch.launch.train import init_params
     from repro_torch.models import gcn_loss, loss_fn, recsys_loss
     from repro_torch.optim import init_adamw, make_train_step
-    from repro_torch.optim.adamw import _leaves
+    from repro_torch.utils import tree_leaves
     loss = functools.partial({"lm": loss_fn, "gnn": gcn_loss, "recsys": recsys_loss}[family],
                              cfg=cfg)
     start = init_params(family, cfg, SEED, torch.device("cpu"))
@@ -3894,7 +4193,7 @@ def train_card_vs_cpu(family: str, cfg, opt, batch, dev, tol: float, name: str) 
         tree = _tree_to(start, d)
         tree, _, metrics = make_train_step(loss, opt)(
             tree, init_adamw(tree, opt), batch)
-        out[d.type] = (_leaves(tree), float(metrics["loss"]))
+        out[d.type] = (tree_leaves(tree), float(metrics["loss"]))
     (cpu, lc), (card, lg) = out["cpu"], out["cuda"]
     worst = max(rel_l2(a.cpu(), b) for a, b in zip(card, cpu))
     if worst > tol or abs(lc - lg) > 1e-5 * abs(lc):
@@ -3972,7 +4271,7 @@ def train_lm_phase(dev, flash) -> dict:
     from repro_torch.models import (
         init_transformer, loss_fn, prefill, transformer_from_tree, transformer_tree)
     from repro_torch.optim import init_adamw, make_train_step
-    from repro_torch.optim.adamw import _leaves
+    from repro_torch.utils import tree_leaves
     card = card_line()
     cfg = dataclasses.replace(qwen3_14b.ARCH.model_cfg, n_layers=TRAIN_LM_LAYERS)
     torch.cuda.empty_cache()
@@ -3981,7 +4280,7 @@ def train_lm_phase(dev, flash) -> dict:
     tree = transformer_tree(init_transformer(cfg, seed=SEED, device=dev, f32_masters=True), cfg)
     opt_state = init_adamw(tree, qwen3_14b.ARCH.opt_cfg)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(tree))
+    n_params = sum(t.numel() for t in tree_leaves(tree))
     state_gb = 4 * n_params * 4 / 1e9
     log(f"[train lm] qwen3-14b at full width (d_model {cfg.d_model}, {cfg.n_heads} heads "
         f"over {cfg.n_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab:,} untied), depth cut from "
@@ -3998,7 +4297,7 @@ def train_lm_phase(dev, flash) -> dict:
     _check_finite(metrics, "[train lm]")
     if train_launches != 0:
         raise AssertionError(f"[train lm]: flashattn launched {train_launches} times in training")
-    if not all(t.dtype == torch.float32 for t in _leaves(tree)):
+    if not all(t.dtype == torch.float32 for t in tree_leaves(tree)):
         raise AssertionError("[train lm]: a master left f32")
     toks = TRAIN_LM_BATCH * TRAIN_LM_SEQ
     steady = secs[1:]
@@ -4066,7 +4365,7 @@ def train_recsys_phase(dev) -> None:
     from repro_torch.data import RecsysDataConfig, recsys_batch
     from repro_torch.models import init_recsys, recsys_forward, recsys_loss, recsys_tree
     from repro_torch.optim import init_adamw, make_train_step
-    from repro_torch.optim.adamw import _leaves
+    from repro_torch.utils import tree_leaves
     card = card_line()
 
     def data(cfg, rows, step):
@@ -4088,7 +4387,7 @@ def train_recsys_phase(dev) -> None:
         state = init_adamw(tree, mod.ARCH.opt_cfg)
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
-        n_params = sum(t.numel() for t in _leaves(tree))
+        n_params = sum(t.numel() for t in tree_leaves(tree))
         batches = [data(cfg, TRAIN_RECSYS_ROWS, s) for s in range(TRAIN_RECSYS_STEPS)]
         step = make_train_step(functools.partial(recsys_loss, cfg=cfg), mod.ARCH.opt_cfg)
         tree, state, secs, upd_ms, metrics = timed_steps(step, tree, state, batches, dev)
@@ -4128,7 +4427,8 @@ def train_recsys_phase(dev) -> None:
                                          f"logits {tuple(logit.shape)} not finite")
                 parts.append(f"{shape} ({rows:,} rows) {ms:.3f} ms, {rows / ms * 1e3:,.0f} rows/s")
         log(f"[train recsys] {mod.ARCH.arch_id} served at full vocabulary "
-            f"({cfg.vocab:,} a field, {sum(t.numel() for t in _leaves(tree)) * 4 / 1e9:.2f} GB): "
+            f"({cfg.vocab:,} a field, "
+            f"{sum(t.numel() for t in tree_leaves(tree)) * 4 / 1e9:.2f} GB): "
             + "; ".join(parts) + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del tree
         torch.cuda.empty_cache()
@@ -4245,6 +4545,7 @@ def train_cli_phase() -> None:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="corpus size")
     ap.add_argument("--profile", action="store_true",
@@ -4265,12 +4566,6 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    try:
-        import repro_torch  # noqa: F401
-    except ModuleNotFoundError:
-        print(f"chip_smoke: the port's package is not in {ROOT}/src: run this "
-              "script from a checkout of the repo", file=sys.stderr)
         return 1
     if args.sharded_rank is not None:   # a rank of the [sharded] phase's second run
         return sharded_rank(args.sharded_rank, args.sharded_world, args.sharded_dir,
@@ -4562,7 +4857,19 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_phase()
     log(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
-    del points, queries, graph, sample
+
+    # -- 19b. the cell builder: every cell on meta, the engine's on the card ------
+    t0 = time.perf_counter()
+    ds_64k = make_corpus("bigann-like", n=args.n, n_queries=N_QUERIES_64K, seed=SEED)
+    if not np.array_equal(ds_64k.points, ds.points):
+        raise AssertionError("[cells] the search_64k draw holds another corpus")
+    queries_64k = torch.as_tensor(ds_64k.queries, device=dev)
+    del ds_64k
+    log(f"[cells] {N_QUERIES_64K} more queries of the corpus (seed {SEED}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        cells_launches = cells_phase(points, graph, queries, queries_64k, r, kernels)
+    del points, queries, queries_64k, graph, sample
     torch.cuda.empty_cache()
 
     # -- 20-23. training: the LM, the recsys family, the GCN, the CLI ------------
@@ -4594,6 +4901,8 @@ def main() -> int:
         entries[name]["replicated_launches"] = n
     for name, n in live_sharded_launches.items():
         entries[name]["live_sharded_launches"] = n
+    for name, n in cells_launches.items():
+        entries[name]["cells_launches"] = n
     entries["rerank_fetch"]["fallback_launches"] = fallback_launches
     entries["rerank_fetch"]["tier_launches"] = tier_launches
     for name in ("expand_int8", "gatherdist_int8"):
@@ -4602,6 +4911,7 @@ def main() -> int:
     entries["flashattn"] = lm_entry
     log(f"[main] peak device memory of the engine phases "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[total] the script took {time.perf_counter() - t_script:.1f} s")
     log(card_line())
     extra = ("form", "int8_query_ms", "expand_route", "warp_ms", "served_ms",
              "served_warp_ms", "served_launches", "served_bound_ms",
@@ -4622,7 +4932,8 @@ def main() -> int:
              "live_sharded_launches", "lm_moe_launches", "moe_ms", "moe_plain_ms",
              "moe_bound_ms", "moe_bound_by", "moe_library_ms", "moe_decode_ms",
              "moe_decode_plain_ms", "moe_decode_bound_ms", "moe_decode_bound_by",
-             "moe_decode_library_ms", "train_launches", "train_prefill_launches")
+             "moe_decode_library_ms", "train_launches", "train_prefill_launches",
+             "cells_launches")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

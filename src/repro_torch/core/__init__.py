@@ -7,6 +7,7 @@ from .beam_search import (
     ES_RATIO_TOP10,
     BeamState,
     SearchConfig,
+    beam_search,
     beam_search_batch,
     broadcast_radius,
     topk_from_state,
@@ -15,6 +16,7 @@ from .build import BuildConfig, build_knn_graph, build_vamana, insert_batch_step
 from .corpus import (
     CORPUS_DTYPES,
     META_BYTES,
+    Corpus,
     QuantizedCorpus,
     bytes_per_vector,
     corpus_cast,
@@ -36,7 +38,7 @@ from .corpus import (
 )
 from .distances import gather_dist, pairwise_dist, point_dist
 from .engine import RangeSearchEngine
-from .graph import Graph, medoid, start_points
+from .graph import Graph, from_lists, medoid, random_regular, start_points
 from .labels import (
     LabelFilter,
     all_pass_filter,

@@ -428,6 +428,16 @@ def broadcast_radius(r, n: int, default: float = float("inf"),
     return r
 
 
+def beam_search(points, graph: Graph, q: torch.Tensor, start_ids: torch.Tensor, r,
+                cfg: SearchConfig, es_radius=None) -> BeamState:
+    """Run the search loop for one query ``q`` (d,) (``r``/``es_radius`` are
+    scalars): a batch of one through ``beam_search_batch``, its lane axis
+    dropped from every field."""
+    st = beam_search_batch(points, graph, torch.as_tensor(q)[None], start_ids, r, cfg,
+                           es_radius)
+    return BeamState(**{f.name: getattr(st, f.name)[0] for f in dataclasses.fields(st)})
+
+
 def beam_search_batch(points, graph: Graph, queries: torch.Tensor,
                       start_ids: torch.Tensor, r, cfg: SearchConfig,
                       es_radius=None) -> BeamState:

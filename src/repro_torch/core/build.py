@@ -258,10 +258,11 @@ def build_vamana(points, cfg: BuildConfig = BuildConfig(), seed: int = 0,
     return Graph(neighbors=nbr_rows)
 
 
-def build_knn_graph(points, k: int = 16, metric: str = "l2",
+def build_knn_graph(points, k: int = 16, metric: str = "l2", mutual: bool = False,
                     device="cuda", block: int = 16384,
                     query_block: int = 8192) -> Graph:
-    """Brute-force k-NN graph: each node's k nearest other nodes."""
+    """Brute-force k-NN graph: each node's k nearest other nodes.
+    ``mutual`` is taken and ignored, as the reference does."""
     ids, _ = exact_topk(points, points, k=k + 1, metric=metric, block=block,
                         query_block=query_block, device=device)
     # drop the self column: move self (if present) to the end, take k

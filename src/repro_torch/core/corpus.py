@@ -81,7 +81,9 @@ class QuantizedCorpus:
         return self.meta[..., 2]
 
 
-Corpus = Union[torch.Tensor, QuantizedCorpus]
+# The third arm is ``tier.TieredCorpus`` (duck-typed via its ``is_tiered``
+# marker rather than imported: core stays tier-free).
+Corpus = Union[torch.Tensor, QuantizedCorpus, "TieredCorpus"]  # noqa: F821
 
 
 def quantize_rows(vecs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

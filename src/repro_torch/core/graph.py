@@ -6,10 +6,12 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
-from ..utils import INVALID_ID
+from ..utils import INVALID_ID, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +48,34 @@ class Graph:
         pad = torch.full((self.num_nodes, r_pad - r), INVALID_ID, dtype=torch.int32,
                          device=self.neighbors.device)
         return Graph(neighbors=torch.cat([self.neighbors, pad], dim=1))
+
+
+def from_lists(lists: list[list[int]], max_degree: Optional[int] = None, *,
+               device="cuda") -> Graph:
+    """Build a Graph from python adjacency lists (testing convenience)."""
+    r = max_degree if max_degree is not None else max((len(l) for l in lists), default=1)
+    r = max(r, 1)
+    out = np.full((len(lists), r), INVALID_ID, dtype=np.int32)
+    for i, l in enumerate(lists):
+        if len(l) > r:
+            raise ValueError(f"node {i} has degree {len(l)} > max_degree {r}")
+        out[i, : len(l)] = np.asarray(l, dtype=np.int32)
+    return Graph(neighbors=torch.from_numpy(out).to(resolve_device(device)))
+
+
+def random_regular(key, n: int, degree: int, *, device="cuda") -> Graph:
+    """Random out-degree-``degree`` digraph (Vamana's initialization).
+    ``key`` is an int seed (drawn on ``device``) or a ``torch.Generator``
+    (drawn on its own device), where the reference takes a JAX key."""
+    if isinstance(key, torch.Generator):
+        gen, dev = key, key.device
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(key))
+    nbrs = torch.randint(0, n, (n, degree), generator=gen, device=dev, dtype=torch.int32)
+    # avoid trivial self loops (shift by 1 mod n where equal to row id)
+    row = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    return Graph(neighbors=torch.where(nbrs == row, (nbrs + 1) % n, nbrs))
 
 
 def medoid(points: torch.Tensor) -> torch.Tensor:

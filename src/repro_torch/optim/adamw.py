@@ -20,6 +20,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..utils import tree_leaves
+
 UPDATE_CHUNK = 1 << 26   # elements the update (or a leaf's norm) computes at once
 
 
@@ -37,12 +39,6 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_frac: float = 0.1
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [tree]
 
 
 def _map(fn, tree, *rest):
@@ -80,7 +76,7 @@ def _square_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack([_square_sum(x) for x in _leaves(tree)])))
+    return torch.sqrt(torch.sum(torch.stack([_square_sum(x) for x in tree_leaves(tree)])))
 
 
 def _clip_scale(tree, max_norm: float):
@@ -101,7 +97,7 @@ def clip_by_global_norm(tree, max_norm: float):
 def init_adamw(params, cfg: AdamWConfig) -> dict:
     def zeros_like(p):
         return torch.zeros(p.shape, dtype=cfg.moment_dtype or p.dtype, device=p.device)
-    step = torch.zeros((), dtype=torch.int32, device=_leaves(params)[0].device)
+    step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
     return {"m": _map(zeros_like, params), "v": _map(zeros_like, params), "step": step}
 
 
@@ -128,8 +124,8 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
         pf = pf - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf)
         return pf.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
 
-    for p, g, m, v in zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
-                          _leaves(state["v"])):
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+                          tree_leaves(state["v"])):
         flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
         for i in range(0, flat[0].numel(), UPDATE_CHUNK):
             part = [t[i:i + UPDATE_CHUNK] for t in flat]
@@ -153,7 +149,7 @@ def make_train_step(
     and averages their gradients (the fixed-memory large-batch recipe).
     ``params`` and ``opt_state`` are updated in place (``adamw_update``)."""
     def grads_of(params, batch):
-        leaves = _leaves(params)
+        leaves = tree_leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         it = iter(live)
         tree = _map(lambda _: next(it), params)
@@ -170,7 +166,7 @@ def make_train_step(
                          batch)
             adt = opt_cfg.accum_dtype or torch.float32
             gsum = _map(lambda p: torch.zeros(p.shape, dtype=adt, device=p.device), params)
-            lsum = torch.zeros((), device=_leaves(params)[0].device)
+            lsum = torch.zeros((), device=tree_leaves(params)[0].device)
             for i in range(accum_steps):
                 loss, _, grads = grads_of(params, _map(lambda x: x[i], micro))
                 gsum = _map(lambda a, g: a + g.to(a.dtype), gsum, grads)

@@ -32,7 +32,8 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from ..dist.sharding import MESH_TRAINER
-from ..optim.adamw import AdamWConfig, _leaves, init_adamw, make_train_step
+from ..optim.adamw import AdamWConfig, init_adamw, make_train_step
+from ..utils import tree_leaves
 from .checkpoint import CheckpointManager
 
 
@@ -59,7 +60,7 @@ class Trainer:
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts)
         self.params = params
         self.opt_state = init_adamw(params, opt_cfg)
-        self.device = _leaves(params)[0].device
+        self.device = tree_leaves(params)[0].device
         self.step = 0
         self._stop = False
         self._metrics_f = None

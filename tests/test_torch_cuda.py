@@ -1769,7 +1769,7 @@ def _train_step_card_vs_cpu(family, cfg, opt, batch, cuda_device, tol=1e-4):
     from repro_torch.launch.train import init_params
     from repro_torch.models import gcn_loss, loss_fn, recsys_loss
     from repro_torch.optim import init_adamw, make_train_step
-    from repro_torch.optim.adamw import _leaves
+    from repro_torch.utils import tree_leaves
 
     loss = functools.partial({"lm": loss_fn, "gnn": gcn_loss, "recsys": recsys_loss}[family],
                              cfg=cfg)
@@ -1783,7 +1783,7 @@ def _train_step_card_vs_cpu(family, cfg, opt, batch, cuda_device, tol=1e-4):
         out[dev.type] = (tree, float(metrics["loss"]))
     (cpu, lc), (card, lg) = out["cpu"], out["cuda"]
     assert abs(lc - lg) <= 1e-5 * abs(lc)
-    for a, b in zip(_leaves(card), _leaves(cpu)):
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
         assert a.device.type == "cuda" and a.dtype == b.dtype == torch.float32
         err = float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
         assert err <= tol, err
@@ -1824,3 +1824,67 @@ def test_recsys_train_step_on_the_card_equals_cpu(cuda_device, arch):
         two_tower=cfg.kind == "two_tower", n_sparse_item=cfg.n_sparse_item), 0)
     _train_step_card_vs_cpu("recsys", cfg, AdamWConfig(lr=1e-3, warmup_steps=1), batch,
                             cuda_device)
+
+
+def _one_shard_union(res, cap: int) -> tuple:
+    """A shard's ``range_search_fused`` result merged as the sharded engine
+    merges one shard, in numpy: INVALID slots at +inf, a stable sort on the
+    distances' f32 total order, the first ``cap``; the count capped."""
+    ids = res.ids.cpu().numpy()
+    dists = np.where(ids == INVALID_ID, np.float32(np.inf), res.dists.cpu().numpy())
+    u = dists.astype(np.float32).view(np.uint32).astype(np.int64)
+    key = np.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+    order = np.argsort(key, axis=1, kind="stable")[:, :cap]
+    count = np.minimum((ids != INVALID_ID).sum(1), cap).astype(np.int32)
+    return np.take_along_axis(ids, order, 1), np.take_along_axis(dists, order, 1), count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus_dtype", ["float32", "int8"])
+def test_engine_cell_on_the_card(cuda_device, corpus_dtype):
+    """The range-engine cell (``launch.steps``) at ``range_engine.reduced()``
+    on a one-rank NCCL mesh: its ``fn`` on card tensors equals a direct
+    ``range_search_fused`` of the shard at radius 1.0 merged as one shard,
+    ids, distance bits and counts, and it launched every kernel of its
+    path."""
+    import torch.distributed as dist
+    from repro_torch.configs import range_engine
+    from repro_torch.core import Graph, medoid, range_search_fused
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch.steps import build_cell
+    cfg = range_engine.reduced().overrides(corpus_dtype=corpus_dtype)
+    shape = dataclasses.replace(range_engine.ARCH.shapes["search_4k"], global_batch=256)
+    arch = dataclasses.replace(range_engine.ARCH, model_cfg=cfg, shapes={"search_4k": shape})
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy((rng.standard_normal((cfg.shard_corpus, cfg.dim)) * 0.3)
+                           .astype(np.float32)).to(cuda_device)
+    qs = torch.from_numpy((rng.standard_normal((256, cfg.dim)) * 0.3)
+                          .astype(np.float32)).to(cuda_device)
+    graph = build_knn_graph(pts, k=cfg.max_degree, device=cuda_device)
+    start = medoid(pts).reshape(1, 1).to(torch.int32)
+    corpus = quantize_corpus(pts) if corpus_dtype == "int8" else pts
+    stacked = (type(corpus)(codes=corpus.codes[None], meta=corpus.meta[None],
+                            raw=corpus.raw[None])
+               if corpus_dtype == "int8" else pts[None])
+    path = ((expand_int8_cuda, gatherdist_int8_cuda, rerank_fetch_cuda)
+            if corpus_dtype == "int8" else (expand_cuda, gatherdist_cuda))
+    mesh = make_mesh((1, 1))
+    try:
+        assert dist.get_backend() == "nccl"
+        cell = build_cell(arch, "search_4k", mesh)
+        for k in path:
+            k.launches = 0
+        ids, dists, count = cell.fn(stacked, graph.neighbors[None], start,
+                                    torch.zeros(1, dtype=torch.int32, device=cuda_device), qs)
+        torch.cuda.synchronize()
+        assert all(k.launches > 0 for k in path), [k.launches for k in path]
+    finally:
+        dist.destroy_process_group()
+    direct = range_search_fused(corpus=corpus, graph=Graph(neighbors=graph.neighbors),
+                                queries=qs, start_ids=start[0],
+                                r=torch.ones(256, device=cuda_device), cfg=cfg.range_cfg)
+    w_ids, w_dists, w_count = _one_shard_union(direct, cfg.range_cfg.result_cap)
+    np.testing.assert_array_equal(ids.cpu().numpy(), w_ids)
+    np.testing.assert_array_equal(dists.cpu().numpy().view(np.int32), w_dists.view(np.int32))
+    np.testing.assert_array_equal(count.cpu().numpy(), w_count)
+    assert count.max() > 0

@@ -36,7 +36,7 @@ from repro_torch.layers import gather_scatter, sym_norm_weights
 from repro_torch.models import (
     GCNConfig, gcn_batched_graphs, gcn_forward, gcn_loss, init_gcn)
 from repro_torch.optim import AdamWConfig, init_adamw, make_train_step
-from repro_torch.optim.adamw import _leaves
+from repro_torch.utils import tree_leaves
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -240,5 +240,5 @@ def test_gcn_learns_sbm_labels_and_samples_train():
     loss, _ = gcn_loss(params, {"feats": b.feats, "edge_src": b.edge_src,
                                 "edge_dst": b.edge_dst, "labels": b.labels}, cfg)
     assert np.isfinite(float(loss))
-    assert all(t.dtype == torch.float32 for t in _leaves(init_gcn(gcn_cora.ARCH.model_cfg,
+    assert all(t.dtype == torch.float32 for t in tree_leaves(init_gcn(gcn_cora.ARCH.model_cfg,
                                                                   device="meta")))

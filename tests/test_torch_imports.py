@@ -48,7 +48,9 @@ NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
          "repro_torch.layers.segment", "repro_torch.layers.interactions",
          "repro_torch.data.graphs", "repro_torch.data.recsys", "repro_torch.configs.wide_deep",
          "repro_torch.configs.dlrm_rm2", "repro_torch.configs.autoint",
-         "repro_torch.configs.gcn_cora")
+         "repro_torch.configs.gcn_cora", "repro_torch.analysis",
+         "repro_torch.analysis.roofline", "repro_torch.launch.mesh",
+         "repro_torch.launch.steps")
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -40,7 +40,7 @@ from repro_torch.layers import (
     fm_interaction, init_field_attention, multi_field_lookup)
 from repro_torch.models import init_recsys, recsys_forward, recsys_loss, recsys_tree
 from repro_torch.optim import AdamWConfig, init_adamw, make_train_step
-from repro_torch.optim.adamw import _leaves
+from repro_torch.utils import tree_leaves
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 OPT = dict(lr=1e-3, warmup_steps=1, schedule="constant")
@@ -226,7 +226,7 @@ def test_forward_loss_and_gradients_match_jax(arch):
     for got, ref in zip(out if isinstance(out, tuple) else (out,),
                         want if isinstance(want, tuple) else (want,)):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
-    live = [t.clone().requires_grad_(True) for t in _leaves(tree)]
+    live = [t.clone().requires_grad_(True) for t in tree_leaves(tree)]
     it = iter(live)
     loss, metrics = recsys_loss(jax.tree.map(lambda _: next(it), tree), p.batch, p.cfg)
     grads = torch.autograd.grad(loss, live)
@@ -246,7 +246,7 @@ def test_three_adamw_steps_match_jax(arch):
     state = init_adamw(tree, opt)
     for _ in range(3):
         tree, state, _ = step(tree, state, p.batch)
-    for (path, want), got in zip(p.after.items(), _leaves(tree)):
+    for (path, want), got in zip(p.after.items(), tree_leaves(tree)):
         assert _rel_l2(got.numpy(), want) <= 1e-4, (path, _rel_l2(got.numpy(), want))
 
 
@@ -268,7 +268,7 @@ def test_init_draws_from_a_seed():
     cfg = dlrm_rm2.reduced()
     a, b = (recsys_tree(init_recsys(cfg, seed=s, device="cpu")) for s in (3, 3))
     c = recsys_tree(init_recsys(cfg, seed=4, device="cpu"))
-    assert all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
     assert not torch.equal(a["tables"], c["tables"])
     assert float(a["tables"].abs().max()) <= 0.06 and not a["top"]["b0"].any()
 
@@ -280,7 +280,7 @@ def test_two_tower_loss_in_row_blocks_matches_jax(monkeypatch):
     p = pair("two-tower-retrieval")
     monkeypatch.setattr(prec, "IN_BATCH_ROWS", 16)
     tree = recsys_tree(p.model)
-    live = [t.clone().requires_grad_(True) for t in _leaves(tree)]
+    live = [t.clone().requires_grad_(True) for t in tree_leaves(tree)]
     it = iter(live)
     loss, metrics = recsys_loss(jax.tree.map(lambda _: next(it), tree), p.batch, p.cfg)
     grads = torch.autograd.grad(loss, live)

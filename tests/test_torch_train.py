@@ -55,7 +55,7 @@ from repro_torch.kernels.flashattn import flash_attention
 from repro_torch.layers import attention as port_attention
 from repro_torch.models import transformer as ptf
 from repro_torch.optim import AdamWConfig, init_adamw, make_train_step
-from repro_torch.optim.adamw import _leaves
+from repro_torch.utils import tree_leaves
 from repro_torch.train import CheckpointManager, Trainer, TrainerConfig
 
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -191,7 +191,7 @@ def jax_run(name) -> JaxRun:
 
 def port_grads(tree, batch, cfg):
     """(loss, metrics, gradient leaves) of the port's loss_fn on ``tree``."""
-    live = [t.clone().requires_grad_(True) for t in _leaves(tree)]
+    live = [t.clone().requires_grad_(True) for t in tree_leaves(tree)]
     it = iter(live)
     loss, metrics = ptf.loss_fn(jax.tree.map(lambda _: next(it), tree), batch, cfg)
     grads = torch.autograd.grad(loss, live)
@@ -206,7 +206,7 @@ def test_loss_and_every_gradient_leaf_match_jax(name):
     jpaths = ["/".join(str(k.key) for k in path)
               for path, _ in jax.tree_util.tree_flatten_with_path(run.params)[0]]
     assert list(_flat(tree)) == jpaths
-    assert all(t.dtype == torch.float32 for t in _leaves(tree))
+    assert all(t.dtype == torch.float32 for t in tree_leaves(tree))
     loss, metrics, grads = port_grads(tree, run.batch, run.cfg)
     np.testing.assert_allclose(loss, run.loss, rtol=1e-5)
     for k, v in run.metrics.items():
@@ -232,8 +232,8 @@ def test_three_adamw_steps_match_jax(name):
     for _ in range(3):
         new, state, metrics = step(new, state, run.batch)
     assert int(state["step"]) == 3 and np.isfinite(float(metrics["grad_norm"]))
-    assert all(a is b for a, b in zip(_leaves(new), _leaves(tree)))
-    for (path, want), got in zip(run.after.items(), _leaves(new)):
+    assert all(a is b for a, b in zip(tree_leaves(new), tree_leaves(tree)))
+    for (path, want), got in zip(run.after.items(), tree_leaves(new)):
         assert _rel_l2(got.numpy(), want) <= 1e-4, (path, _rel_l2(got.numpy(), want))
 
 
@@ -250,12 +250,12 @@ def test_chunked_update_equals_the_whole_leaf_update(monkeypatch):
     sa, sb = init_adamw(a, opt), init_adamw(b, opt)
     new_a, sa2, _ = make_train_step(loss, opt)(a, sa, run.batch)
     monkeypatch.setattr(adamw, "UPDATE_CHUNK", 1000)
-    assert max(t.numel() for t in _leaves(b)) > 1000
+    assert max(t.numel() for t in tree_leaves(b)) > 1000
     new_b, sb2, _ = make_train_step(loss, opt)(b, sb, run.batch)
-    assert all(x is y for x, y in zip(_leaves(new_a), _leaves(a)))
-    assert all(x is y for x, y in zip(_leaves(sa2["m"]), _leaves(sa["m"])))
-    assert all(torch.equal(x, y) for x, y in zip(_leaves(new_a), _leaves(new_b)))
-    assert all(torch.equal(x, y) for x, y in zip(_leaves(sa2), _leaves(sb2)))
+    assert all(x is y for x, y in zip(tree_leaves(new_a), tree_leaves(a)))
+    assert all(x is y for x, y in zip(tree_leaves(sa2["m"]), tree_leaves(sa["m"])))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(new_a), tree_leaves(new_b)))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(sa2), tree_leaves(sb2)))
 
 
 def test_masked_labels_match_jax():
@@ -314,7 +314,7 @@ def test_bf16_compute_over_f32_masters_matches_jax():
     popt = AdamWConfig(**OPT)
     new, _, _ = make_train_step(functools.partial(ptf.loss_fn, cfg=cfg), popt)(
         tree, init_adamw(tree, popt), run.batch)
-    for want, got in zip(_flat(_np_tree(jnew)).values(), _leaves(new)):
+    for want, got in zip(_flat(_np_tree(jnew)).values(), tree_leaves(new)):
         assert got.dtype == torch.float32          # the masters stay f32
         assert _rel_l2(got.numpy(), want) <= 5e-3
 
@@ -404,16 +404,16 @@ def test_trainer_restart_resumes_exactly(tmp_path):
     tr1.fit(lm_batches(DCFG))
     tr2 = _trainer(ck, total=30)
     assert tr2.maybe_restore() and tr2.step == 20
-    for a, b in zip(_leaves(tr2.params), _leaves(tr1.params)):
+    for a, b in zip(tree_leaves(tr2.params), tree_leaves(tr1.params)):
         assert torch.equal(a, b)
-    for a, b in zip(_leaves(tr2.opt_state), _leaves(tr1.opt_state)):
+    for a, b in zip(tree_leaves(tr2.opt_state), tree_leaves(tr1.opt_state)):
         assert torch.equal(a, b)
     out = tr2.fit(lm_batches(DCFG, start_step=20))
     assert out["final_step"] == 30
     # the same 30 steps uninterrupted end on the same bits
     tr3 = _trainer(tmp_path / "ck3", total=30)
     tr3.fit(lm_batches(DCFG))
-    for a, b in zip(_leaves(tr3.params), _leaves(tr2.params)):
+    for a, b in zip(tree_leaves(tr3.params), tree_leaves(tr2.params)):
         assert torch.equal(a, b)
 
 
@@ -425,7 +425,7 @@ def test_trainer_checkpoints_bf16_moments(tmp_path):
     tr1.fit(lm_batches(DCFG))
     tr2 = Trainer(LOSS, _params(), opt, TrainerConfig(total_steps=3, ckpt_dir=str(tmp_path)))
     assert tr2.maybe_restore() and tr2.step == 3
-    for a, b in zip(_leaves(tr2.opt_state), _leaves(tr1.opt_state)):
+    for a, b in zip(tree_leaves(tr2.opt_state), tree_leaves(tr1.opt_state)):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     assert tr2.opt_state["m"]["embed"].dtype == torch.bfloat16
 
@@ -479,7 +479,7 @@ def test_gradient_accumulation_matches_big_batch():
     a, b = _params(), _params()
     p1, _, _ = make_train_step(LOSS, opt)(a, init_adamw(a, opt), batch)
     p2, _, _ = make_train_step(LOSS, opt, accum_steps=2)(b, init_adamw(b, opt), batch)
-    for a, b in zip(_leaves(p1), _leaves(p2)):
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3, atol=2e-4)
 
 
