@@ -51,12 +51,16 @@ Phases, each printed as it ends:
      the resident int8 engine's in every call, the same rerank_fetch route;
      the counters (pairs, rows, hits, misses, MB fetched, evictions), the
      device bytes against the resident corpus's, QPS against resident;
- 12. [vamana]: ``build_vamana`` on the card (R=32, beam 64, alpha 1.2,
+ 12. [vamana]: the Vamana path (12-15) on its own bigann-like draw of
+     250,000 points (VAMANA_N; the same distribution and seed, its own
+     4,096 queries, radius for half of them to answer empty, and oracle):
+     ``build_vamana`` on the card (R=32, beam 64, alpha 1.2,
      batches up to 1024; the reference's serve CLI settings): build time
      and its split (search, prune, reverse edges), expand and gatherdist
      launches and routes, every row checked (no id out of range, no self
      loop, no duplicate), degrees and the share reachable from the medoid;
-     greedy f32 and int8 on it beside the k-NN graph's QPS and AP, the
+     greedy f32 and int8 on it beside the main corpus's k-NN graph's QPS
+     and AP, the
      kernel path against the plain path (AP within 0.01), the guard band;
  13. [filtered]: benchmarks/run.py's filtered workload on the Vamana engine
      (16 labels, 1-2 a point; 128 queries alternating one-label AND and
@@ -73,7 +77,7 @@ Phases, each printed as it ends:
      int8, on the first 1,024 queries at r, every response equal to its lane of
      ``engine.range`` (f32: the distances' bits too), requests/s beside
      engine.range's QPS and exact p50/p99; benchmarks/run.py's tail
-     workload (1,024 requests, every 16th at the radius of ~512 mean
+     workload (512 requests, every 16th at the radius of ~512 mean
      matches, the rest at ~4) in lockstep and continuously, each after a
      warm-up pass, f32 and int8: continuous equal to lockstep per request,
      AP of both, point p50/p99, heavy p99, the point-p99 ratio, the pool
@@ -114,21 +118,23 @@ Phases, each printed as it ends:
      result, with its wall time and the model-axis gather's; the host
      fan-out healthy (threaded and serial, bit for bit), with shard 1 down
      (coverage 0.75, the union of the other three) and with garbage at
-     (shard 2, attempt 0) (caught, retried, healthy); ``RangeServer(mesh=,
+     (shard 2, attempt 0) (caught, retried, healthy), each on the first
+     1,024 queries (FANOUT_QUERIES); ``RangeServer(mesh=,
      sharded=)`` and ``RangeServer(sharded=, injector=)`` over 256
      requests, each equal to its lane and annotated when degraded;
      ``sharded_launches`` in the kernels line;
  17. [replicated]: ``fault.replica`` over [sharded]'s f32 and int8 corpora,
      two bit-identical replicas (``ReplicatedCorpus.replicate``,
-     ``parity_ok`` on the card; the fleet's device bytes), each gate bit for
-     bit the unreplicated serial fan-out: (a) healthy, threaded and serial;
-     (b) replicas (1, 0) and (3, 1) down: coverage 1.0, ``replica_lost``;
-     (c) scripted-slow primaries hedged at 5 ms: 4 hedges fired and won;
-     (d) the wall-clock hedge (hedges fired, wall; its losing walks waited
-     out); (e) a breaker tripped by scripted errors, re-admitted through
-     the half-open probe past an injected cooldown, and ``lose`` +
-     ``maintain`` recovery; (f) both replicas of shard 2 down: coverage
-     0.75, ``shard_lost``, the survivors' union; then 256 requests through
+     ``parity_ok`` on the card; the fleet's device bytes), each gate on the
+     first 1,024 queries and bit for bit the unreplicated serial fan-out:
+     (a) healthy, threaded and serial; (b) replicas (1, 0) and (3, 1)
+     down: coverage 1.0, ``replica_lost``; (c) scripted-slow primaries
+     hedged at 5 ms: 4 hedges fired and won; (d) the wall-clock hedge
+     (hedges fired, wall; its losing walks waited out); (e) a breaker
+     tripped by scripted errors, re-admitted through the half-open probe
+     past an injected cooldown, and ``lose`` + ``maintain`` recovery; (f)
+     both replicas of shard 2 down: coverage 0.75, ``shard_lost``, the
+     survivors' union; then 256 requests through
      ``RangeServer(replicas=2)`` at the serve CLI's fault, hedge and retry
      settings, each equal to its lane and annotated 7 of 8 replicas
      (requests/s, exact p50/p99, the replication stats);
@@ -145,8 +151,8 @@ Phases, each printed as it ends:
      mutations rejoins bit for bit; AP on the final live set;
      ``live_sharded_launches`` (the churn's and the timed ``range``'s) in
      the kernels line;
- 19. [cli]: ``python -m repro_torch.launch.serve --n 50000 --queries
-     512`` three times (``--early-stop --mixed-radius``; ``--shards 4
+ 19. [cli]: ``python -m repro_torch.launch.serve --n 25000 --queries
+     256`` three times (``--early-stop --mixed-radius``; ``--shards 4
      --replicas 2 --hedge-ms 5 --down-replicas 1:0,3:1``, which must stay
      whole; ``--churn 0.05``), each exiting 0, its AP and rate lines
      re-printed with its wall;
@@ -194,6 +200,18 @@ Phases, each printed as it ends:
      --steps 20``, then ``--resume --steps 30`` (which must print ``resumed
      from step 20``), for gemma3-27b, gcn-cora and dlrm-rm2, the three archs
      at once;
+ 24. [mesh train], last: the mesh trainer (``Trainer(mesh=,
+     param_rules=LM_RULES)``: DTensor parameters and moments, each step in
+     the activation scope) on a one-rank NCCL (1, 1) mesh against the
+     unsharded Trainer from the same tree on the same batches: qwen3-14b at
+     full width, depth cut from 40 to 2 (2.22 B f32 masters), 3 steps of 2
+     x 4,096 tokens (ms a step after step 1, their ratio, peak memory;
+     gates: every loss and grad norm and every leaf after step 3 within
+     1e-5 relative, every parameter a DTensor); then the reference's
+     elastic rig (2 layers, d_model 32): 10 unsharded steps and a
+     checkpoint under build/, restored on the mesh at step 10 and trained
+     to 14 against the unsharded continuation (1e-5); flashattn never
+     launched;
   9. [two_tower], run right after the build so its 43 GB tables find the
      card empty: the two-tower-retrieval model at full width (16 + 16
      fields, vocab 10,485,760, d_embed 64, towers 1024-1024-512-256, both
@@ -294,6 +312,10 @@ except ModuleNotFoundError:
 
 N_QUERIES = 4096            # the deployment's search_4k batch
 N_QUERIES_64K = 65_536      # the deployment's search_64k batch ([cells])
+VAMANA_N = 250_000          # the Vamana path's corpus ([vamana] to [live]); cut from 1M,
+                            # whose build alone took 180 s of the script's limit
+FANOUT_QUERIES = 1_024      # the host fan-out's gates ([sharded] (3), [replicated]);
+                            # cut from 4,096 for the script's limit
 SEED = 0
 DIST_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),  # sum order differs
             "bfloat16": dict(rtol=1e-2, atol=1e-5)}
@@ -2186,12 +2208,52 @@ def read_counts(kernels: dict) -> tuple[dict, dict]:
             {n: dict(k.routes) for n, k in kernels.items() if hasattr(k, "routes")})
 
 
+def radius_and_oracle(ds, points, queries, tag: str = ""):
+    """The radius chosen the paper's way (sweep + select_radius on a
+    256-query sample) for half the queries to answer empty, and the oracle
+    (``exact_range_search``) at it over every query. Returns (the sweep's
+    profile, r, the oracle's ids and counts on the host, ``ap_of``: a
+    result's AP against the oracle on its first k lanes)."""
+    import torch
+    from repro_torch.core import (
+        average_precision, default_grid, exact_range_search, match_histogram, select_radius,
+        sweep)
+    t0 = time.perf_counter()
+    # default_grid's low end is the 0.05% quantile of a 2048-point sample's
+    # distances; at 1M points that radius already holds ~500 matches, so
+    # the grid is extended three decades down to reach zero-result radii
+    grid = default_grid(ds.points, ds.queries[:256], num=48)
+    grid = np.geomspace(grid[0] / 1e3, grid[-1], 96).astype(np.float32)
+    prof = sweep(points, queries[:256], grid, device=points.device)
+    # target: half the queries answer empty. (At the paper's default of
+    # 0.95 almost no lane saturates its beam on this corpus, and greedy
+    # phase 2 would not run at all.)
+    r, gi = select_radius(prof, target_zero_frac=0.5)
+    log(f"[radius{tag}] r={r:.6g} (grid index {gi}, zero-result fraction "
+        f"{prof.zero_frac[gi]:.3f} on 256 queries, "
+        f"{time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    gt_ids, _, gt_counts = exact_range_search(points, queries, r, device=points.device)
+    torch.cuda.synchronize()
+    gt_ids, gt_counts = gt_ids.cpu().numpy(), gt_counts.cpu().numpy()
+    log(f"[oracle{tag}] exact_range_search over {queries.shape[0]} queries in "
+        f"{time.perf_counter() - t0:.2f} s; matches {match_histogram(gt_counts)}")
+
+    def ap_of(res, k=queries.shape[0]):
+        return average_precision(gt_ids[:k], gt_counts[:k], res.ids.cpu().numpy(),
+                                 res.count.cpu().numpy())
+
+    return prof, r, gt_ids, gt_counts, ap_of
+
+
 def vamana_phase(points, queries, r, cfg, q_cfg, ap_of, knn, kernels, profile):
     """[vamana]: the Vamana graph built on the card (the reference's serve
-    CLI settings: R=32, beam 64, alpha 1.2, batches up to 1024, one pass),
-    its build time and split, its launches, a check of every row, its
-    degrees and reachability; then greedy f32 and int8 on it at the main
-    path's settings beside the k-NN graph's QPS and AP, the kernel path against
+    CLI settings: R=32, beam 64, alpha 1.2, batches up to 1024, one pass)
+    over ``points`` (the Vamana path's own VAMANA_N-point draw), its build
+    time and split, its launches, a check of every row, its degrees and
+    reachability; then greedy f32 and int8 on it at the main path's
+    settings beside the main corpus's k-NN graph's QPS and AP (``knn``),
+    the kernel path against
     the plain path and the int8 guard-band contract. Returns (the f32
     engine, the build's launches, the greedy f32 and int8 APs)."""
     import torch
@@ -2256,7 +2318,7 @@ def vamana_phase(points, queries, r, cfg, q_cfg, ap_of, knn, kernels, profile):
             raise AssertionError(f"[vamana] {name}: kernel and plain AP differ by "
                                  f"{abs(ap_k - ap_p):.4f}")
         log(f"[vamana] {name}: QPS={N_QUERIES / wall:.1f} ({wall * 1e3:.1f} ms), "
-            f"AP={ap:.4f} (the k-NN graph's in this call: QPS={knn[name][1]:.1f}, "
+            f"AP={ap:.4f} (the main corpus's k-NN graph: QPS={knn[name][1]:.1f}, "
             f"AP={knn[name][0]:.4f}), mean "
             f"n_visited={float(res.n_visited.float().mean()):.1f}, mean n_dist="
             f"{float(res.n_dist.float().mean()):.1f}, phase-2 share="
@@ -2280,7 +2342,7 @@ MAX_FILTERED_AP_GAP = 0.01  # benchmarks/run.py's gate
 
 def filtered_phase(engine, points, queries, prof, deploy, fetch_kernel):
     """[filtered]: the reference benchmark's filtered workload
-    (benchmarks/run.py:420-505) at full size on the Vamana engine: 16
+    (benchmarks/run.py:420-505) on the Vamana engine (VAMANA_N points): 16
     labels, 1-2 a point (seed 17, drawn as one vectorized pair a point:
     the same distribution as the reference's per-point draws, another
     sequence); 128 queries whose lanes alternate one-label AND (~9 % of the
@@ -2459,7 +2521,8 @@ SERVE_MAX_BATCH = 128       # the reference serve CLI's defaults (src/repro/laun
 SERVE_LANES = 32
 SERVE_SLICE_ROUNDS = 8
 SERVE_CALIBRATION = 256     # the CLI fits the effort regressor on 256 requests
-TAIL_REQUESTS = 1024        # benchmarks/run.py's tail row: one heavy lane in 16
+TAIL_REQUESTS = 512         # benchmarks/run.py's tail row: one heavy lane in 16 (cut
+                            # from 1,024 for the script's limit)
 TAIL_HEAVY_EVERY = 16
 TAIL_POINT_MATCHES = 4.0
 TAIL_HEAVY_MATCHES = 512.0
@@ -2542,7 +2605,7 @@ def check_against_engine(resp, want, exact_dists: bool, points, queries, r, name
 
 def serve_phase(engine, points, queries, r, prof, cfg, q_cfg, kernels, gt):
     """[serve]: the serving layer (``repro_torch.serve.RangeServer``) on the
-    Vamana engine at 1M x 128 with the reference serve CLI's settings
+    Vamana engine (VAMANA_N x 128) with the reference serve CLI's settings
     (max_batch 128, 32 lanes, 8 rounds a slice; the effort regressor fitted
     on 256 calibration requests with their exact counts). Lockstep, f32 and
     int8: the first SERVE_LOCKSTEP requests at r, each response equal to
@@ -2779,7 +2842,7 @@ def live_gates(live, snap0, before, queries, fresh_ids, fresh, doomed, r, cfg, n
 
 def live_phase(graph, points, queries, r, cfg, q_cfg, kernels, vamana_aps) -> dict:
     """[live]: the live index (``repro_torch.live``) promoted from the Vamana
-    graph (``graph=``) at 1M x 128, with the serve CLI's --churn settings
+    graph (``graph=``, VAMANA_N x 128), with the serve CLI's --churn settings
     (``LiveConfig(capacity=n + k, insert_batch=128)``, ``BuildConfig(
     max_degree=32, beam=64)``) and the deploy config's greedy search at r.
     (a) f32 and int8: insert LIVE_K rows (a corpus point plus 0.05 std noise,
@@ -3001,6 +3064,12 @@ def _host(res) -> dict:
     return {f: getattr(res, f).cpu().numpy() for f in RESULT_FIELDS}
 
 
+def _lanes(d: dict, k: int) -> dict:
+    """A host result's first ``k`` lanes (a lane's answer does not depend on
+    the batch it is searched in)."""
+    return {f: v[:k] for f, v in d.items()}
+
+
 def _same_result(got: dict, want: dict) -> list:
     """The fields of two host results that differ (distances by their bits)."""
     return [f for f in RESULT_FIELDS
@@ -3171,7 +3240,8 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
     index's ``n_starts=4``).
     (2) The f32 collective over two ranks on the one card (gloo, mesh
     (1, 2), two shards each): each rank's result bit for bit (1)'s.
-    (3) ``fault.fault_tolerant_sharded_search`` on the f32 corpus: healthy,
+    (3) ``fault.fault_tolerant_sharded_search`` on the f32 corpus and the
+    first FANOUT_QUERIES queries: healthy,
     bit for bit (1)'s; the threaded fan-out bit for bit the serial one; shard
     1 down: coverage 0.75 and the union of shards {0, 2, 3}; garbage at
     (shard 2, attempt 0): caught, retried, equal to healthy.
@@ -3179,8 +3249,8 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
     requests, each equal to its lane of (1); then with shard 1 down
     (``injector=``), each annotated 3 of 4 shards, ``shard_lost``, equal to
     its lane of the union of {0, 2, 3}. Returns the launches of (1), and
-    for the phases after it the corpora, each shard's k-NN graph and start,
-    and each dtype's per-shard host results of (1)."""
+    for the phases after it the corpora and each shard's k-NN graph and
+    start."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import build_knn_graph, match_histogram, medoid, start_points
@@ -3308,38 +3378,40 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
         f"{', '.join(f'{w * 1e3:.1f}' for w in wires)} ms; the run, process start and shard "
         f"loading included, {t_two:.1f} s; card {card}")
 
-    # -- (3) the host fan-out -----------------------------------------------------
+    # -- (3) the host fan-out, on the first FANOUT_QUERIES queries ---------------
     fast = RetryPolicy(backoff_s=0.0)
+    nf = min(FANOUT_QUERIES, nq)
+    qf, whole = queries[:nf], _lanes(unions["float32"], nf)
     healthy = None
     for workers in (None, 0):
         sync()
         t0 = time.perf_counter()
-        d = fault_tolerant_sharded_search(corpus=f32, queries=queries, r=r, cfg=cfg,
+        d = fault_tolerant_sharded_search(corpus=f32, queries=qf, r=r, cfg=cfg,
                                           retry=fast, max_workers=workers)
         sync()
         wall = time.perf_counter() - t0
-        bad = _same_result(_host(d.result), unions["float32"])
+        bad = _same_result(_host(d.result), whole)
         if bad or not d.complete:
             raise AssertionError(f"[sharded] fan-out (max_workers={workers}): {bad} differ "
                                  "from the collective result")
         if workers is None:
             healthy = wall
-    log(f"[sharded] fan-out healthy: bit for bit the collective result, threaded "
-        f"({SHARDS} workers, one device) and serial; {healthy * 1e3:.1f} ms threaded, "
-        f"{wall * 1e3:.1f} ms serial (QPS {nq / healthy:.1f}, {nq / wall:.1f}); card {card}")
+    log(f"[sharded] fan-out healthy, {nf} queries: bit for bit the collective result, "
+        f"threaded ({SHARDS} workers, one device) and serial; {healthy * 1e3:.1f} ms threaded, "
+        f"{wall * 1e3:.1f} ms serial (QPS {nf / healthy:.1f}, {nf / wall:.1f}); card {card}")
     survivors = host_union(pers["float32"], f32.offsets.cpu().numpy(), f32.n_total,
                            cfg.result_cap, keep=(0, 2, 3))
-    d = fault_tolerant_sharded_search(corpus=f32, queries=queries, r=r, cfg=cfg,
+    d = fault_tolerant_sharded_search(corpus=f32, queries=qf, r=r, cfg=cfg,
                                       injector=FaultInjector(seed=0, down_shards=(1,)),
                                       retry=fast)
-    bad = _same_result(_host(d.result), survivors)
+    bad = _same_result(_host(d.result), _lanes(survivors, nf))
     if bad or (d.coverage, d.shards_ok, d.shards_total) != (0.75, 3, 4):
         raise AssertionError(f"[sharded] shard 1 down: coverage {d.coverage}, {bad} differ "
                              "from the union of shards 0, 2, 3")
-    g = fault_tolerant_sharded_search(corpus=f32, queries=queries, r=r, cfg=cfg,
+    g = fault_tolerant_sharded_search(corpus=f32, queries=qf, r=r, cfg=cfg,
                                       injector=FaultInjector(script={(2, 0): "garbage"}),
                                       retry=fast)
-    bad = _same_result(_host(g.result), unions["float32"])
+    bad = _same_result(_host(g.result), whole)
     if bad or list(g.attempts) != [1, 1, 2, 1] or g.faults[2] != "garbage":
         raise AssertionError(f"[sharded] garbage at (2, 0): attempts {g.attempts}, faults "
                              f"{g.faults}, {bad} differ from healthy")
@@ -3378,7 +3450,7 @@ def sharded_phase(points, queries, r, cfg, q_cfg, kernels, ap_of, single) -> dic
             f"card {card}")
     dist.destroy_process_group()
     log(f"[sharded] phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches, corpora, graphs, pers
+    return launches, corpora, graphs
 
 
 REPLICAS = 2                # R: two bit-identical copies of every shard
@@ -3406,11 +3478,12 @@ def wait_for_strays(baseline: int) -> float:
     return time.perf_counter() - t0
 
 
-def replicated_phase(corpora, pers, queries, r, cfg, q_cfg, kernels) -> dict:
+def replicated_phase(corpora, queries, r, cfg, q_cfg, kernels) -> dict:
     """[replicated]: ``fault.replica`` over ``[sharded]``'s corpora (4 k-NN
     shards of 250,000, f32 and int8), R = REPLICAS copies
     (``ReplicatedCorpus.replicate``, ``parity_ok`` on the card), the main
-    path's queries and radius, greedy, result_cap 1,024. Each gate against
+    path's first FANOUT_QUERIES queries and its radius, greedy, result_cap
+    1,024. Each gate against
     PR 22's unreplicated serial fan-out (``base``), bit for bit: (a) healthy,
     threaded and serial; (b) replicas (1, 0) and (3, 1) down: coverage 1.0,
     ``replica_lost``, served by [0, 1, 0, 0]; (c) every primary scripted
@@ -3435,7 +3508,8 @@ def replicated_phase(corpora, pers, queries, r, cfg, q_cfg, kernels) -> dict:
     from repro_torch.utils import INVALID_ID
     card = card_line()
     t_phase = time.perf_counter()
-    nq = queries.shape[0]
+    nq = min(FANOUT_QUERIES, queries.shape[0])
+    queries = queries[:nq]
     fast = RetryPolicy(backoff_s=0.0)
     cfgs = {"float32": cfg, "int8": q_cfg}
     base = {}
@@ -3524,13 +3598,15 @@ def replicated_phase(corpora, pers, queries, r, cfg, q_cfg, kernels) -> dict:
         # (f) a whole shard down
         f = replicated_fan_out(fleet=ReplicaFleet(rc), max_workers=0, injector=FaultInjector(
             seed=0, down_replicas=((2, 0), (2, 1))), **kw)
-        corpus0 = rc.replica(0)
-        survivors = host_union(pers[dt], corpus0.offsets.cpu().numpy(), corpus0.n_total,
-                               c.result_cap, keep=(0, 1, 3))
+        # the per-shard calls on this batch: int8's rerank route follows the
+        # batch's band size, so [sharded]'s 4,096-lane calls are not its lanes
+        survivors = host_union(per_shard_results(corpus, queries, r, c),
+                               corpus.offsets.cpu().numpy(), corpus.n_total, c.result_cap,
+                               keep=(0, 1, 3))
         same(f, survivors, "shard 2 down", dt, "shard_lost", [0, 0, -1, 0])
         if f.coverage != 0.75:
             raise AssertionError(f"[replicated] {dt}: coverage {f.coverage}")
-        log(f"[replicated] {dt}: ReplicatedCorpus.replicate(corpus, {REPLICAS}) in "
+        log(f"[replicated] {dt}, {nq} queries: ReplicatedCorpus.replicate(corpus, {REPLICAS}) in "
             f"{t_rep:.3f} s, parity_ok on the card in {t_par:.3f} s; device bytes of the fleet "
             f"{every} against one copy's {one} ({every / one:.2f}x); gates, each bit for bit "
             f"PR 22's unreplicated serial fan-out: (a) healthy threaded "
@@ -4099,11 +4175,11 @@ def cells_phase(points, graph, queries, queries_64k, r, kernels) -> dict:
     return launches
 
 
-# each run builds its own Vamana index (1M takes 145 s): cut from 200,000,
-# then from 100,000 and 1,024 queries, to keep the whole script well inside
-# its limit
-CLI_N = 50_000
-CLI_QUERIES = 512
+# each run builds its own Vamana index (1M takes 180 s): cut from 200,000,
+# then to 100,000 and 1,024 queries, then 50,000 and 512, then 25,000 and
+# 256, to keep the whole script well inside its limit
+CLI_N = 25_000
+CLI_QUERIES = 256
 CLI_RUNS = (("--early-stop", "--mixed-radius"),
             ("--shards", "4", "--replicas", "2", "--hedge-ms", "5", "--down-replicas", "1:0,3:1"),
             ("--churn", "0.05"))
@@ -4544,6 +4620,194 @@ def train_cli_phase() -> None:
         shutil.rmtree(ckpt_root, ignore_errors=True)
 
 
+MESH_TRAIN_LAYERS = 2       # qwen3-14b at full width, depth cut from 40
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_REL = 1e-5       # the mesh trainer against the unsharded one (relative)
+ELASTIC_LM = dict(name="elastic", n_layers=2, d_model=32, n_heads=4, n_kv=4, d_head=16,
+                  d_ff=64, vocab=64, loss_chunk=16, remat=False)   # the reference test's rig
+ELASTIC_DATA = dict(vocab=64, seq_len=16, batch=4)
+MESH_TRAIN_TIMEOUT_S = 300
+
+
+def _timed_trainer_steps(tr, batches) -> tuple[list, list]:
+    """``Trainer.train_step`` over ``batches``, each to a synchronize:
+    (seconds a step, metrics a step as floats)."""
+    import torch
+    secs, metrics = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return secs, metrics
+
+
+def mesh_train_phase(dev, flash) -> dict:
+    """[mesh train]: the mesh trainer (``Trainer(mesh=, param_rules=LM_RULES)``,
+    parameters and moments DTensors, each step inside the activation scope)
+    on a one-rank NCCL (1, 1) mesh; one H100 gives one rank (the 2 x 2 mesh
+    is the CPU tests'). qwen3-14b at full width on MESH_TRAIN_LAYERS layers,
+    f32 masters from SEED: MESH_TRAIN_STEPS steps of the unsharded Trainer,
+    then of the mesh Trainer from the same initial tree on the same
+    batches (the first run's leaves kept on the card, 8.9 GB, while the
+    second runs; its peak is given without them); each step's loss and
+    grad norm and every leaf after the
+    last within MESH_TRAIN_REL relative (L2 a leaf). No checkpoint at this
+    size. Run by ``mesh_train_process`` in a process of its own.
+    Then the elastic restore at the reference test's width: 10 unsharded
+    steps and a checkpoint under build/, restored on the mesh at step 10
+    and trained to 14, against an unsharded continuation from the same
+    checkpoint. flashattn launches 0 times."""
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.data import LMDataConfig, lm_batch, lm_batches
+    from repro_torch.dist import LM_RULES, make_mesh
+    from repro_torch.models import TransformerConfig, init_transformer, loss_fn, transformer_tree
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.utils import tree_leaves
+    card = card_line()
+    own_group = not dist.is_initialized()
+    mesh = make_mesh((1, 1), device_type=dev.type)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckroot = tempfile.mkdtemp(prefix="mesh_train_", dir=os.path.join(ROOT, "build"))
+    cfg = dataclasses.replace(qwen3_14b.ARCH.model_cfg, n_layers=MESH_TRAIN_LAYERS)
+    opt = qwen3_14b.ARCH.opt_cfg
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=TRAIN_LM_SEQ, batch=TRAIN_LM_BATCH, seed=SEED)
+    batches = [lm_batch(data, s) for s in range(MESH_TRAIN_STEPS)]
+    flash.launches = 0
+    runs = {}
+    try:
+        for name, kw in (("unsharded", {}), ("mesh", dict(mesh=mesh, param_rules=LM_RULES))):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tree = transformer_tree(init_transformer(cfg, seed=SEED, device=dev,
+                                                     f32_masters=True), cfg)
+            tr = Trainer(functools.partial(loss_fn, cfg=cfg), tree, opt,
+                         TrainerConfig(total_steps=MESH_TRAIN_STEPS,
+                                       ckpt_dir=os.path.join(ckroot, name)), **kw)
+            del tree
+            secs, metrics = _timed_trainer_steps(tr, batches)
+            leaves = [x.full_tensor() if isinstance(x, DTensor) else x
+                      for x in tree_leaves(tr.params)]
+            if name == "mesh" and not all(isinstance(x, DTensor) for x in tree_leaves(tr.params)):
+                raise AssertionError("[mesh train]: a parameter of the mesh trainer is no DTensor")
+            runs[name] = dict(secs=secs, metrics=metrics,
+                              peak=torch.cuda.max_memory_allocated() / 1e9,
+                              n=sum(x.numel() for x in leaves), leaves=leaves)
+            del tr, leaves
+        a, b = runs["unsharded"], runs["mesh"]
+        # the first run's leaves stay on the card through the second run
+        b["peak"] -= sum(x.numel() * x.element_size() for x in a["leaves"]) / 1e9
+        for i, (ma, mb) in enumerate(zip(a["metrics"], b["metrics"])):
+            for k in ("loss", "grad_norm"):
+                if not np.isfinite(mb[k]) or abs(mb[k] - ma[k]) > MESH_TRAIN_REL * abs(ma[k]):
+                    raise AssertionError(f"[mesh train] step {i + 1} {k}: mesh {mb[k]!r}, "
+                                         f"unsharded {ma[k]!r}")
+        worst = max(rel_l2(x, y) for x, y in zip(b["leaves"], a["leaves"]))
+        if worst > MESH_TRAIN_REL:
+            raise AssertionError(f"[mesh train] a leaf after step {MESH_TRAIN_STEPS} is "
+                                 f"{worst:.3g} from the unsharded run (limit {MESH_TRAIN_REL})")
+        del a["leaves"], b["leaves"]
+        torch.cuda.empty_cache()
+        ms = {k: float(np.median(v["secs"][1:]) * 1e3) for k, v in runs.items()}
+        log(f"[mesh train] qwen3-14b at full width, depth cut from "
+            f"{qwen3_14b.ARCH.model_cfg.n_layers} to {cfg.n_layers} ({b['n']:,} f32 masters "
+            f"from seed {SEED}), {MESH_TRAIN_STEPS} steps of {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} "
+            f"tokens: unsharded step 1 {a['secs'][0] * 1e3:.1f} ms then median "
+            f"{ms['unsharded']:.1f} ms, peak {a['peak']:.2f} GB; mesh trainer on a one-rank "
+            f"NCCL (1, 1) mesh step 1 {b['secs'][0] * 1e3:.1f} ms then median "
+            f"{ms['mesh']:.1f} ms, peak {b['peak']:.2f} GB; DTensor overhead "
+            f"{ms['mesh'] / ms['unsharded']:.3f}x; losses "
+            f"{[round(m['loss'], 6) for m in b['metrics']]}, every loss and grad norm and "
+            f"every leaf within {worst:.3g} of the unsharded run (limit {MESH_TRAIN_REL}); "
+            f"card {card}")
+
+        # the elastic restore, at the reference test's width
+        ecfg = TransformerConfig(**ELASTIC_LM, dtype=torch.float32)
+        eloss = functools.partial(loss_fn, cfg=ecfg)
+        eopt = AdamWConfig(lr=1e-2, warmup_steps=2)
+        edata = LMDataConfig(**ELASTIC_DATA)
+
+        def etree(seed):
+            return transformer_tree(init_transformer(ecfg, seed=seed, device=dev,
+                                                     f32_masters=True), ecfg)
+        d1 = os.path.join(ckroot, "elastic")
+        Trainer(eloss, etree(0), eopt, TrainerConfig(total_steps=10, ckpt_every=5,
+                                                      log_every=5, ckpt_dir=d1)).fit(
+            lm_batches(edata))
+        d2 = os.path.join(ckroot, "elastic_plain")
+        shutil.copytree(d1, d2)
+        out = {}
+        for name, d, kw in (("mesh", d1, dict(mesh=mesh, param_rules=LM_RULES)),
+                            ("unsharded", d2, {})):
+            tr = Trainer(eloss, etree(1), eopt, TrainerConfig(total_steps=14, ckpt_every=50,
+                                                              log_every=2, ckpt_dir=d), **kw)
+            if not tr.maybe_restore() or tr.step != 10:
+                raise AssertionError(f"[mesh train] elastic {name}: restored step {tr.step}")
+            hist = tr.fit(lm_batches(edata, start_step=10))["history"]
+            out[name] = (hist, [x.full_tensor() if isinstance(x, DTensor) else x
+                                for x in tree_leaves(tr.params)])
+        (hm, lm), (hu, lu) = out["mesh"], out["unsharded"]
+        if [h["step"] for h in hm] != [12, 14] or any(
+                abs(x["loss"] - y["loss"]) > MESH_TRAIN_REL * abs(y["loss"])
+                for x, y in zip(hm, hu)):
+            raise AssertionError(f"[mesh train] elastic: mesh {hm} against unsharded {hu}")
+        eworst = max(rel_l2(x.cpu(), y.cpu()) for x, y in zip(lm, lu))
+        if eworst > MESH_TRAIN_REL:
+            raise AssertionError(f"[mesh train] elastic: a leaf at step 14 is {eworst:.3g} "
+                                 f"from the unsharded continuation")
+        if flash.launches != 0:
+            raise AssertionError(f"[mesh train]: flashattn launched {flash.launches} times")
+        log(f"[mesh train] elastic restore (2 layers, d_model 32, 4 heads, vocab 64, f32): 10 "
+            f"unsharded steps and a checkpoint, restored on the (1, 1) mesh at step 10 and "
+            f"trained to 14: losses {[round(h['loss'], 6) for h in hm]} against the unsharded "
+            f"continuation's {[round(h['loss'], 6) for h in hu]}, every leaf within "
+            f"{eworst:.3g}; flashattn launches 0")
+        log(json.dumps({"[mesh train]": {
+            "layers": cfg.n_layers, "params": b["n"],
+            "tokens_a_step": TRAIN_LM_BATCH * TRAIN_LM_SEQ,
+            "unsharded_ms": ms["unsharded"], "mesh_ms": ms["mesh"],
+            "overhead": ms["mesh"] / ms["unsharded"], "unsharded_peak_gb": a["peak"],
+            "mesh_peak_gb": b["peak"], "leaf_rel": worst, "elastic_leaf_rel": eworst,
+            "flashattn_launches": 0, "card": card}}))
+    finally:
+        shutil.rmtree(ckroot, ignore_errors=True)
+        if own_group:
+            dist.destroy_process_group()
+    return {"mesh_train_launches": 0}
+
+
+def mesh_train_process() -> dict:
+    """[mesh train] in a process of its own (this script with
+    ``--mesh-train``), after the card's cache is emptied: the two trainers
+    then meet the same fresh allocator and library state. (After the
+    earlier phases, one bf16 step on the same inputs has given grad norms
+    1.1e-5 apart from run to run; in a fresh process the two runs agree to
+    the bit.) Its lines are printed here; it must exit 0."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh-train"], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=MESH_TRAIN_TIMEOUT_S)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith(("[mesh train]", "{"))]
+    for ln in lines:
+        log(ln)
+    if p.returncode != 0 or not any(ln.startswith('{"[mesh train]"') for ln in lines):
+        raise AssertionError(f"[mesh train] exited {p.returncode}:\n"
+                             f"{(p.stdout + p.stderr)[-4000:]}")
+    return {"mesh_train_launches": json.loads(lines[-1])["[mesh train]"]["flashattn_launches"]}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4561,6 +4825,7 @@ def main() -> int:
     ap.add_argument("--sharded-world", type=int, default=SHARD_RANKS, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-train", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4570,10 +4835,13 @@ def main() -> int:
     if args.sharded_rank is not None:   # a rank of the [sharded] phase's second run
         return sharded_rank(args.sharded_rank, args.sharded_world, args.sharded_dir,
                             args.sharded_device)
+    if args.mesh_train:                 # the [mesh train] phase's own process
+        from repro_torch.kernels.flashattn import flash_attention_cuda
+        mesh_train_phase(torch.device("cuda"), flash_attention_cuda)
+        return 0
     from repro_torch.configs.range_engine import EngineDeployConfig
     from repro_torch.core import (
-        RangeSearchEngine, average_precision, build_knn_graph, default_grid,
-        exact_range_search, match_histogram, quantize_corpus, select_radius, sweep)
+        RangeSearchEngine, build_knn_graph, match_histogram, quantize_corpus)
     from repro_torch.data import make_corpus
     from repro_torch.kernels import _build
     from repro_torch.kernels.expand import expand_cuda, expand_int8_cuda
@@ -4601,6 +4869,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     # -- 9. two-tower retrieval serving (first: its tables need the card) ----
+    t0 = time.perf_counter()
     with torch.inference_mode():
         tt_entry = two_tower_phase(dev, {
             "rangescan": rangescan_cuda, "expand": expand_cuda,
@@ -4608,11 +4877,14 @@ def main() -> int:
             ap_probes=args.result_cap != ap.get_default("result_cap"), profile=args.profile)
     log(f"[two_tower] peak device memory of the phase "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[two_tower] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # -- 10. LM serving (second: its 54 GB of weights need the card too) -----
+    t0 = time.perf_counter()
     with torch.inference_mode():
         lm_entry = lm_phase(dev, {"flashattn": flash_attention_cuda}, args.profile)
+    log(f"[lm] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # -- 10b, 10c. the MoE and MLA members of the LM family ------------------
@@ -4629,6 +4901,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
 
     # -- 2. data and graph ---------------------------------------------------
+    t_main = time.perf_counter()
     t0 = time.perf_counter()
     ds = make_corpus("bigann-like", n=args.n, n_queries=N_QUERIES, seed=SEED)
     points = torch.as_tensor(ds.points, device=dev)
@@ -4655,31 +4928,7 @@ def main() -> int:
     del qc
 
     # -- 4. radius -----------------------------------------------------------
-    t0 = time.perf_counter()
-    sample = queries[:256]
-    # default_grid's low end is the 0.05% quantile of a 2048-point sample's
-    # distances; at 1M points that radius already holds ~500 matches, so
-    # the grid is extended three decades down to reach zero-result radii
-    grid = default_grid(ds.points, ds.queries[:256], num=48)
-    grid = np.geomspace(grid[0] / 1e3, grid[-1], 96).astype(np.float32)
-    prof = sweep(points, sample, grid, device=dev)
-    # target: half the queries answer empty. (At the paper's default of
-    # 0.95 almost no lane saturates its beam on this corpus, and greedy
-    # phase 2 would not run at all.)
-    r, gi = select_radius(prof, target_zero_frac=0.5)
-    log(f"[radius] r={r:.6g} (grid index {gi}, zero-result fraction "
-        f"{prof.zero_frac[gi]:.3f} on 256 queries, "
-        f"{time.perf_counter() - t0:.2f} s)")
-    t0 = time.perf_counter()
-    gt_ids, _, gt_counts = exact_range_search(points, queries, r, device=dev)
-    torch.cuda.synchronize()
-    gt_ids, gt_counts = gt_ids.cpu().numpy(), gt_counts.cpu().numpy()
-    log(f"[oracle] exact_range_search over {N_QUERIES} queries in "
-        f"{time.perf_counter() - t0:.2f} s; matches {match_histogram(gt_counts)}")
-
-    def ap_of(res, k=N_QUERIES):
-        return average_precision(gt_ids[:k], gt_counts[:k], res.ids.cpu().numpy(),
-                                 res.count.cpu().numpy())
+    _, r, _, _, ap_of = radius_and_oracle(ds, points, queries)
 
     # -- 5. the f32 main path ------------------------------------------------
     engine = RangeSearchEngine.from_graph(points, graph, metric="l2",
@@ -4811,40 +5060,54 @@ def main() -> int:
                                      qps["int8 greedy f32-query"])}
     del engine, engine_q
     torch.cuda.empty_cache()
+    log(f"[main] the engine phases (2-8, 11) took {time.perf_counter() - t_main:.1f} s")
 
     # -- 12. the Vamana graph built on the card, and searched ----------------
+    # The Vamana path (12-15) runs on its own draw of the corpus at VAMANA_N
+    # points (the same distribution and seed; its own queries, radius and
+    # oracle): the build at 1M took 180 s of the script's limit
+    t_v = time.perf_counter()
+    ds_v = make_corpus("bigann-like", n=min(VAMANA_N, args.n), n_queries=N_QUERIES, seed=SEED)
+    points_v = torch.as_tensor(ds_v.points, device=dev)
+    queries_v = torch.as_tensor(ds_v.queries, device=dev)
+    log(f"[data vamana] bigann-like n={points_v.shape[0]} d={points_v.shape[1]} "
+        f"queries={N_QUERIES} seed={SEED} ({time.perf_counter() - t_v:.2f} s)")
+    prof_v, r_v, gt_v_ids, gt_v_counts, ap_of_v = radius_and_oracle(ds_v, points_v, queries_v,
+                                                                    " vamana")
+    del ds_v
     kernels = {**f32_kernels, **int8_kernels}
     engine_v, build_launches, vamana_aps = vamana_phase(
-        points, queries, r, cfgs["greedy"], q_cfgs["greedy f32-query"], ap_of, knn,
+        points_v, queries_v, r_v, cfgs["greedy"], q_cfgs["greedy f32-query"], ap_of_v, knn,
         kernels, args.profile)
 
     # -- 13. filtered range search on the Vamana graph -------------------------
-    fallback_launches = filtered_phase(engine_v, points, queries, prof, deploy,
+    fallback_launches = filtered_phase(engine_v, points_v, queries_v, prof_v, deploy,
                                        rerank_fetch_cuda)
 
     # -- 14. the serving layer on the Vamana engine ----------------------------
     t0 = time.perf_counter()
-    serve_launches = serve_phase(engine_v, points, queries, r, prof, cfgs["greedy"],
-                                 q_cfgs["greedy f32-query"], kernels, (gt_ids, gt_counts))
+    serve_launches = serve_phase(engine_v, points_v, queries_v, r_v, prof_v, cfgs["greedy"],
+                                 q_cfgs["greedy f32-query"], kernels, (gt_v_ids, gt_v_counts))
     log(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
 
     # -- 15. the live index on the Vamana graph ------------------------------
     t0 = time.perf_counter()
-    live_launches = live_phase(engine_v.graph, points, queries, r, cfgs["greedy"],
+    live_launches = live_phase(engine_v.graph, points_v, queries_v, r_v, cfgs["greedy"],
                                q_cfgs["greedy f32-query"], kernels, vamana_aps)
     log(f"[live] phase took {time.perf_counter() - t0:.1f} s")
-    del engine_v
+    del engine_v, points_v, queries_v
     torch.cuda.empty_cache()
+    log(f"[vamana] the Vamana path (12-15) took {time.perf_counter() - t_v:.1f} s")
 
     # -- 16. the sharded engine: the collective, the fan-out, served ----------
-    sharded_launches, corpora, shard_graphs, pers = sharded_phase(
+    sharded_launches, corpora, shard_graphs = sharded_phase(
         points, queries, r, cfgs["greedy"], q_cfgs["greedy f32-query"], kernels, ap_of,
         {"float32": knn["greedy f32"], "int8": knn["greedy int8 f32-query"]})
 
     # -- 17. replication over the sharded corpora ---------------------------------
-    replicated_launches = replicated_phase(corpora, pers, queries, r, cfgs["greedy"],
+    replicated_launches = replicated_phase(corpora, queries, r, cfgs["greedy"],
                                            q_cfgs["greedy f32-query"], kernels)
-    del corpora, pers
+    del corpora
     torch.cuda.empty_cache()
 
     # -- 18. the sharded live index, replica groups and their rebuild -------------
@@ -4869,7 +5132,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     with torch.inference_mode():
         cells_launches = cells_phase(points, graph, queries, queries_64k, r, kernels)
-    del points, queries, queries_64k, graph, sample
+    del points, queries, queries_64k, graph
     torch.cuda.empty_cache()
 
     # -- 20-23. training: the LM, the recsys family, the GCN, the CLI ------------
@@ -4886,7 +5149,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train_cli_phase()
     log(f"[train cli] phase took {time.perf_counter() - t0:.1f} s")
-    log(f"[train] the four training phases took {time.perf_counter() - t_train:.1f} s")
+    t0 = time.perf_counter()
+    lm_entry.update(mesh_train_process())
+    log(f"[mesh train] phase took {time.perf_counter() - t0:.1f} s")
+    log(f"[train] the five training phases took {time.perf_counter() - t_train:.1f} s")
 
     for name in ("expand", "gatherdist"):
         entries[name]["launches"] = launches["greedy"][name]
@@ -4933,7 +5199,7 @@ def main() -> int:
              "moe_bound_ms", "moe_bound_by", "moe_library_ms", "moe_decode_ms",
              "moe_decode_plain_ms", "moe_decode_bound_ms", "moe_decode_bound_by",
              "moe_decode_library_ms", "train_launches", "train_prefill_launches",
-             "cells_launches")
+             "cells_launches", "mesh_train_launches")
     log(json.dumps({"kernels": [
         {k: entries[n][k] for k in ENTRY_KEYS + extra if k in entries[n]}
         for n in ("expand", "gatherdist", "expand_int8", "gatherdist_int8",

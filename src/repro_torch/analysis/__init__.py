@@ -1,9 +1,10 @@
-"""Roofline math on the H100's constants (``roofline.py``). The reference's
-HLO walk (``analysis/hlo.py``) and ``make_report``, which read XLA's
-compiled programs, wait for ROADMAP.md §1 item 11b."""
+"""Roofline math on the H100's constants (``roofline.py``) and the
+per-rank analysis of a traced torch program (``hlo.py``, the counterpart of
+the reference's HLO walk) that ``make_report`` and the dry run read."""
+from .hlo import CollectiveStats, count_op, parse_collectives
 from .roofline import (
     HBM_BW, ICI_BW, PEAK_FLOPS, RooflineReport, analytic_model_flops,
-    load_reports, save_reports,
+    load_reports, make_report, save_reports,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -17,15 +17,17 @@ engine analogues documented in ``analytic_model_flops``; it runs over a
 parameter tree of meta tensors (``launch.steps`` builds them), where the
 reference runs over ``jax.eval_shape``'s stand-ins.
 
-``make_report`` is not here: it reads XLA's ``cost_analysis`` and the
-partitioned HLO text (``analysis/hlo.py``), which the port has no
-counterpart of yet (ROADMAP.md §1, item 11b).
+``make_report`` is the reference's arithmetic over the dry run's numbers:
+``cost`` ({"flops", "bytes accessed"}) and the analysis come from the
+traced per-rank program (``analysis/hlo.py``), ``mem`` from its liveness
+walk (``hlo.memory_analysis``).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import re
+from typing import Any
 
 import numpy as np
 
@@ -168,6 +170,49 @@ def analytic_model_flops(arch, shape, params_abstract) -> float:
         sc = cfg.range_cfg.search
         return (2.0 * shape.global_batch * sc.visit_cap * cfg.max_degree * cfg.dim)
     return 0.0
+
+
+def make_report(arch, shape, mesh_name: str, chips: int, cost: dict,
+                mem: Any, analysis, model_flops: float,
+                note: str = "") -> RooflineReport:
+    """The reference's report. ``cost`` and ``analysis`` describe one
+    rank's program; whole-program totals are that times ``chips``, so the
+    terms reduce to per-rank over the per-card rates. The analysis's loop
+    trips stand in for the cost's where a loop ran more than 4 times (the
+    reference's rule; a trace unrolls its loops, so ``max_trip`` is 1)."""
+    coll = analysis.collectives
+    flops_dev = max(float(cost.get("flops", 0.0)), analysis.dot_flops)
+    bytes_cost = float(cost.get("bytes accessed", 0.0))
+    bytes_dev = max(bytes_cost, analysis.hbm_bytes) if analysis.max_trip > 4 \
+        else bytes_cost
+    cbytes_dev = float(coll.total_operand_bytes)
+    flops = flops_dev * chips
+    byts = bytes_dev * chips
+    cbytes = cbytes_dev * chips
+    compute_s = flops_dev / PEAK_FLOPS
+    memory_s = bytes_dev / HBM_BW
+    collective_s = cbytes_dev / ICI_BW
+    terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
+    dominant = max(terms, key=terms.get)
+    step = max(compute_s, memory_s, collective_s)
+    mfu = model_flops / (chips * PEAK_FLOPS * step) if step > 0 else 0.0
+    mem_d = {}
+    if mem is not None:
+        for f in ("argument_size_in_bytes", "output_size_in_bytes",
+                  "temp_size_in_bytes", "generated_code_size_in_bytes",
+                  "alias_size_in_bytes"):
+            v = getattr(mem, f, None)
+            if v is not None:
+                mem_d[f] = int(v)
+    return RooflineReport(
+        arch_id=arch.arch_id, shape=shape.name, mesh=mesh_name, chips=chips,
+        hlo_flops=flops, hlo_bytes=byts, collective_bytes=cbytes,
+        collective_wire_bytes=float(coll.total_wire_bytes),
+        collective_summary=coll.summary(),
+        compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
+        dominant=dominant, model_flops=model_flops,
+        useful_ratio=(model_flops / flops) if flops else 0.0,
+        step_time_s=step, mfu=mfu, memory_per_device=mem_d, note=note)
 
 
 def save_reports(reports: list[RooflineReport], path: str):

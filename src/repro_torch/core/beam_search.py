@@ -28,6 +28,8 @@ host sees every lane done (one device-to-host sync per iteration).
 from __future__ import annotations
 
 import dataclasses
+import threading
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -428,6 +430,35 @@ def broadcast_radius(r, n: int, default: float = float("inf"),
     return r
 
 
+class _Walk(threading.local):
+    def __init__(self):
+        self.trips = None
+
+
+_WALK = _Walk()
+
+
+@contextmanager
+def walk_trips(n: int):
+    """Within this scope every search loop (the beam walk, the greedy walk)
+    runs exactly ``n`` iterations instead of ending on its host test: the
+    dry run traces one iteration of a walk, whose ``live.any()`` a fake
+    tensor cannot answer."""
+    prev, _WALK.trips = _WALK.trips, n
+    try:
+        yield
+    finally:
+        _WALK.trips = prev
+
+
+def keep_walking(live: torch.Tensor, trip: int) -> bool:
+    """A search loop's test before its ``trip``-th iteration: whether any
+    lane is live (a host sync), or the trip count of ``walk_trips``."""
+    if _WALK.trips is not None:
+        return trip < _WALK.trips
+    return bool(live.any())
+
+
 def beam_search(points, graph: Graph, q: torch.Tensor, start_ids: torch.Tensor, r,
                 cfg: SearchConfig, es_radius=None) -> BeamState:
     """Run the search loop for one query ``q`` (d,) (``r``/``es_radius`` are
@@ -451,10 +482,12 @@ def beam_search_batch(points, graph: Graph, queries: torch.Tensor,
     rv = broadcast_radius(r, n, device=dev)
     esv = broadcast_radius(es_radius, n, device=dev)
     st = init_state(points, queries, start_ids, cfg)
+    trip = 0
     while True:
         live = ~st.done
-        if not bool(live.any()):
+        if not keep_walking(live, trip):
             return st
+        trip += 1
         new = _step(points, graph, queries, rv, esv, cfg, st, live)
         st = _where_state(live, new, st)
 

@@ -40,6 +40,7 @@ from .beam_search import (
     beam_search_batch,
     broadcast_radius,
     in_range_count,
+    keep_walking,
 )
 from .bitset import (
     bitset_add,
@@ -259,10 +260,12 @@ def _greedy_run(points, graph: Graph, q, r, gs: GreedyState, cap: int,
     E1 = scfg.eff_expand_width == 1
     # E >= 2: the packed buffer holds the results while the loop runs
     res = None if E1 else _pack(gs.res_ids, gs.res_dists)
+    trip = 0
     while True:
         live = active & (gs.expand_ptr < gs.res_count) & (gs.rounds < stop_at)
-        if not bool(live.any()):
+        if not keep_walking(live, trip):
             break
+        trip += 1
         if E1:
             gs = _greedy_step_reference(points, graph, q, r, cap, scfg, gs,
                                         exact_bits, live)

@@ -7,8 +7,10 @@ the SPMD contract that replaces ``shard_map``).
 
 * ``sharding``          — the mesh (``make_mesh``), the rule tables
                           (``LM_RULES``/``RECSYS_RULES``/``GNN_RULES``),
-                          ``spec_tree`` with the divisibility fallback and
-                          ``bind_shardings`` (DTensor placements).
+                          ``spec_tree`` with the divisibility fallback,
+                          ``bind_shardings`` (DTensor placements), and the
+                          activation scope (``activation_sharding``,
+                          ``current_mesh``, ``shard_activation``).
 * ``sharded_engine``    — the multi-shard range-retrieval layout:
                           ``ShardedCorpus`` (one sub-index per shard, a
                           rank holding those of its model coordinate),
@@ -46,6 +48,7 @@ from .sharding import (
     Spec,
     activation_sharding,
     bind_shardings,
+    current_mesh,
     make_mesh,
     mesh_axes,
     shard_activation,
@@ -54,7 +57,7 @@ from .sharding import (
 
 __all__ = ["DP", "GNN_RULES", "GUARD_SLACK", "LM_RULES", "MODEL_AXIS", "RECSYS_RULES",
            "TP", "Rule", "ShardedCorpus", "Spec", "activation_sharding", "bind_shardings",
-           "build_sharded", "compressed_psum_mean", "dequantize_int8", "make_mesh",
+           "build_sharded", "current_mesh", "compressed_psum_mean", "dequantize_int8", "make_mesh",
            "mesh_axes", "quantize_int8", "quantize_int8_rows", "shard_activation",
            "sharded_range_search", "spec_tree", "union_merge"]
 

@@ -39,16 +39,23 @@ port is SPMD over ``torch.distributed``, one rank per device:
 ``mesh_axes`` and ``_axis_size`` read only a mesh's ``mesh_dim_names`` and
 ``shape``, so the shape logic needs no process group.
 
-``activation_sharding`` and ``shard_activation`` (the reference's
-activation layout pins) serve the mesh trainer (``Trainer(mesh=,
-param_rules=)``), which is not ported: ROADMAP.md §1, item 10. Outside a
-mesh scope the reference's pins are identities, and the port's
-single-device models leave them out.
+**Activations.** ``shard_activation(x, DP, TP, None)`` inside an
+``activation_sharding(mesh)`` scope redistributes the DTensor ``x`` to the
+resolved layout (the reference's ``with_sharding_constraint``); outside
+any scope it is the identity, which keeps the model code mesh-agnostic and
+every single-device result bit for bit what it was. Inside a scope of more
+than one rank a plain tensor raises ``TypeError``: it is a value that
+should have been distributed and was not, and it must not be computed
+unsharded in silence. ``replicate_like`` makes a plain constant (rope
+tables, masks, an iota) a replicated DTensor on a DTensor's mesh, so the
+two mix; on plain tensors it is the identity.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
+import threading
+from contextlib import contextmanager
 from typing import Any, Sequence, Union
 
 import numpy as np
@@ -61,8 +68,6 @@ TP = "tp"
 AxisSym = Union[str, tuple, None]
 
 MODEL_AXIS = "model"
-
-MESH_TRAINER = "ROADMAP.md §1 item 10 (the mesh trainer)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,12 +277,255 @@ def bind_shardings(mesh, specs: Any) -> Any:
 # Activation sharding (training and MoE)
 # ---------------------------------------------------------------------------
 
+class _Scope(threading.local):
+    def __init__(self):
+        self.mesh = None
+
+
+_SCOPE = _Scope()
+
+
+@contextmanager
 def activation_sharding(mesh):
-    raise NotImplementedError(f"activation_sharding is not ported yet: {MESH_TRAINER}")
+    """Within this scope, ``shard_activation`` pins layouts on ``mesh``."""
+    prev, _SCOPE.mesh = _SCOPE.mesh, mesh
+    try:
+        yield mesh
+    finally:
+        _SCOPE.mesh = prev
+
+
+def current_mesh():
+    return _SCOPE.mesh
+
+
+def _mesh_size(mesh) -> int:
+    return int(np.prod(tuple(mesh.shape)))
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def shard_activation(x, *axes: AxisSym):
-    raise NotImplementedError(f"shard_activation is not ported yet: {MESH_TRAINER}")
+    """``x`` redistributed to the symbolic ``axes`` with the divisibility
+    fallback; the identity outside an ``activation_sharding`` scope.
+    ``axes`` cover the leading dims (trailing dims replicate); a spec that
+    shards no dim leaves ``x``'s layout as it is, as the reference sets no
+    constraint then, but for a partial sum, which is reduced (torch 2.11
+    cannot add a partial sum to a sharded tensor)."""
+    mesh = _SCOPE.mesh
+    if mesh is None:
+        return x
+    if not is_dtensor(x):
+        if _mesh_size(mesh) > 1:
+            raise TypeError(
+                f"shard_activation got a plain {type(x).__name__} of shape "
+                f"{tuple(x.shape)} inside a {_mesh_size(mesh)}-rank mesh scope; "
+                "a value on the mesh must be a DTensor")
+        return x
+    spec = _activation_spec(mesh, x.shape, axes)
+    if not any(s is not None for s in spec):   # no constraint; a partial sum is reduced
+        if not any(pl.is_partial() for pl in x.placements):
+            return x
+        from torch.distributed.tensor import Replicate
+        return x.redistribute(x.device_mesh, [Replicate() if pl.is_partial() else pl
+                                              for pl in x.placements])
+    placements = _placements(mesh, spec)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def _activation_spec(mesh, shape, axes) -> list:
+    """The mesh axes of ``axes`` for the leading dims of ``shape``, a dim
+    that does not divide its axes left unsharded, as is one whose axes hold
+    a single rank (a shard of one is the whole: DTensor would still refuse
+    views across it)."""
+    spec = []
+    for i, sym in enumerate(axes[: len(shape)]):
+        r = _resolve(sym, mesh)
+        if r is not None and (_axis_size(mesh, r) == 1 or shape[i] % _axis_size(mesh, r)):
+            r = None  # divisibility fallback: leave the dim unsharded
+        spec.append(r)
+    return spec
+
+
+def lay_out(x, *axes: AxisSym):
+    """The DTensor ``x`` laid out exactly as the symbolic ``axes`` say for
+    its leading dims (``shard_activation``'s spec), every other dim and
+    mesh axis replicated, a ``Partial`` reduced; a plain tensor as it is.
+    ``lay_out(h, DP)`` gathers a sequence-sharded activation before a
+    product folds (batch, sequence) into one dim, which DTensor's view
+    rule refuses when both dims are sharded (torch 2.11)."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    placements = _placements(mesh, _activation_spec(mesh, x.shape, axes))
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def local_block(x: torch.Tensor) -> torch.Tensor:
+    """``x.to_local()`` to compute on, its gradient made contiguous on the
+    way back where the mesh has more than one rank: the gradient re-enters
+    ``x`` as a DTensor with ``x``'s strides, and a transposed local
+    gradient would break that DTensor's later views. On one rank the block
+    is the whole and its gradient goes back as it is, as on a plain
+    tensor (a copy would change the products' layouts, and with them the
+    last bits of a bf16 step)."""
+    local = x.to_local()
+    return local if _mesh_size(x.device_mesh) == 1 else _ContiguousGrad.apply(local)
+
+
+class _GradLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad
+
+
+def grad_fence(x):
+    """``x`` (a DTensor) as it is, its gradient laid out as ``x`` on the way
+    back, whatever layout the product that reads it gives the gradient: a
+    reshape's backward then splits or folds only what its forward did
+    (DTensor's view rule in torch 2.11 refuses to split a dim sharded across
+    a head). A plain tensor goes straight through."""
+    return _GradLayout.apply(x) if is_dtensor(x) else x
+
+
+def _partial_over_dp(mesh, rows_split: bool) -> tuple:
+    """Placements of a per-rank partial result: a partial sum over the DP
+    mesh dims when the rows are split over DP, replicated elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate
+    dp, _ = mesh_axes(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    dp_dims = {names.index(a) for a in (dp if isinstance(dp, tuple) else (dp,))}
+    return tuple(Partial() if rows_split and i in dp_dims else Replicate()
+                 for i in range(mesh.ndim))
+
+
+def gathered(w, rows_split: bool) -> torch.Tensor:
+    """The whole of the DTensor weight ``w`` as a plain tensor, for a
+    computation on each rank's rows: its gradient, on the way back, a
+    partial sum over DP when the rows are split over DP (each rank's rows
+    give a part of it), else replicated."""
+    from torch.distributed.tensor import Replicate
+    full = w.redistribute(w.device_mesh, (Replicate(),) * w.device_mesh.ndim)
+    return _ContiguousGrad.apply(full.to_local(
+        grad_placements=_partial_over_dp(w.device_mesh, rows_split)))
+
+
+def summed(local: torch.Tensor, mesh, rows_split: bool) -> torch.Tensor:
+    """A replicated DTensor on ``mesh``: the sum over DP of each rank's
+    ``local`` (a plain tensor) when the rows are split over DP, else
+    ``local`` itself. (A plain tensor joined to a DTensor loss would take a
+    DTensor gradient into plain operations on the way back.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+    out = DTensor.from_local(local, mesh, _partial_over_dp(mesh, rows_split), run_check=False)
+    return out.redistribute(mesh, (Replicate(),) * mesh.ndim) if rows_split else out
+
+
+def on_replicas(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every DTensor argument gathered whole
+    (replicated) and passed as its local copy; a tensor result comes back
+    a replicated DTensor on their mesh. For a function DTensor's sharding
+    rules cannot take whatever the layout (the GCN's index-adds over an
+    edge list); plain arguments go straight through."""
+    dts = [a for a in list(args) + list(kwargs.values()) if is_dtensor(a)]
+    if not dts:
+        return fn(*args, **kwargs)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = dts[0].device_mesh
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(a):
+        return local_block(a.redistribute(mesh, rep)) if is_dtensor(a) else a
+    out = fn(*(local(a) for a in args), **{k: local(v) for k, v in kwargs.items()})
+    return DTensor.from_local(out.contiguous(), mesh, rep, run_check=False)
+
+
+def on_local_rows(fn, x, *args):
+    """``fn(x, *args)`` for a function of each row of ``x`` alone (a tensor
+    result with one row a row of ``x``): on a DTensor, run on each rank's
+    rows, ``x`` laid out batch over DP and whole otherwise, the result laid
+    out the same; a plain ``x`` goes straight through."""
+    if not is_dtensor(x):
+        return fn(x, *args)
+    from torch.distributed.tensor import DTensor
+    x = lay_out(x, DP)
+    return DTensor.from_local(fn(local_block(x), *args).contiguous(), x.device_mesh,
+                              x.placements, run_check=False)
+
+
+def zeros_on(shape, dtype, like, *axes: AxisSym) -> torch.Tensor:
+    """Zeros of ``shape`` on ``like``'s device; when ``like`` is a DTensor,
+    a DTensor on its mesh laid out by the symbolic ``axes`` (as
+    ``shard_activation``'s), each rank allocating only its block."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+    mesh = like.device_mesh
+    return zeros(tuple(shape), dtype=dtype, device_mesh=mesh,
+                 placements=_placements(mesh, _activation_spec(mesh, shape, axes)))
+
+
+def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]``: each row's entry at its index along the last dim
+    (the CE losses' label logit). On a DTensor the last dim may be sharded,
+    where DTensor's gather is wrong (its masked partial), so the entry is
+    selected by a replicated iota and summed: one nonzero term, the same
+    value."""
+    if not is_dtensor(x):
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+    iota = replicate_like(torch.arange(x.shape[-1], device=x.device), x)
+    return torch.sum(torch.where(idx[..., None] == iota, x,
+                                 torch.zeros((), dtype=x.dtype, device=x.device)), -1)
+
+
+def lookup_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a (V, d) table. A DTensor table is looked up by
+    ``F.embedding``, whose sharding rule takes a table sharded by rows
+    (a masked partial sum over the row shards): its columns are gathered
+    first where they are sharded (the LM token table's d over DP); rows
+    sharded over two mesh axes at once are taken as they are. The rows come
+    back laid out as ``ids``, the partial sum reduced at once."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Replicate
+    placements = tuple(Replicate() if pl.is_shard(1) else pl for pl in table.placements)
+    if placements != tuple(table.placements):
+        table = table.redistribute(table.device_mesh, placements)
+    rows = torch.nn.functional.embedding(ids, table)
+    return rows.redistribute(rows.device_mesh, ids.placements)
+
+
+def replicate_like(t: torch.Tensor, like) -> torch.Tensor:
+    """``t`` (a plain tensor equal on every rank: a constant) as a DTensor
+    replicated on ``like``'s mesh when ``like`` is a DTensor; else ``t``."""
+    if not is_dtensor(like) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim, run_check=False)
 
 
 # ---------------------------------------------------------------------------

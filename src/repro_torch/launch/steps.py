@@ -20,10 +20,14 @@ own two), this produces:
   ``"inputs"`` (the port's own field: it splits a cell's bytes).
 
 The reference's ``Cell.jitted()`` and ``lower()`` (XLA lowering for its dry
-run) have no counterpart. To run a cell, call ``fn`` on real tensors of
-``args``' shapes and dtypes: under SPMD each rank passes its local block of
-each (``distribute_tensor(x, *placement).to_local()``); on a one-rank mesh
-that is the whole tensor.
+run) have no counterpart. A train cell's ``fn`` is ``optim.make_train_step``,
+the step ``Trainer(mesh=, param_rules=)`` runs: over DTensor arguments laid
+out by ``in_shardings`` it is the sharded step. The other LM, recsys and
+GNN cells' ``fn`` take the same DTensor arguments, inside
+``activation_sharding(mesh)``; the engine cells' ``fn`` takes a rank's
+local blocks (its model coordinate's shards, every query). The dry run
+(``launch/dryrun.py``) traces them so, one rank's fake blocks; plain tensors
+of ``args``' shapes run them on one device.
 """
 from __future__ import annotations
 

@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..dist.sharding import (
+    DP, _axis_size, _placements, grad_fence, is_dtensor, lay_out, local_block, mesh_axes)
 from ..kernels.flashattn import flash_attention, flash_attention_ref
 from ..utils import resolve_device
 from .mlp import draw_dense
@@ -116,6 +118,65 @@ def sdpa(q, k, v, *, causal: bool, window: int, softcap: float, scale: float,
     return out.reshape(b, s, hq, dv)
 
 
+def _heads_unaligned(x, h: int) -> bool:
+    """Whether ``h`` heads fall across the TP shards of a DTensor ``x``'s
+    mesh (qwen3's 40 heads, starcoder2's 36, on 16)."""
+    if not is_dtensor(x):
+        return False
+    _, tp = mesh_axes(x.device_mesh)
+    return h % _axis_size(x.device_mesh, tp) != 0
+
+
+def heads_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``: the projection into heads. When
+    the heads fall across TP's shards, a product over the flattened heads,
+    laid out batch over DP with the heads whole before they are split out:
+    DTensor's view rule (torch 2.11) refuses to split a dim sharded across
+    a head's boundary."""
+    d, h, k = w.shape
+    if not _heads_unaligned(x, h):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    y = lay_out(torch.matmul(x, grad_fence(w.reshape(d, h * k))), DP)
+    return y.reshape(tuple(y.shape[:-1]) + (h, k))
+
+
+def heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", o, w)``: the projection out of heads. When
+    the heads fall across TP's shards, a product over the flattened heads,
+    both operands' gradients laid out as their forward (``grad_fence``)
+    before the heads are split out of them again."""
+    b, s, h, k = o.shape
+    if not _heads_unaligned(o, h):
+        return torch.einsum("bshk,hkd->bsd", o, w)
+    return torch.matmul(grad_fence(o.reshape(b, s, h * k)),
+                        grad_fence(w.reshape(h * k, w.shape[-1])))
+
+
+def on_local_blocks(core, q, k, v):
+    """``core(q, k, v)`` -> out for q (B, S, Hq, d) and k, v (B, T, Hkv, d)
+    (the layer's layout). On DTensors (the mesh trainer, the dry run) the
+    core runs on each rank's blocks: batch over DP where it divides, heads
+    over TP where both Hq and Hkv divide it (else every TP rank computes
+    every head), the sequence and head dims whole; the output is laid out
+    as q. Attention is independent across batch rows and kv-head groups,
+    so the blocks' results are the whole's, and the core never meets a
+    DTensor (whose view rules cannot fold a sharded head dim into a batch
+    of products). Plain tensors go straight through."""
+    if not is_dtensor(q):
+        return core(q, k, v)
+    from torch.distributed.tensor import DTensor
+    mesh = q.device_mesh
+    dp, tp = mesh_axes(mesh)
+    n_dp, n_tp = _axis_size(mesh, dp), _axis_size(mesh, tp)
+    b, hq, hkv = q.shape[0], q.shape[2], k.shape[2]
+    spec = [dp if n_dp > 1 and b % n_dp == 0 else None, None,
+            tp if n_tp > 1 and hq % n_tp == 0 and hkv % n_tp == 0 else None, None]
+    placements = _placements(mesh, spec)
+    q, k, v = (t.redistribute(mesh, placements) for t in (q, k, v))
+    out = core(local_block(q), local_block(k), local_block(v))
+    return DTensor.from_local(out, mesh, placements, run_check=False)
+
+
 # ---------------------------------------------------------------------------
 # GQA
 # ---------------------------------------------------------------------------
@@ -178,9 +239,9 @@ def gqa_attention(params: GQA, x: torch.Tensor, cfg: GQAConfig, *,
     decode loop keeps its position on the host, so no step reads a device
     scalar back."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params.wv.to(dt))
+    q = heads_in(x, params.wq.to(dt))
+    k = heads_in(x, params.wk.to(dt))
+    v = heads_in(x, params.wv.to(dt))
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm)
         k = rms_norm(k, params.k_norm)
@@ -196,14 +257,19 @@ def gqa_attention(params: GQA, x: torch.Tensor, cfg: GQAConfig, *,
         k, v = cache.k[:, :t].to(dt), cache.v[:, :t].to(dt)
 
     if cfg.sdpa:   # unchunked, as the reference's training path (no cache)
-        out = sdpa(q, k, v, causal=cfg.causal, window=window, softcap=cfg.softcap,
-                   scale=cfg.d_head ** -0.5, q_positions=positions.expand(x.shape[0], s))
+        def core(q, k, v):
+            return sdpa(q, k, v, causal=cfg.causal, window=window, softcap=cfg.softcap,
+                        scale=cfg.d_head ** -0.5,
+                        q_positions=positions.expand(q.shape[0], s))
     else:
-        core = flash_attention if cfg.use_kernels else flash_attention_ref
-        out = core(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                   causal=cfg.causal, window=window, softcap=cfg.softcap,
-                   q_offset=q_offset, scale=cfg.d_head ** -0.5).transpose(1, 2)
-    y = torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
+        flash = flash_attention if cfg.use_kernels else flash_attention_ref
+
+        def core(q, k, v):
+            return flash(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                         causal=cfg.causal, window=window, softcap=cfg.softcap,
+                         q_offset=q_offset, scale=cfg.d_head ** -0.5).transpose(1, 2)
+    out = on_local_blocks(core, q, k, v)
+    y = heads_out(out, params.wo.to(dt))
     return y, cache
 
 
@@ -276,7 +342,7 @@ def mla_attention(params: MLA, x: torch.Tensor, cfg: MLAConfig, *,
     positions = torch.arange(q_offset, q_offset + s, device=x.device)
 
     cq = rms_norm(x @ params.w_dq.to(dt), params.q_norm)
-    q = torch.einsum("bsl,lhk->bshk", cq, params.w_uq.to(dt))
+    q = heads_in(cq, params.w_uq.to(dt))
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, rope_theta)
     ckv = rms_norm(x @ params.w_dkv.to(dt), params.kv_norm)          # (B, S, kv_lora)
     k_rope = apply_rope((x @ params.w_kr.to(dt))[:, :, None, :], positions,
@@ -287,12 +353,15 @@ def mla_attention(params: MLA, x: torch.Tensor, cfg: MLAConfig, *,
         cache.v[:, q_offset:q_offset + s] = k_rope
         ckv, k_rope = cache.k.to(dt), cache.v.to(dt)
 
-    k_nope = torch.einsum("btl,lhk->bthk", ckv, params.w_uk.to(dt))
-    v = torch.einsum("btl,lhk->bthk", ckv, params.w_uv.to(dt))
+    k_nope = heads_in(ckv, params.w_uk.to(dt))
+    v = heads_in(ckv, params.w_uv.to(dt))
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], dr)], dim=-1)
-    out = sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=cfg.causal,
-               window=window, softcap=cfg.softcap, scale=(dn + dr) ** -0.5,
-               q_positions=positions.expand(b, s), kv_valid_len=kv_valid_len,
-               kv_chunk=cfg.kv_chunk if cache is not None else 0)
-    y = torch.einsum("bshk,hkd->bsd", out, params.wo.to(dt))
+    out = on_local_blocks(
+        lambda q, k, v: sdpa(q, k, v, causal=cfg.causal, window=window,
+                             softcap=cfg.softcap, scale=(dn + dr) ** -0.5,
+                             q_positions=positions.expand(q.shape[0], s),
+                             kv_valid_len=kv_valid_len,
+                             kv_chunk=cfg.kv_chunk if cache is not None else 0),
+        torch.cat([q_nope, q_rope], dim=-1), k, v)
+    y = heads_out(out, params.wo.to(dt))
     return y, cache

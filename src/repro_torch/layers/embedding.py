@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ..dist.sharding import is_dtensor, lookup_rows
 from ..utils import resolve_device
 from .common import embed_init
 
@@ -41,7 +42,7 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, dtype,
     """Rows of ``table`` by token id, in ``dtype``; ``scale`` multiplies by
     sqrt(d_model) rounded to ``dtype`` first, as the reference does (bf16:
     73.32 becomes 73.5)."""
-    x = table[tokens.long()].to(dtype)
+    x = lookup_rows(table, tokens.long()).to(dtype)
     if scale:   # rounded on the host: a device tensor would cost a copy and a wait
         x = x * float(torch.tensor(table.shape[1] ** 0.5, dtype=dtype))
     return x
@@ -84,8 +85,12 @@ def embedding_bag(table: torch.Tensor, indices, cfg: BagConfig = BagConfig(),
 def multi_field_lookup(tables: torch.Tensor, indices, dtype=torch.float32) -> torch.Tensor:
     """tables (F, V, d), indices (B, F), one id a field in [0, V) -> (B, F, d)
     (the DLRM / AutoInt layout). The offsets into the flattened tables are
-    int64 (F * V may pass 2^31)."""
+    int64 (F * V may pass 2^31). A DTensor's V is sharded (``RECSYS_RULES``),
+    so it is looked up a field at a time, each a row-sharded table."""
     f, v, d = tables.shape
+    idx = torch.as_tensor(indices, device=tables.device).long()
+    if is_dtensor(tables):   # V is sharded: a lookup a field
+        return torch.stack([lookup_rows(tables[i], idx[:, i]) for i in range(f)],
+                           dim=1).to(dtype)
     offs = torch.arange(f, dtype=torch.int64, device=tables.device) * v
-    idx = torch.as_tensor(indices, device=tables.device).long() + offs
-    return tables.reshape(f * v, d)[idx].to(dtype)
+    return tables.reshape(f * v, d)[idx + offs].to(dtype)

@@ -8,6 +8,7 @@ import dataclasses
 
 import torch
 
+from ..dist.sharding import is_dtensor, on_local_rows
 from ..utils import resolve_device
 from .common import dense_init
 
@@ -15,6 +16,8 @@ from .common import dense_init
 def dot_interaction(feats: torch.Tensor, keep_self: bool = False) -> torch.Tensor:
     """DLRM's pairwise dots. feats (B, F, d) -> (B, F(F-1)/2), the upper
     triangle in row-major order (with the diagonal: ``keep_self``)."""
+    if is_dtensor(feats):   # each row alone: on each rank's rows (DTensor's rules
+        return on_local_rows(dot_interaction, feats, keep_self)   # for the gather fail)
     f = feats.shape[1]
     dots = torch.einsum("bfd,bgd->bfg", feats, feats)
     iu, ju = torch.triu_indices(f, f, offset=0 if keep_self else 1, device=feats.device)

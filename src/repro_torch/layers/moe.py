@@ -23,8 +23,10 @@ are dropped decides the output:
 
 The combine gathers, it does not scatter-add: atomics would make a bf16
 sum depend on the order the card runs them in, and two calls must agree
-bit for bit. The reference's ``shard_activation`` calls are identities
-outside a mesh scope, and are left out.
+bit for bit. The reference's five ``shard_activation`` pins stand at the
+same steps (the groups over DP, the expert buffer and its output over TP,
+the output over DP and TP); the port's buffer is (E, G·C, D), so its pins
+name the expert axis first. Outside a mesh scope they are identities.
 
 The router stays f32 (the reference casts it to f32 at every use), the
 expert weights are stored in the model's dtype.
@@ -37,6 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import (
+    DP, TP, _axis_size, _placements, gathered, is_dtensor, lay_out, local_block, mesh_axes,
+    shard_activation, summed)
 from ..utils import resolve_device
 from .mlp import ACTS, MLP, MLPConfig, draw_dense, mlp
 
@@ -112,7 +117,11 @@ def _position_in_run(sorted_e: torch.Tensor) -> torch.Tensor:
 def route(params: MoE, xt: torch.Tensor, cfg: MoEConfig):
     """xt (T, D) -> (probs (T, E), top_w (T, K), top_i (T, K)), all in f32
     but the int64 ids: the router's decision for each token."""
-    logits = xt.float() @ params.router.float()
+    return _route(params.router, xt, cfg)
+
+
+def _route(router: torch.Tensor, xt: torch.Tensor, cfg: MoEConfig):
+    logits = xt.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     if cfg.normalize_weights:
@@ -129,60 +138,121 @@ def dispatch_plan(t: int, cfg: MoEConfig, capacity: int | None = None) -> tuple[
     return groups, tg, capacity
 
 
-def moe_layer(params: MoE, x: torch.Tensor, cfg: MoEConfig,
-              capacity: int | None = None):
-    """x (B, S, D) -> (y (B, S, D), {"aux_loss", "dropped_frac"}), both f32
-    scalars on x's device."""
-    dt = x.dtype
-    b, s, d = x.shape
-    t = b * s
-    xt = x.reshape(t, d)
-    e, k, ea = cfg.n_experts, cfg.top_k, cfg.e_alloc
-
-    probs, top_w, top_i = route(params, xt, cfg)
-    frac = F.one_hot(top_i[:, 0], e).float().mean(dim=0)   # primary assignment
-    aux_loss = e * torch.sum(frac * probs.mean(dim=0))
-
-    groups, tg, c = dispatch_plan(t, cfg, capacity)
-    pad = groups * tg - t      # padding tokens: weight 0, expert 0
-    xp = F.pad(xt, (0, 0, 0, pad)).reshape(groups, tg, d)
-    wp = F.pad(top_w, (0, 0, 0, pad)).reshape(groups, tg, k)
-    ip = F.pad(top_i, (0, 0, 0, pad)).reshape(groups, tg, k)
-
-    # ---- dispatch: stable sort by expert, a slot for the first C of each run
+def _dispatch(xp, wp, ip, ea: int, c: int):
+    """A block of groups: xp (G, tg, D), top-k weights and ids wp, ip (G,
+    tg, K) -> (the expert buffer (E_alloc, G·C, D), keep (G, tg·K), the
+    combine's plan). The buffer is (E_alloc, G, C) slots deep, so each
+    expert's slots are one contiguous (G·C, D) block; dropped assignments
+    go to a spare last row, which the experts never read."""
+    groups, tg, d = xp.shape
+    k = ip.shape[-1]
+    # stable sort by expert, a slot for the first C of each run
     sorted_e, order = torch.sort(ip.reshape(groups, tg * k), dim=-1, stable=True)
     pos = _position_in_run(sorted_e)
     keep = pos < c
-    # the buffer is (E_alloc, G, C) slots deep, so each expert's slots are
-    # one contiguous (G·C, D) block; dropped assignments go to a spare last
-    # row, which the experts never read
-    g_idx = torch.arange(groups, device=x.device)[:, None]
+    g_idx = torch.arange(groups, device=xp.device)[:, None]
     rows = torch.where(keep, sorted_e * (groups * c) + g_idx * c + pos, ea * groups * c)
-    buf = x.new_zeros((ea * groups * c + 1, d))
+    buf = xp.new_zeros((ea * groups * c + 1, d))
     buf[rows.reshape(-1)] = xp.reshape(groups * tg, d)[(g_idx * tg + order // k).reshape(-1)]
+    # each assignment's row, back in (token, k) order, its k rows in
+    # ascending expert id (the reference's scatter order)
+    row_tk = torch.empty_like(rows).scatter_(-1, order, rows).reshape(groups * tg, k)
+    by_e = torch.argsort(ip.reshape(groups * tg, k), dim=-1, stable=True)
+    plan = (row_tk.gather(-1, by_e), wp.reshape(groups * tg, k).gather(-1, by_e))
+    return buf[:-1].reshape(ea, groups * c, d), keep, plan
+
+
+def _combine(out, plan) -> torch.Tensor:
+    """out (E_alloc·G·C + 1, D), its last row 0, the plan of ``_dispatch``
+    -> (G·tg, D): each token's k weighted outputs summed in ascending
+    expert id, in out's dtype."""
+    row_tk, w_tk = plan
+    w_tk = w_tk.to(out.dtype)
+    y = out.new_zeros((row_tk.shape[0], out.shape[1]))
+    for j in range(row_tk.shape[1]):
+        y = y + out[row_tk[:, j]] * w_tk[:, j, None]
+    return y
+
+
+def moe_layer(params: MoE, x: torch.Tensor, cfg: MoEConfig,
+              capacity: int | None = None):
+    """x (B, S, D) -> (y (B, S, D), {"aux_loss", "dropped_frac"}), both f32
+    scalars on x's device.
+
+    On a mesh (x a DTensor) the layer keeps the reference's layouts, the
+    groups over DP (pin 1) and the experts over TP (pins 2-4), and routes,
+    dispatches and combines on each rank's groups, plain tensors: every
+    step there is per token or per group, and DTensor has no rules for some
+    of them (the sort's run positions, the scatter into the buffer) in
+    torch 2.11. The router is gathered whole, its gradient a partial sum
+    over DP; the aux loss's sums are summed over DP; the experts' products
+    are DTensor ``bmm``s over the buffer, whose G·C dim is laid out as the
+    groups; the combine reads every expert's outputs for the rank's groups
+    (gathered over TP). When the groups do not divide DP (decode's single
+    group, or padded groups) every rank routes every token.""" 
+    dt = x.dtype
+    b, s, d = x.shape
+    t = b * s
+    on_mesh = is_dtensor(x)
+    xt = x.reshape(t, d)
+    e, k, ea = cfg.n_experts, cfg.top_k, cfg.e_alloc
+    groups, tg, c = dispatch_plan(t, cfg, capacity)
+    pad = groups * tg - t      # padding tokens: weight 0, expert 0
+
+    def _g(v):   # groups over DP; a single group (decode) is left alone
+        return shard_activation(v, DP, *([None] * (v.ndim - 1))) if groups > 1 else v
+
+    def _grouped(v):
+        return (F.pad(v, (0, 0, 0, pad)) if pad else v).reshape((groups, tg, -1))
+
+    if on_mesh:
+        from torch.distributed.tensor import DTensor
+        mesh = x.device_mesh
+        split = groups > 1 and not pad and groups % _axis_size(mesh, mesh_axes(mesh)[0]) == 0
+        ax = (DP,) if split else ()
+        # the rank's groups (pin 1's layout), routed on the rank
+        xt_l = local_block(lay_out(xt, *ax))
+        n_l = xt_l.shape[0]
+        probs, top_w, top_i = _route(gathered(params.router, split), xt_l, cfg)
+        count = summed(F.one_hot(top_i[:, 0], e).float().sum(dim=0), mesh, split)
+        aux_loss = e * torch.sum((count / t) * (summed(probs.sum(dim=0), mesh, split) / t))
+        g_l = groups * n_l // t   # the rank's groups (all, unpadded ones, when split)
+        h, keep, plan = _dispatch(*((F.pad(v, (0, 0, 0, pad)) if pad else v).reshape(g_l, tg, -1)
+                                    for v in (xt_l, top_w, top_i)), ea, c)
+        h = DTensor.from_local(h, mesh, _placements(mesh, (None,) + ax), run_check=False)
+        keep = DTensor.from_local(keep, mesh, _placements(mesh, ax), run_check=False)
+    else:
+        probs, top_w, top_i = route(params, xt, cfg)
+        frac = F.one_hot(top_i[:, 0], e).float().mean(dim=0)   # primary assignment
+        aux_loss = e * torch.sum(frac * probs.mean(dim=0))
+        h, keep, plan = _dispatch(_g(_grouped(xt)), _g(_grouped(top_w)), _g(_grouped(top_i)),
+                                  ea, c)
 
     # ---- the experts: three batched products
-    h = buf[:-1].reshape(ea, groups * c, d)
+    if groups > 1:
+        h = shard_activation(h, TP, DP, None)            # (E, G·C, D)
+    else:
+        h = shard_activation(h, TP, None, None)
     g = ACTS[cfg.act](torch.bmm(h, params.w_gate.to(dt)))
     u = torch.bmm(h, params.w_up.to(dt))
-    if torch.is_grad_enabled():    # bmm(out=) records no autograd node
-        out = torch.cat([torch.bmm(g * u, params.w_down.to(dt)).reshape(-1, d),
-                         x.new_zeros((1, d))])
+    # bmm(out=) records no autograd node, and writes no DTensor pin
+    if torch.is_grad_enabled() or on_mesh:
+        yb = shard_activation(torch.bmm(g * u, params.w_down.to(dt)), TP,
+                              DP if groups > 1 else None, None)
+        if on_mesh:   # every expert's outputs for the rank's groups
+            yb = local_block(lay_out(yb, None, *ax))
+        out = torch.cat([yb.reshape(-1, d), yb.new_zeros((1, d))])
     else:
         out = x.new_empty((ea * groups * c + 1, d))
         torch.bmm(g * u, params.w_down.to(dt), out=out[:-1].view(ea, groups * c, d))
         out[-1] = 0                # the dropped assignments' row
 
-    # ---- combine: each assignment's row, back in (token, k) order, then
-    # each token's k outputs summed in ascending expert id
-    row_tk = torch.empty_like(rows).scatter_(-1, order, rows).reshape(groups * tg, k)
-    by_e = torch.argsort(ip.reshape(groups * tg, k), dim=-1, stable=True)
-    row_tk = row_tk.gather(-1, by_e)
-    w_tk = wp.reshape(groups * tg, k).gather(-1, by_e).to(dt)
-    y = torch.zeros((groups * tg, d), dtype=dt, device=x.device)
-    for j in range(k):
-        y = y + out[row_tk[:, j]] * w_tk[:, j, None]
-    y = y[:t]
+    # ---- combine: each assignment's row, summed in ascending expert id
+    y = _combine(out, plan)
+    if on_mesh:
+        y = DTensor.from_local(y, mesh, _placements(mesh, ax), run_check=False)
+    y = _g(y.reshape(groups, tg, d)).reshape(groups * tg, d)
+    y = shard_activation(y[:t] if pad else y, DP, TP)
 
     if params.shared is not None:   # on the unpadded tokens (ROADMAP.md §3)
         y = y + mlp(params.shared, xt, cfg.shared_cfg())

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..dist.sharding import replicate_like
+
 
 def rope_freqs(positions: torch.Tensor, d_head: int, theta) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) of shape positions.shape + (d_head // 2,)."""
@@ -26,8 +28,8 @@ def rope_freqs(positions: torch.Tensor, d_head: int, theta) -> tuple[torch.Tenso
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta=10_000.0) -> torch.Tensor:
     """x: (..., S, H, dh); positions: (..., S)."""
     cos, sin = rope_freqs(positions, x.shape[-1], theta)   # (..., S, dh/2)
-    cos = cos[..., None, :]                                 # broadcast over heads
-    sin = sin[..., None, :]
+    cos = replicate_like(cos[..., None, :], x)              # broadcast over heads
+    sin = replicate_like(sin[..., None, :], x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

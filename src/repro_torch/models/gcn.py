@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ..dist.sharding import take_last
 from ..layers.common import dense_init
 from ..layers.segment import gather_scatter, sym_norm_weights
 from ..utils import resolve_device
@@ -75,7 +76,7 @@ def gcn_loss(params: dict, batch: dict, cfg: GCNConfig):
     if "label_mask" in batch:
         mask = mask * torch.as_tensor(batch["label_mask"], device=logits.device).float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[:, None])[:, 0]
+    ll = take_last(logits, labels)
     denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum((lse - ll) * mask) / denom
     acc = torch.sum((torch.argmax(logits, dim=-1) == labels) * mask) / denom

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import is_dtensor, replicate_like, take_last
 from ..layers.common import embed_init
 from ..layers.embedding import multi_field_lookup
 from ..layers.interactions import (
@@ -208,10 +209,14 @@ def _in_batch_rows(u, i, logq, r0: int):
     logits = (u @ i.T).float() / TEMPERATURE
     if logq is not None:
         logits = logits - logq[None, :]
-    labels = torch.arange(r0, r0 + u.shape[0], device=logits.device)
+    labels = replicate_like(torch.arange(r0, r0 + u.shape[0], device=logits.device), logits)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[:, None])[:, 0]
-    return torch.sum(lse - ll), torch.sum((torch.argmax(logits, dim=-1) == labels).float())
+    ll = take_last(logits, labels)
+    if is_dtensor(logits):   # a row's own item holds its max (ties aside): DTensor's
+        hit = ll >= logits.amax(dim=-1)   # argmax over a sharded dim fails (2.11)
+    else:
+        hit = torch.argmax(logits, dim=-1) == labels
+    return torch.sum(lse - ll), torch.sum(hit.float())
 
 
 def two_tower_loss(params, batch: dict, cfg: RecsysConfig):

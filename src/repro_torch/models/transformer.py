@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import DP, TP, is_dtensor, lay_out, shard_activation, take_last, zeros_on
 from ..layers.attention import (
     GQA, MLA, GQAConfig, KVCache, MLAConfig, gqa_attention, init_gqa, init_mla,
     mla_attention)
@@ -173,22 +174,30 @@ def block_forward(lp, x, cfg: TransformerConfig, attn_cfg, *, q_offset: int,
     """The reference's ``_layer_fwd`` on a ``Block`` or a view of a layer's
     tree -> (x, the MoE's aux dict or None)."""
     attn_fn = mla_attention if cfg.attn_kind == "mla" else gqa_attention
-    h = rms_norm(x, lp.attn_norm, unit_offset=cfg.sandwich_norm)
+    # on a mesh the sequence is gathered before the projections (sequence
+    # parallelism's all-gather); lay_out is the identity on plain tensors
+    h = lay_out(rms_norm(x, lp.attn_norm, unit_offset=cfg.sandwich_norm), DP)
     attn_out, cache = attn_fn(
         lp.attn, h, attn_cfg, q_offset=q_offset, rope_theta=theta,
         window=window, cache=cache, kv_valid_len=kv_valid)
+    # the branch outputs take the residual's layout where they are made, so
+    # their gradients come back sequence-gathered (torch 2.11's DTensor
+    # cannot fold a sequence-sharded gradient into its product's rows)
+    attn_out = shard_activation(attn_out, DP, TP, None)
     if cfg.sandwich_norm:
         attn_out = rms_norm(attn_out, lp.post_attn_norm, unit_offset=True)
     x = x + attn_out
-    h = rms_norm(x, lp.ffn_norm, unit_offset=cfg.sandwich_norm)
+    x = shard_activation(x, DP, TP, None)
+    h = lay_out(rms_norm(x, lp.ffn_norm, unit_offset=cfg.sandwich_norm), DP)
     aux = None
     if lp.moe is not None:
         ffn_out, aux = moe_layer(lp.moe, h, cfg.moe_cfg())
     else:
         ffn_out = mlp(lp.mlp, h, cfg.mlp_cfg())
+    ffn_out = shard_activation(ffn_out, DP, TP, None)
     if cfg.sandwich_norm:
         ffn_out = rms_norm(ffn_out, lp.post_ffn_norm, unit_offset=True)
-    return x + ffn_out, aux
+    return shard_activation(x + ffn_out, DP, TP, None), aux
 
 
 class Block(nn.Module):
@@ -299,6 +308,7 @@ def forward(model, tokens: torch.Tensor, cfg: TransformerConfig, *,
     backward pass."""
     tokens = torch.as_tensor(tokens, device=model.embed.device)
     x = embed_tokens(model.embed, tokens, cfg.dtype, scale=cfg.embed_scale)
+    x = shard_activation(x, DP, TP, None)
     windows, thetas = cfg.layer_meta()
     attn_cfg = cfg.attn_cfg(train=train)
     remat = train and cfg.remat
@@ -416,8 +426,9 @@ def _chunk_nll(table, h, labels, mask, softcap: float) -> torch.Tensor:
     """The masked NLL sum of one sequence chunk: f32 logits (as
     ``logits_from_hidden``), log-sum-exp, the label's logit."""
     logits = unembed(table, h, softcap)                           # (B, c, V) f32
+    logits = shard_activation(logits, DP, None, TP)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ll = take_last(logits, labels)
     return torch.sum((lse - ll) * mask)
 
 
@@ -429,6 +440,7 @@ def chunked_ce_loss(model, hidden, labels, mask, cfg: TransformerConfig):
     logits live at a time, in the backward pass too."""
     model = _as_model(model, cfg)
     table = model.embed if cfg.tie_embeddings else model.unembed
+    hidden = lay_out(hidden, DP)   # on a mesh: the sequence gathered
     b, s, _ = hidden.shape
     chunk = min(cfg.loss_chunk, s)
     pad = (-s) % chunk
@@ -474,7 +486,12 @@ def prefill(model: Transformer, tokens, cfg: TransformerConfig, max_len: int):
     kv_len the prompt length as a Python int."""
     tokens = torch.as_tensor(tokens, device=model.embed.device)
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len, device=model.embed.device)
+    if is_dtensor(model.embed):   # on a mesh: batch over DP, heads (latent) over TP
+        k, v = cache_shapes(cfg, b, max_len)
+        cache = KVCache(*(zeros_on(t.shape, t.dtype, model.embed, None, DP, None, TP)
+                          for t in (k, v)))
+    else:
+        cache = init_cache(cfg, b, max_len, device=model.embed.device)
     hidden, cache, _ = forward(model, tokens, cfg, cache=cache, cache_pos=0,
                                kv_valid=s)
     return logits_from_hidden(model, hidden[:, -1:], cfg), cache, s

@@ -11,6 +11,16 @@ f32 norm with a floor of 1e-12; warm-up and cosine/linear schedules in f32.
 layout.) Moments are kept in the parameter dtype unless ``moment_dtype``
 says otherwise; gradient accumulation sums in ``accum_dtype`` (f32 when
 None).
+
+**On a mesh** (the trainer's ``Trainer(mesh=)``) the parameters, moments
+and gradients are DTensors. ``global_norm`` is then the norm of the global
+tree: each rank sums the squares of its local blocks, a leaf counted only on
+the ranks at coordinate 0 of every mesh axis it is replicated over, and the
+one sum is reduced over the mesh. The update first lays each gradient out as
+its parameter (a ``Partial`` gradient is reduced there) and then runs the
+chunked in-place update on the local blocks. The step counter, the
+learning rate and the metrics are plain tensors, equal on every rank. On
+plain tensors nothing of this runs.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..dist.sharding import DP, is_dtensor, lay_out, replicate_like
 from ..utils import tree_leaves
 
 UPDATE_CHUNK = 1 << 26   # elements the update (or a leaf's norm) computes at once
@@ -75,8 +86,32 @@ def _square_sum(x: torch.Tensor) -> torch.Tensor:
         torch.float32))) for i in range(0, flat.numel(), UPDATE_CHUNK)]))
 
 
+def _counted_once(x) -> bool:
+    """Whether this rank counts its block of the DTensor ``x``: the rank at
+    coordinate 0 of every mesh axis ``x`` is replicated over."""
+    coord = x.device_mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, x.placements) if pl.is_replicate())
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack([_square_sum(x) for x in tree_leaves(tree)])))
+    leaves = tree_leaves(tree)
+    if not any(is_dtensor(x) for x in leaves):
+        return torch.sqrt(torch.sum(torch.stack([_square_sum(x) for x in leaves])))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = next(x.device_mesh for x in leaves if is_dtensor(x))
+    parts = []
+    for x in leaves:
+        if not is_dtensor(x):
+            raise TypeError("global_norm over a mesh needs every leaf a DTensor")
+        if any(pl.is_partial() for pl in x.placements):
+            x = x.redistribute(x.device_mesh, [Replicate() if pl.is_partial() else pl
+                                               for pl in x.placements])
+        local = x.to_local()
+        parts.append(_square_sum(local) if _counted_once(x)
+                     else torch.zeros((), device=local.device))
+    total = DTensor.from_local(torch.sum(torch.stack(parts)), mesh,
+                               (Partial(),) * mesh.ndim, run_check=False)
+    return torch.sqrt(total.full_tensor())
 
 
 def _clip_scale(tree, max_norm: float):
@@ -95,10 +130,29 @@ def clip_by_global_norm(tree, max_norm: float):
 
 
 def init_adamw(params, cfg: AdamWConfig) -> dict:
+    """Zero moments, each laid out as its parameter (a DTensor's local
+    block only), and the step, replicated on the mesh with DTensors."""
     def zeros_like(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=cfg.moment_dtype or p.dtype)
         return torch.zeros(p.shape, dtype=cfg.moment_dtype or p.dtype, device=p.device)
-    step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+    first = tree_leaves(params)[0]
+    step = replicate_like(torch.zeros((), dtype=torch.int32, device=first.device), first)
     return {"m": _map(zeros_like, params), "v": _map(zeros_like, params), "step": step}
+
+
+def _local(x):
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _as_param(g, p):
+    """The gradient ``g`` laid out as its parameter ``p`` (a ``Partial``
+    gradient is reduced there)."""
+    if not is_dtensor(p):
+        return g
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -108,8 +162,9 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     Each leaf is computed ``UPDATE_CHUNK`` elements at a time, so the update
     needs no second copy of the state and its temporaries stay a few
     chunks."""
+    grads = _map(_as_param, grads, params)
     scale, gn = _clip_scale(grads, cfg.clip_norm)
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1
     lr = schedule_lr(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
@@ -126,13 +181,19 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
 
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
                           tree_leaves(state["v"])):
+        p, g, m, v = (_local(t) for t in (p, g, m, v))
         flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
         for i in range(0, flat[0].numel(), UPDATE_CHUNK):
             part = [t[i:i + UPDATE_CHUNK] for t in flat]
             for dst, new in zip((part[0], part[2], part[3]), upd(*part)):
                 dst.copy_(new)
-    return (params, {"m": state["m"], "v": state["v"], "step": step},
+    return (params, {"m": state["m"], "v": state["v"], "step": replicate_like(step, state["step"])},
             {"grad_norm": gn, "lr": lr})
+
+
+def _full(x):
+    """A metric as a plain tensor, equal on every rank."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def make_train_step(
@@ -162,13 +223,16 @@ def make_train_step(
 
     def train_step(params, opt_state, batch):
         if accum_steps > 1:
-            micro = _map(lambda x: x.reshape((accum_steps, -1) + tuple(x.shape[1:])),
+            # a DTensor batch is gathered to be split into micro-batches,
+            # each laid out over DP again (DTensor cannot split a sharded dim)
+            micro = _map(lambda x: lay_out(x).reshape((accum_steps, -1) + tuple(x.shape[1:])),
                          batch)
             adt = opt_cfg.accum_dtype or torch.float32
-            gsum = _map(lambda p: torch.zeros(p.shape, dtype=adt, device=p.device), params)
+            gsum = _map(lambda p: torch.zeros_like(p, dtype=adt) if is_dtensor(p) else
+                        torch.zeros(p.shape, dtype=adt, device=p.device), params)
             lsum = torch.zeros((), device=tree_leaves(params)[0].device)
             for i in range(accum_steps):
-                loss, _, grads = grads_of(params, _map(lambda x: x[i], micro))
+                loss, _, grads = grads_of(params, _map(lambda x: lay_out(x[i], DP), micro))
                 gsum = _map(lambda a, g: a + g.to(a.dtype), gsum, grads)
                 lsum = lsum + loss
             grads = _map(lambda g: g / accum_steps, gsum)
@@ -179,6 +243,7 @@ def make_train_step(
         if grad_transform is not None:
             grads = grad_transform(grads)
         params, opt_state, opt_metrics = adamw_update(params, grads, opt_state, opt_cfg)
-        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+        return params, opt_state, {k: _full(v) for k, v in
+                                   {"loss": loss, **metrics, **opt_metrics}.items()}
 
     return train_step

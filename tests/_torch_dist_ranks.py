@@ -192,6 +192,114 @@ def _live_sharded(inp, mesh, out):
     out["live_held"] = (sl._view_cache[1][0].first_shard, sl._view_cache[1][0].n_local)
 
 
+LM_CFG = dict(name="t", n_layers=2, d_model=32, n_heads=4, n_kv=4, d_head=16, d_ff=64,
+              vocab=64, loss_chunk=16, remat=False)
+LM_DATA = dict(vocab=64, seq_len=16, batch=4)
+TRAIN_ARCHS = ("wide-deep", "gcn-cora")
+TRAIN_BATCH = 8
+
+
+def _flat(tree, path=()) -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _flat(tree[key], path + (key,)).items()}
+    return {"/".join(path): tree}
+
+
+def _gathered(tree) -> dict:
+    """{path: numpy} of a tree of DTensors, each leaf gathered (a collective
+    every rank makes)."""
+    return {k: v.full_tensor().numpy() for k, v in _flat(tree).items()}
+
+
+def _local_bytes(tree) -> int:
+    return sum(v.to_local().numel() * v.to_local().element_size()
+               for v in _flat(tree).values())
+
+
+def _mesh_trainer(mesh, out, workdir):
+    """``Trainer(mesh=, param_rules=)`` on the 2 x 2 mesh. The LM restores
+    the unsharded phase-1 checkpoint the test wrote (step 10) and trains to
+    step 14, logging every 2 steps; wide-deep and gcn-cora (``reduced()``)
+    train 3 steps from the training CLI's initial trees and batches. Saved:
+    the histories, every leaf gathered, and each rank's local bytes of
+    parameters and moments."""
+    import functools
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMDataConfig, lm_batches
+    from repro_torch.dist import LM_RULES
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = tf.TransformerConfig(**LM_CFG, dtype=torch.float32)
+    tr = Trainer(functools.partial(tf.loss_fn, cfg=cfg),
+                 tf.transformer_tree(tf.init_transformer(cfg, seed=1, device="cpu",
+                                                         f32_masters=True), cfg),
+                 AdamWConfig(lr=1e-2, warmup_steps=2),
+                 TrainerConfig(total_steps=14, ckpt_every=50, log_every=2,
+                               ckpt_dir=os.path.join(workdir, "lm_ck")),
+                 mesh=mesh, param_rules=LM_RULES)
+    restored = tr.maybe_restore()
+    out["lm_restored"] = (restored, tr.step)
+    out["lm_history"] = tr.fit(lm_batches(LMDataConfig(**LM_DATA), start_step=10))["history"]
+    out["lm_params"] = _gathered(tr.params)
+    out["lm_opt"] = {k: _gathered(tr.opt_state[k]) for k in ("m", "v")}
+    out["lm_local"] = {"params": _local_bytes(tr.params),
+                       "m": _local_bytes(tr.opt_state["m"]),
+                       "v": _local_bytes(tr.opt_state["v"])}
+    out["lm_shapes"] = {k: tuple(v.shape) for k, v in _flat(tr.params).items()}
+    for arch_id in TRAIN_ARCHS:
+        arch = get_arch(arch_id)
+        params, loss, data = build_training(arch_id, True, TRAIN_BATCH, 16, device="cpu")
+        tr = Trainer(loss, params, arch.opt_cfg,
+                     TrainerConfig(total_steps=3, log_every=1,
+                                   ckpt_dir=os.path.join(workdir, f"ck_{arch_id}")),
+                     mesh=mesh, param_rules=arch.rules)
+        out[arch_id] = {"history": tr.fit(data)["history"], "params": _gathered(tr.params),
+                        "local": _local_bytes(tr.params) + _local_bytes(tr.opt_state["m"])
+                        + _local_bytes(tr.opt_state["v"])}
+
+
+def _mesh_moe(mesh, out):
+    """The MoE on the 2 x 2 mesh against the unsharded port: reduced
+    qwen2-moe in f32, 4 x 1,024 tokens (two dispatch groups, one a DP
+    rank), the loss, the aux loss and every gradient leaf."""
+    import dataclasses
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.configs import qwen2_moe_a27b
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.dist import LM_RULES, activation_sharding, bind_shardings, spec_tree
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(qwen2_moe_a27b.reduced(), dtype=torch.float32, remat=False)
+    tree = tf.transformer_tree(tf.init_transformer(cfg, device="cpu", f32_masters=True), cfg)
+    flat = _flat(tree)
+    bound = _flat(bind_shardings(mesh, spec_tree(tree, LM_RULES, mesh)))
+    batch = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=1024, batch=4), 0)
+
+    def grads(leaves, tokens):
+        it = iter(leaves)
+        t = {}
+        for path in flat:
+            node = t
+            *head, last = path.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = next(it)
+        loss, m = tf.loss_fn(t, {"tokens": tokens, "labels": tokens}, cfg)
+        return loss, m["aux_loss"], torch.autograd.grad(loss, leaves)
+    live = [distribute_tensor(v.detach().clone(), *bound[k], src_data_rank=None)
+            .requires_grad_(True) for k, v in flat.items()]
+    toks = distribute_tensor(torch.as_tensor(batch["tokens"]), mesh, (Shard(0), Replicate()),
+                             src_data_rank=None)
+    with activation_sharding(mesh):
+        loss, aux, g = grads(live, toks)
+    out["moe_mesh"] = (float(loss.full_tensor()), float(aux.full_tensor()),
+                       [x.full_tensor().numpy() for x in g])
+    loss, aux, g = grads([v.detach().clone().requires_grad_(True) for v in flat.values()],
+                         torch.as_tensor(batch["tokens"]))
+    out["moe_plain"] = (float(loss), float(aux), [x.numpy() for x in g])
+
+
 def main(rank: int, world: int, workdir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
@@ -206,6 +314,8 @@ def main(rank: int, world: int, workdir: str) -> None:
         _shardings(mesh, out, workdir)
         _server(inp, mesh, out)
         _live_sharded(inp, mesh, out)
+        _mesh_trainer(mesh, out, workdir)
+        _mesh_moe(mesh, out)
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:

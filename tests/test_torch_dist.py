@@ -22,8 +22,10 @@ Ids, counts, flags and counters must be equal; distances ``allclose`` at
 their sure members keep certified lower bounds, f32 expressions whose terms
 cancel near a zero distance (4.4e-5 differs by 2e-10 there).
 """
+import functools
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import types
@@ -54,6 +56,15 @@ FIELDS = ("ids", "dists", "count", "overflow", "n_visited", "n_dist", "es_stoppe
 DIST_TOL = dict(rtol=1e-6, atol=0.0)
 INT8_TOL = dict(rtol=1e-6, atol=1e-8)
 TIMEOUT_S = 600
+# the mesh trainer's rigs (tests/_torch_dist_ranks.py): the reference test's
+# 2-layer LM (tests/test_dist.py::test_sharded_trainer_elastic_restore) and
+# the training CLI's reduced wide-deep and gcn-cora
+LM_CFG = dict(name="t", n_layers=2, d_model=32, n_heads=4, n_kv=4, d_head=16, d_ff=64,
+              vocab=64, loss_chunk=16, remat=False)
+LM_DATA = dict(vocab=64, seq_len=16, batch=4)
+TRAIN_ARCHS = ("wide-deep", "gcn-cora")
+TRAIN_BATCH = 8
+TRAIN_TOL = 1e-4   # relative; a sharded reduction sums in another order
 # the reference builds its shard_map program anew at each call (~13 s of
 # compile on a CPU), so the served stream is one micro-batch
 SERVER_BATCH = 32
@@ -130,10 +141,52 @@ if part == "server":   # RangeServer(mesh=, sharded=) on a one-device (1, 1) mes
                            filter_labels=[i %% 8] if i %% 3 == 1 else None))
     clock.t = 10.0
     out = {"server": [vars(r) for r in srv.run_until_drained()], "stats": dict(srv.stats)}
+if part == "train":   # the reference's unsharded Trainer on the port's checkpoint and trees
+    import functools
+    from repro.configs import get_arch
+    from repro.data.lm import LMDataConfig, lm_batches
+    from repro.launch.train import build_training
+    from repro.models import TransformerConfig, init_transformer, loss_fn
+    from repro.optim import AdamWConfig
+    from repro.train import Trainer, TrainerConfig
+
+    def flat(tree):
+        return {"/".join(str(k.key) for k in path): np.asarray(leaf)
+                for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    cfg = TransformerConfig(**%(lm_cfg)r, dtype=jnp.float32)
+    tr = Trainer(functools.partial(loss_fn, cfg=cfg), init_transformer(jax.random.PRNGKey(1), cfg),
+                 AdamWConfig(lr=1e-2, warmup_steps=2),
+                 TrainerConfig(total_steps=14, ckpt_every=50, log_every=2,
+                               ckpt_dir=work + "/lm_ck_jax"))
+    assert tr.maybe_restore() and tr.step == 10
+    out["lm_history"] = tr.fit(lm_batches(LMDataConfig(**%(lm_data)r), start_step=10))["history"]
+    out["lm_params"] = flat(tr.params)
+    for arch_id in %(archs)r:
+        arch = get_arch(arch_id)
+        init = np.load(work + "/init_" + arch_id + ".npz")
+
+        def port_init(jp):   # the port's initial tree, in the reference's structure
+            return jax.tree_util.tree_map_with_path(
+                lambda path, _: jnp.asarray(init["/".join(str(k.key) for k in path)]), jp)
+        jp, loss, data = build_training(arch_id, True, %(batch)d, 16)
+        tr = Trainer(loss, port_init(jp), arch.opt_cfg,
+                     TrainerConfig(total_steps=3, log_every=1, ckpt_dir=work + "/jck_" + arch_id))
+        out[arch_id] = {"history": tr.fit(data)["history"], "params": flat(tr.params)}
+        try:   # the reference's own mesh Trainer, on a (2, 2) mesh of the 4 devices
+            jp, loss, data = build_training(arch_id, True, %(batch)d, 16)
+            tr = Trainer(loss, port_init(jp), arch.opt_cfg,
+                         TrainerConfig(total_steps=3, log_every=1,
+                                       ckpt_dir=work + "/jmesh_" + arch_id),
+                         mesh=jax.make_mesh((2, 2), ("data", "model")), param_rules=arch.rules)
+            out[arch_id]["mesh"] = {"history": tr.fit(data)["history"],
+                                    "params": flat(tr.params)}
+        except Exception as e:
+            out[arch_id]["mesh"] = repr(e)
 with open(work + "/jax_" + part + ".pkl", "wb") as f:
     pickle.dump(out, f)
-""" % {"fields": FIELDS}
-JAX_PARTS = ("f32", "int8", "server")
+""" % {"fields": FIELDS, "lm_cfg": LM_CFG, "lm_data": LM_DATA, "archs": TRAIN_ARCHS,
+       "batch": TRAIN_BATCH}
+JAX_PARTS = ("f32", "int8", "server", "train")
 
 
 def _clustered(n, seed=0):
@@ -258,6 +311,39 @@ def _inputs():
     return inp, filt
 
 
+def _flat(tree, path=()) -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _flat(tree[key], path + (key,)).items()}
+    return {"/".join(path): tree}
+
+
+def _phase_one(work):
+    """The mesh trainer's phase 1, here: the port's unsharded ``Trainer`` on
+    the reference test's LM, 10 steps with checkpoints at 5 and 10 (a copy
+    for the reference to restore), and the initial trees of the reduced
+    wide-deep and gcn-cora (the training CLI's, seed 0) for the reference."""
+    from repro_torch.data import LMDataConfig, lm_batches
+    from repro_torch.launch.train import init_params
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as ptf
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = ptf.TransformerConfig(**LM_CFG, dtype=torch.float32)
+    tr = Trainer(functools.partial(ptf.loss_fn, cfg=cfg),
+                 ptf.transformer_tree(ptf.init_transformer(cfg, seed=0, device="cpu",
+                                                           f32_masters=True), cfg),
+                 AdamWConfig(lr=1e-2, warmup_steps=2),
+                 TrainerConfig(total_steps=10, ckpt_every=5, log_every=5,
+                               ckpt_dir=os.path.join(work, "lm_ck")))
+    tr.fit(lm_batches(LMDataConfig(**LM_DATA)))
+    shutil.copytree(os.path.join(work, "lm_ck"), os.path.join(work, "lm_ck_jax"))
+    for arch_id in TRAIN_ARCHS:
+        arch = get_arch(arch_id)
+        params = init_params(arch.family, arch.reduced(), 0, torch.device("cpu"))
+        np.savez(os.path.join(work, f"init_{arch_id}.npz"),
+                 **{k: v.numpy() for k, v in _flat(params).items()})
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Spawn the JAX subprocesses and the four ranks once; meanwhile compute
@@ -267,6 +353,7 @@ def run(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("dist"))
     inp, filt = _inputs()
     np.savez(os.path.join(work, "inputs.npz"), **inp)
+    _phase_one(work)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     names = [f"jax_{p}" for p in JAX_PARTS] + [f"rank{r}" for r in range(WORLD)]
     logs = {name: open(os.path.join(work, name + ".log"), "w+") for name in names}
@@ -306,7 +393,9 @@ def run(tmp_path_factory):
         with open(os.path.join(work, f"jax_{part}.pkl"), "rb") as f:
             jx.update(pickle.load(f))
     server = (jx.pop("server"), jx.pop("stats"))
-    return types.SimpleNamespace(inp=inp, jax=jx, unions=unions, server=server, ranks=ranks)
+    train = {k: jx.pop(k) for k in ("lm_history", "lm_params") + TRAIN_ARCHS}
+    return types.SimpleNamespace(inp=inp, jax=jx, unions=unions, server=server, ranks=ranks,
+                                 train=train, work=work)
 
 
 def _jax_result(run, name):
@@ -544,3 +633,128 @@ def test_live_sharded_range_is_equal_on_every_rank(run):
     ids = run.ranks[0]["live_sharded"]["ids"]
     assert ((ids >= 1601) & (ids < 1613)).any()           # inserted rows answer
     assert not np.isin(ids, np.r_[0:1601:9]).any()        # deleted rows never do
+
+
+# ---------------------------------------------------------------------------
+# the mesh trainer
+# ---------------------------------------------------------------------------
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _assert_history(got, want, name):
+    assert [h["step"] for h in got] == [h["step"] for h in want], name
+    for g, w in zip(got, want):
+        assert abs(g["loss"] - w["loss"]) <= TRAIN_TOL * abs(w["loss"]), (name, g, w)
+
+
+def test_mesh_trainer_restores_the_unsharded_checkpoint_and_matches_jax(run):
+    """Phase 2 of the reference test on the port: ``Trainer(mesh=2 x 2,
+    param_rules=LM_RULES)`` restores the unsharded checkpoint at step 10 and
+    trains to 14. Its losses at steps 12 and 14 and every leaf at step 14
+    within 1e-4 relative of the reference's unsharded ``Trainer`` restored
+    from the same checkpoint, on the same batches."""
+    want = run.train["lm_params"]
+    for r in run.ranks:
+        assert r["lm_restored"] == (True, 10)
+        _assert_history(r["lm_history"], run.train["lm_history"], "lm")
+        assert [h["step"] for h in r["lm_history"]] == [12, 14]
+        assert set(r["lm_params"]) == set(want)
+        for k, v in r["lm_params"].items():
+            assert _rel(v, want[k]) <= TRAIN_TOL, k
+
+
+@pytest.mark.parametrize("arch_id", TRAIN_ARCHS)
+def test_mesh_trainer_matches_jax_on_recsys_and_gnn(run, arch_id):
+    """wide-deep (``RECSYS_RULES``: the tables' rows over the whole mesh)
+    and gcn-cora (``GNN_RULES``) at ``reduced()``, 3 steps on the 2 x 2
+    mesh, against the reference's unsharded ``Trainer`` from the same
+    initial tree on the same batches; and against the reference's own mesh
+    ``Trainer`` on a (2, 2) mesh where it runs."""
+    want = run.train[arch_id]
+    for r in run.ranks:
+        got = r[arch_id]
+        _assert_history(got["history"], want["history"], arch_id)
+        for k, v in got["params"].items():
+            assert _rel(v, want["params"][k]) <= TRAIN_TOL, (arch_id, k)
+        if isinstance(want["mesh"], dict):
+            _assert_history(got["history"], want["mesh"]["history"], arch_id + " mesh")
+            for k, v in got["params"].items():
+                assert _rel(v, want["mesh"]["params"][k]) <= TRAIN_TOL, (arch_id, k)
+
+
+def test_mesh_trainer_metrics_are_equal_on_every_rank(run):
+    for r in run.ranks[1:]:
+        assert r["lm_history"] == run.ranks[0]["lm_history"]
+        for arch_id in TRAIN_ARCHS:
+            assert r[arch_id]["history"] == run.ranks[0][arch_id]["history"]
+    assert all(isinstance(v, float) for h in run.ranks[0]["lm_history"]
+               for k, v in h.items() if k != "step")
+
+
+def _shard_factor(spec, mesh) -> int:
+    from repro_torch.dist.sharding import _axis_size, _resolve
+    n = 1
+    for sym in spec:
+        n *= _axis_size(mesh, _resolve(sym, mesh) or ())
+    return n
+
+
+def test_mesh_trainer_holds_only_its_shards(run):
+    """Each rank's local bytes of the parameters and of each moment are the
+    total over the leaves of each leaf's bytes divided by its shard factor
+    under ``spec_tree`` (the product of the mesh axes its dims shard over)."""
+    from repro_torch.dist import GNN_RULES, RECSYS_RULES
+    tmesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 2))
+
+    def expected(shapes: dict, rules) -> int:
+        tree: dict = {}
+        for path, shp in shapes.items():
+            node = tree
+            *head, last = path.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = torch.Size(shp)
+        specs = _flat(spec_tree(tree, rules, tmesh))
+        return sum(4 * int(np.prod(shapes[k])) // _shard_factor(specs[k], tmesh)
+                   for k in shapes)
+    lm = expected(run.ranks[0]["lm_shapes"], LM_RULES)
+    assert lm < sum(4 * int(np.prod(s)) for s in run.ranks[0]["lm_shapes"].values())
+    for r in run.ranks:
+        assert r["lm_local"] == {"params": lm, "m": lm, "v": lm}
+        for arch_id, rules in zip(TRAIN_ARCHS, (RECSYS_RULES, GNN_RULES)):
+            shapes = {k: v.shape for k, v in r[arch_id]["params"].items()}
+            assert r[arch_id]["local"] == 3 * expected(shapes, rules), arch_id
+
+
+def test_moe_on_the_mesh_matches_the_unsharded_port(run):
+    """The MoE layer on the 2 x 2 mesh (groups over DP, experts over TP,
+    routing and dispatch on each rank's groups) against the same port
+    unsharded: loss and aux loss within 1e-5, every gradient leaf within
+    1e-4 relative."""
+    for r in run.ranks:
+        (lm, am, gm), (lp, ap, gp) = r["moe_mesh"], r["moe_plain"]
+        assert abs(lm - lp) <= 1e-5 * abs(lp) and abs(am - ap) <= 1e-5 * abs(ap)
+        assert len(gm) == len(gp)
+        for a, b in zip(gm, gp):
+            assert _rel(a, b) <= TRAIN_TOL
+
+
+def test_mesh_checkpoint_restores_onto_one_device(run):
+    """The mesh trainer's step-14 checkpoint (rank 0 writes the unsharded
+    layout) restored by an unsharded ``CheckpointManager``: every leaf and
+    moment equal to the leaves the ranks gathered."""
+    from repro_torch.train import CheckpointManager
+    cm = CheckpointManager(os.path.join(run.work, "lm_ck"))
+    flat, manifest = cm.restore_flat(device="cpu")
+    assert manifest["step"] == 14
+    r0 = run.ranks[0]
+    for k, v in r0["lm_params"].items():
+        np.testing.assert_array_equal(flat["params." + k.replace("/", ".")].numpy(), v)
+    for m in ("m", "v"):
+        for k, v in r0["lm_opt"][m].items():
+            np.testing.assert_array_equal(flat[f"opt.{m}." + k.replace("/", ".")].numpy(), v)
+    assert int(flat["opt.step"]) == 14
+

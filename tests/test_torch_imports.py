@@ -50,7 +50,8 @@ NAMED = ("repro_torch.core.labels", "repro_torch.core.build",
          "repro_torch.configs.dlrm_rm2", "repro_torch.configs.autoint",
          "repro_torch.configs.gcn_cora", "repro_torch.analysis",
          "repro_torch.analysis.roofline", "repro_torch.launch.mesh",
-         "repro_torch.launch.steps")
+         "repro_torch.launch.steps", "repro_torch.analysis.hlo",
+         "repro_torch.launch.dryrun")
 
 
 def test_port_imports_neither_jax_nor_repro():

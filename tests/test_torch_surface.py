@@ -7,10 +7,12 @@
   only those ``ADDED_KEYWORDS`` names, each a departure ROADMAP.md §3
   records; ``random_regular`` keeps the reference's names, its ``key`` a
   seed or a ``torch.Generator`` where the reference takes a JAX key.
-* Every public name of the modules this slice ports: ``utils``,
-  ``layers.common``, ``core.graph``, ``analysis`` (less ``make_report``
-  and ``analysis/hlo.py``'s names, which wait for ROADMAP.md §1 item 11b),
-  ``launch.mesh`` and ``launch.steps``.
+* Every public name of ``utils``, ``layers.common``, ``core.graph``,
+  ``analysis`` (with ``hlo`` and ``roofline``), ``launch.mesh``,
+  ``launch.steps``, ``launch.dryrun``, ``dist`` (with ``sharding``) and
+  ``train`` (with ``trainer``), less the names ``ABSENT`` gives a reason
+  for (``fusion_count``); ``dist.compat`` has no counterpart module, with
+  its reason.
 * The new ``utils`` and ``layers.common`` functions against the
   reference's on the same numpy inputs; ``core.graph.from_lists`` equal to
   the reference's, ``random_regular`` by its properties; the single-query
@@ -59,12 +61,18 @@ ADDED_KEYWORDS = {
     "block": "build_knn_graph: the corpus block of its exact top-k",
     "query_block": "exact_topk, build_knn_graph: its query block",
 }
-# names of the reference that wait for a later item
-LATER = {"repro.analysis": {"make_report", "CollectiveStats", "count_op", "fusion_count",
-                            "parse_collectives", "hlo"},
-         "repro.analysis.roofline": {"make_report"}}
+# names of the reference with no counterpart in the port, each with its
+# reason (ROADMAP.md §3)
+NO_FUSIONS = "eager PyTorch runs no fusion pass, so there are no fusions to count"
+ABSENT = {"repro.analysis": {"fusion_count": NO_FUSIONS},
+          "repro.analysis.hlo": {"fusion_count": NO_FUSIONS}}
+ABSENT_MODULES = {"repro.dist.compat": "it bridges shard_map's move between jax versions; "
+                                       "torch's device-mesh and collective API has no such "
+                                       "split"}
 SURFACE = ("repro.utils", "repro.layers.common", "repro.core.graph", "repro.analysis",
-           "repro.analysis.roofline", "repro.launch.mesh", "repro.launch.steps")
+           "repro.analysis.roofline", "repro.analysis.hlo", "repro.launch.mesh",
+           "repro.launch.steps", "repro.launch.dryrun", "repro.dist", "repro.dist.sharding",
+           "repro.train", "repro.train.trainer")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -177,13 +185,35 @@ def _own(mod, name: str) -> bool:
         "repro")
 
 
+def _import_reference(module: str):
+    """The reference module; its dry run sets ``XLA_FLAGS`` when imported,
+    which is put back so no later subprocess inherits it."""
+    flags = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(module)
+    finally:
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
+
+
 @pytest.mark.parametrize("module", SURFACE)
 def test_module_names_exist_in_port(module):
-    ref = importlib.import_module(module)
+    ref = _import_reference(module)
     port = importlib.import_module("repro_torch" + module[len("repro"):])
     want = {n for n in _public(ref) if _own(ref, n)}
-    missing = sorted(want - LATER.get(module, set()) - _public(port))
+    absent = ABSENT.get(module, {})
+    missing = sorted(want - set(absent) - _public(port))
     assert not missing, missing
+    assert not set(absent) & _public(port), "a recorded absence exists after all"
+
+
+@pytest.mark.parametrize("module", sorted(ABSENT_MODULES))
+def test_modules_without_a_counterpart(module):
+    importlib.import_module(module)
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module("repro_torch" + module[len("repro"):])
 
 
 # ---------------------------------------------------------------------------

@@ -502,15 +502,22 @@ def test_init_statistics():
 
 
 def test_unported_parts_raise():
-    """What is left unported raises, naming its ROADMAP item: the mesh
-    trainer's activation pins (§1 item 10). The training loss, and MoE, MLA
-    and leading dense layers, which raised here before, now run."""
-    from repro_torch.dist.sharding import activation_sharding, shard_activation
+    """Nothing of the LM family is left unported. The activation pins (which
+    raised here until the mesh trainer was ported) are identities outside a
+    mesh scope, and inside a scope of more than one rank a plain tensor
+    raises; the training loss, MoE, MLA and leading dense layers run."""
+    import types
+    from repro_torch.dist.sharding import (
+        DP, TP, activation_sharding, current_mesh, shard_activation)
     cfg = gemma3_27b.reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10 \\(the mesh trainer\\)"):
-        activation_sharding(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10 \\(the mesh trainer\\)"):
-        shard_activation(torch.zeros(2), None)
+    x = torch.zeros((2, 4, 8))
+    assert current_mesh() is None and shard_activation(x, DP, TP, None) is x
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 2))
+    with activation_sharding(mesh) as m:
+        assert m is mesh and current_mesh() is mesh
+        with pytest.raises(TypeError, match="must be a DTensor"):
+            shard_activation(x, DP, TP, None)
+    assert current_mesh() is None
     model = init_transformer(cfg, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
     loss, _ = loss_fn(model, {"tokens": toks, "labels": toks}, cfg)
