@@ -41,7 +41,10 @@ Phases, each printed as it ends:
      sum, mean a launch, count, bound; every launch bit for bit equal on
      the two routes);
   7. the guard-band contract on 256 queries: the post-rerank set equals the
-     rerank-disabled set filtered by the exact distances;
+     rerank-disabled set filtered by the exact distances; and one greedy
+     batch of each engine (f32, int8 f32-query) under ``trace.card_syncs``:
+     every synchronizing call the card reports from the port is counted in
+     ``host_syncs`` ([syncs]: the sites and both counts);
   8. the kernel path against the plain path through the same engines on a
      256-query subset (AP within 0.01), f32 and int8;
  11. [tier]: ``from_graph(corpus_dtype="int8", tier=True)`` on the k-NN
@@ -1015,6 +1018,26 @@ def check_result_int8(res, points, queries, r, cap, name) -> None:
                              "(a false positive)")
     if not (got <= exact + 1e-5).all():
         raise AssertionError(f"{name}: a returned distance exceeds the exact one")
+
+
+def check_sync_count(engine, queries, r, cfg, name) -> None:
+    """One ``compacted=True`` batch under ``trace.card_syncs``: every
+    synchronizing call the card reports from the port's code is one the
+    ``host_syncs`` counter adds, so the counter misses no sync."""
+    from repro_torch import trace
+    before = trace.counters().get("host_syncs", 0)
+    frames = trace.card_syncs(lambda: engine.range(queries, r, cfg=cfg, compacted=True))
+    counted = trace.counters().get("host_syncs", 0) - before
+    sites: dict = {}
+    for f in frames:
+        key = f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno} {f.name}" if f else "outside the port"
+        sites[key] = sites.get(key, 0) + 1
+    reported = sum(1 for f in frames if f)
+    log(f"[syncs] {name}: {reported} synchronizing calls reported from the port, "
+        f"{counted} counted in host_syncs; sites {sites}")
+    if reported == 0 or counted != reported:
+        raise AssertionError(f"{name}: host_syncs counted {counted} syncs where the "
+                             f"card reported {reported} from the port")
 
 
 def check_guard_band(eng_q, points, queries, r, cfg, name, tol=1e-6):
@@ -5035,6 +5058,9 @@ def main() -> int:
             f"rerank-disabled set filtered by the exact distances on {n_ok} "
             f"lanes (the rest overflowed result_cap); {n_tie} pairs within "
             f"1e-6 of r")
+    check_sync_count(engine, queries, r, cfgs["greedy"], "greedy f32")
+    check_sync_count(engine_q, queries, r, q_cfgs["greedy f32-query"],
+                     "greedy int8 f32-query")
 
     # -- 8. kernel path against the plain path through the engines -----------
     runs = [(mode, engine, cfg) for mode, cfg in cfgs.items()]

@@ -34,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..kernels.expand import expand_frontier
 from ..utils import INVALID_ID
 from .bitset import (
@@ -315,9 +316,10 @@ def _step_reference(points, graph: Graph, q, r, es_radius, cfg: SearchConfig,
     nbr_ids = torch.where(fresh, nbrs, INVALID_ID)
 
     expanded = st.expanded | (pos[None] == idx[:, None])
-    m_ids, m_dists, m_exp = _sorted_trunc(
-        torch.cat([st.ids, nbr_ids], 1), torch.cat([st.dists, nd], 1),
-        torch.cat([expanded, torch.zeros_like(fresh)], 1), L)
+    with trace.span("walk.merge"):
+        m_ids, m_dists, m_exp = _sorted_trunc(
+            torch.cat([st.ids, nbr_ids], 1), torch.cat([st.dists, nd], 1),
+            torch.cat([expanded, torch.zeros_like(fresh)], 1), L)
 
     v_idx = torch.clamp(st.n_visited, max=cfg.visit_cap - 1).long()[:, None]
     exp_state = dataclasses.replace(
@@ -383,8 +385,9 @@ def _step(points, graph: Graph, q, r, es_radius, cfg: SearchConfig,
 
     # -- merge the candidate tile into the sorted beam -----------------------
     expanded = st.expanded | torch.any(sel_hit, dim=2)
-    m_ids, m_dists, m_exp, entrant = _merge_sorted(
-        st.ids, st.dists, expanded, nbr_ids, nd, L)
+    with trace.span("walk.merge"):
+        m_ids, m_dists, m_exp, entrant = _merge_sorted(
+            st.ids, st.dists, expanded, nbr_ids, nd, L)
 
     # -- mark beam entrants in the seen bitset (in place, expanding lanes) ---
     # A node is "seen" once it has held a beam slot; candidates truncated
@@ -422,7 +425,11 @@ def broadcast_radius(r, n: int, default: float = float("inf"),
     ``(n,)`` vector."""
     if r is None:
         r = default
+    from_host = not isinstance(r, torch.Tensor) or r.device.type == "cpu"
     r = torch.as_tensor(r, dtype=torch.float32, device=device)
+    if from_host and r.device.type == "cuda":
+        # a copy from pageable host memory waits for the stream to drain
+        trace.count("host_syncs")
     if r.dim() == 0:
         return r.expand(n).contiguous()
     if tuple(r.shape) != (n,):
@@ -456,6 +463,7 @@ def keep_walking(live: torch.Tensor, trip: int) -> bool:
     lane is live (a host sync), or the trip count of ``walk_trips``."""
     if _WALK.trips is not None:
         return trip < _WALK.trips
+    trace.count("host_syncs")
     return bool(live.any())
 
 
@@ -484,12 +492,16 @@ def beam_search_batch(points, graph: Graph, queries: torch.Tensor,
     st = init_state(points, queries, start_ids, cfg)
     trip = 0
     while True:
-        live = ~st.done
-        if not keep_walking(live, trip):
+        with trace.span("walk.sync"):
+            live = ~st.done
+            go = keep_walking(live, trip)
+        if not go:
             return st
         trip += 1
-        new = _step(points, graph, queries, rv, esv, cfg, st, live)
-        st = _where_state(live, new, st)
+        trace.count("walk.beam_iters")
+        with trace.span("walk.step"):
+            new = _step(points, graph, queries, rv, esv, cfg, st, live)
+            st = _where_state(live, new, st)
 
 
 def topk_from_state(st: BeamState, k: int):

@@ -6,6 +6,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..utils import resolve_device
 from .beam_search import SearchConfig, beam_search_batch, broadcast_radius, topk_from_state
 from .build import BuildConfig, build_vamana
@@ -126,17 +127,18 @@ class RangeSearchEngine:
         if filter is not None and self.labels is None:
             raise ValueError("engine has no labels attached; build with labels= "
                              "to use filtered range search")
-        q = self._queries(queries)
-        n = q.shape[0]
-        r = broadcast_radius(r, n, device=self.device)
-        if es_radius is not None:
-            es_radius = broadcast_radius(es_radius, n, device=self.device)
-        fn = range_search_compacted if compacted else range_search_fused
-        return fn(corpus=self.points, graph=self.graph, queries=q,
-                  start_ids=self.start_ids, r=r, cfg=cfg,
-                  es_radius=es_radius, tombstones=tombstones,
-                  labels=None if filter is None else self.labels,
-                  label_filter=None if filter is None else filter.to(self.device))
+        with trace.span("range"):
+            q = self._queries(queries)
+            n = q.shape[0]
+            r = broadcast_radius(r, n, device=self.device)
+            if es_radius is not None:
+                es_radius = broadcast_radius(es_radius, n, device=self.device)
+            fn = range_search_compacted if compacted else range_search_fused
+            return fn(corpus=self.points, graph=self.graph, queries=q,
+                      start_ids=self.start_ids, r=r, cfg=cfg,
+                      es_radius=es_radius, tombstones=tombstones,
+                      labels=None if filter is None else self.labels,
+                      label_filter=None if filter is None else filter.to(self.device))
 
     # -- introspection -------------------------------------------------------
     def stats(self) -> dict:

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels.rerank_fetch import fetch_rerank_pairs
 from ..utils import INVALID_ID
 from .beam_search import (
@@ -262,15 +263,19 @@ def _greedy_run(points, graph: Graph, q, r, gs: GreedyState, cap: int,
     res = None if E1 else _pack(gs.res_ids, gs.res_dists)
     trip = 0
     while True:
-        live = active & (gs.expand_ptr < gs.res_count) & (gs.rounds < stop_at)
-        if not keep_walking(live, trip):
+        with trace.span("walk.sync"):
+            live = active & (gs.expand_ptr < gs.res_count) & (gs.rounds < stop_at)
+            go = keep_walking(live, trip)
+        if not go:
             break
         trip += 1
-        if E1:
-            gs = _greedy_step_reference(points, graph, q, r, cap, scfg, gs,
-                                        exact_bits, live)
-        else:
-            gs, res = _greedy_step(points, graph, q, r, cap, scfg, gs, res, live)
+        trace.count("walk.greedy_iters")
+        with trace.span("walk.step"):
+            if E1:
+                gs = _greedy_step_reference(points, graph, q, r, cap, scfg, gs,
+                                            exact_bits, live)
+            else:
+                gs, res = _greedy_step(points, graph, q, r, cap, scfg, gs, res, live)
     if res is not None:
         ids, dists = _unpack(res)
         gs = dataclasses.replace(gs, res_ids=ids, res_dists=dists)
@@ -514,6 +519,12 @@ def _rerank_band(points, queries, rj, res: RangeResult,
     if not (isinstance(qc, QuantizedCorpus) and cfg.rerank
             and (tier is not None or qc.raw is not None)):
         return res
+    with trace.span("result.rerank"):
+        return _rerank_pairs(points, qc, queries, rj, res, cfg)
+
+
+def _rerank_pairs(points, qc: QuantizedCorpus, queries, rj, res: RangeResult,
+                  cfg: RangeConfig) -> RangeResult:
     metric = cfg.search.metric
     ids, dists = res.ids, res.dists
     valid = ids != INVALID_ID
@@ -521,6 +532,7 @@ def _rerank_band(points, queries, rj, res: RangeResult,
                            metric)
     amb = valid & (ub > rj[:, None])
     lanes_p, slots_p = torch.nonzero(amb, as_tuple=True)  # syncs on the band
+    trace.count("host_syncs")
     if lanes_p.numel() == 0:
         return res
     exact = torch.full_like(dists, torch.inf)
@@ -564,27 +576,31 @@ def _range_search_fused(corpus, graph: Graph, queries, start_ids, r,
     points = hot_arm(corpus)
     r = broadcast_radius(r, queries.shape[0], device=points.device)
     queries = queries.to(device=points.device, dtype=torch.float32).contiguous()
-    st = beam_search_batch(points, graph, queries, start_ids, r, cfg.search,
-                           es_radius)
-    if cfg.mode in ("beam", "doubling"):
-        phase2 = (st.active_width > cfg.search.beam if cfg.mode == "doubling"
-                  else None)
-        res = _result(st, r, cfg.result_cap, phase2)
-    else:
-        active = _needs_phase2(st, r, cfg.lam)
-        gs = greedy_search(points, graph, queries, r, st, cfg.result_cap,
-                           cfg.frontier_rounds, cfg.search, active)
-        base = _result(st, r, cfg.result_cap, active)
-        a2 = active[:, None]
-        res = dataclasses.replace(
-            base,
-            ids=torch.where(a2, gs.res_ids, base.ids),
-            dists=torch.where(a2, gs.res_dists, base.dists),
-            count=torch.where(active, gs.res_count, base.count),
-            overflow=torch.where(active, gs.overflow, base.overflow),
-            n_dist=st.n_dist + torch.where(active, gs.n_dist, 0))
-    return finalize_results(corpus, queries, r, res, cfg, tombstones, labels,
-                            label_filter)
+    with trace.span("range.phase1"):
+        st = beam_search_batch(points, graph, queries, start_ids, r, cfg.search,
+                               es_radius)
+        if cfg.mode in ("beam", "doubling"):
+            phase2 = (st.active_width > cfg.search.beam if cfg.mode == "doubling"
+                      else None)
+            res = _result(st, r, cfg.result_cap, phase2)
+    if cfg.mode == "greedy":
+        with trace.span("range.select"):
+            active = _needs_phase2(st, r, cfg.lam)
+        with trace.span("range.phase2"):
+            gs = greedy_search(points, graph, queries, r, st, cfg.result_cap,
+                               cfg.frontier_rounds, cfg.search, active)
+            base = _result(st, r, cfg.result_cap, active)
+            a2 = active[:, None]
+            res = dataclasses.replace(
+                base,
+                ids=torch.where(a2, gs.res_ids, base.ids),
+                dists=torch.where(a2, gs.res_dists, base.dists),
+                count=torch.where(active, gs.res_count, base.count),
+                overflow=torch.where(active, gs.overflow, base.overflow),
+                n_dist=st.n_dist + torch.where(active, gs.n_dist, 0))
+    with trace.span("range.result"):
+        return finalize_results(corpus, queries, r, res, cfg, tombstones, labels,
+                                label_filter)
 
 
 # ---------------------------------------------------------------------------
@@ -603,45 +619,50 @@ def _walk_compacted(corpus, graph: Graph, queries, start_ids, r,
         es_radius, queries.shape[0], device=dev)
 
     def finish(res: RangeResult) -> RangeResult:
-        return finalize_results(corpus, queries, rj, res, cfg, tombstones,
-                                labels, label_filter)
+        with trace.span("range.result"):
+            return finalize_results(corpus, queries, rj, res, cfg, tombstones,
+                                    labels, label_filter)
 
     # phase 1 runs at the BASE beam for every mode; doubling restarts only
     # its survivors with widening enabled (paper Alg. 5)
     p1_search = cfg.search if cfg.mode != "doubling" else dataclasses.replace(
         cfg.search, max_beam=cfg.search.beam,
         visit_cap=min(cfg.search.visit_cap, 4 * cfg.search.beam))
-    st = beam_search_batch(points, graph, queries, start_ids, rj, p1_search, esj)
-    base = _result(st, rj, cfg.result_cap)
+    with trace.span("range.phase1"):
+        st = beam_search_batch(points, graph, queries, start_ids, rj, p1_search, esj)
+        base = _result(st, rj, cfg.result_cap)
     if cfg.mode == "beam":
         return finish(base)
 
-    active = _needs_phase2(st, rj, cfg.lam)
-    sel = torch.nonzero(active).flatten()
+    with trace.span("range.select"):
+        active = _needs_phase2(st, rj, cfg.lam)
+        sel = torch.nonzero(active).flatten()   # syncs on the survivors' count
+        trace.count("host_syncs")
     if sel.numel() == 0:
         return finish(base)
-    # The reference pads the survivors to a power of two to bound its jit
-    # variants; eager PyTorch needs no padding and the lanes are independent.
-    sub_q, sub_r = queries[sel], rj[sel]
-    if cfg.mode == "doubling":
-        sub_starts = start_ids if start_ids.dim() == 1 else start_ids[sel]
-        st2 = beam_search_batch(points, graph, sub_q, sub_starts, sub_r,
-                                cfg.search, None if esj is None else esj[sel])
-        ids, dists, count, over = _beam_results(st2, sub_r, cfg.result_cap)
-        nd = st2.n_dist
-    else:
-        gs = greedy_search(points, graph, sub_q, sub_r, st.select(sel),
-                           cfg.result_cap, cfg.frontier_rounds, cfg.search)
-        ids, dists, count, over, nd = (gs.res_ids, gs.res_dists, gs.res_count,
-                                       gs.overflow, gs.n_dist)
-    merged = dataclasses.replace(
-        base,
-        ids=base.ids.index_copy(0, sel, ids),
-        dists=base.dists.index_copy(0, sel, dists),
-        count=base.count.index_copy(0, sel, count),
-        overflow=base.overflow.index_copy(0, sel, over),
-        n_dist=base.n_dist.index_add(0, sel, nd),
-        phase2=active)
+    with trace.span("range.phase2"):
+        # The reference pads the survivors to a power of two to bound its jit
+        # variants; eager PyTorch needs no padding and the lanes are independent.
+        sub_q, sub_r = queries[sel], rj[sel]
+        if cfg.mode == "doubling":
+            sub_starts = start_ids if start_ids.dim() == 1 else start_ids[sel]
+            st2 = beam_search_batch(points, graph, sub_q, sub_starts, sub_r,
+                                    cfg.search, None if esj is None else esj[sel])
+            ids, dists, count, over = _beam_results(st2, sub_r, cfg.result_cap)
+            nd = st2.n_dist
+        else:
+            gs = greedy_search(points, graph, sub_q, sub_r, st.select(sel),
+                               cfg.result_cap, cfg.frontier_rounds, cfg.search)
+            ids, dists, count, over, nd = (gs.res_ids, gs.res_dists, gs.res_count,
+                                           gs.overflow, gs.n_dist)
+        merged = dataclasses.replace(
+            base,
+            ids=base.ids.index_copy(0, sel, ids),
+            dists=base.dists.index_copy(0, sel, dists),
+            count=base.count.index_copy(0, sel, count),
+            overflow=base.overflow.index_copy(0, sel, over),
+            n_dist=base.n_dist.index_add(0, sel, nd),
+            phase2=active)
     return finish(merged)
 
 
